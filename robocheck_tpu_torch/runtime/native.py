@@ -1,0 +1,81 @@
+"""ctypes binding to the native float64 oracle (`native/robocheck_native.cpp`,
+the same shared library the JAX package binds).
+
+Build with ``make -C native``. The library is an accelerator, not a
+dependency: `oracle.check_configs` falls back to the NumPy oracle when
+``available()`` is false. Only the oracle entry point is bound here; the
+library's parsers and distance query are not used by this package.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from pathlib import Path
+
+import numpy as np
+
+_REPO_ROOT = Path(__file__).resolve().parents[2]
+# A user-supplied library (env var) always wins over the in-repo build.
+_LIB_PATHS = [
+    Path(os.environ.get("ROBOCHECK_NATIVE_LIB", "")) if os.environ.get(
+        "ROBOCHECK_NATIVE_LIB") else None,
+    _REPO_ROOT / "native" / "librobocheck_native.so",
+]
+
+_lib = None
+_tried = False
+
+
+def _load():
+    global _lib, _tried
+    if _tried:
+        return _lib
+    _tried = True
+    for p in _LIB_PATHS:
+        if p and p.exists():
+            try:
+                lib = ctypes.CDLL(str(p))
+            except OSError:
+                continue
+            lib.rc_oracle_check.restype = ctypes.c_int64
+            lib.rc_oracle_check.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p,
+            ]
+            _lib = lib
+            break
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def oracle_check(rob_verts: np.ndarray, rob_tris: np.ndarray,
+                 obs_verts: np.ndarray, obs_tris: np.ndarray,
+                 confs: np.ndarray) -> np.ndarray:
+    """Native double-precision oracle; returns valid[N] bool."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library not built (make -C native)")
+    rv = np.ascontiguousarray(rob_verts, dtype=np.float64)
+    rt = np.ascontiguousarray(rob_tris, dtype=np.int32)
+    ov = np.ascontiguousarray(obs_verts, dtype=np.float64)
+    ot = np.ascontiguousarray(obs_tris, dtype=np.int32)
+    cf = np.ascontiguousarray(confs, dtype=np.float32)
+    n = cf.shape[0]
+    out = np.empty((n,), dtype=np.int8)
+    got = lib.rc_oracle_check(
+        _ptr(rv), _ptr(rt), rv.shape[0], rt.shape[0],
+        _ptr(ov), _ptr(ot), ov.shape[0], ot.shape[0],
+        _ptr(cf), n, _ptr(out),
+    )
+    if got != n:
+        raise RuntimeError(f"native oracle checked {got} of {n} configurations")
+    return out.astype(bool)

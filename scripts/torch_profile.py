@@ -1,0 +1,214 @@
+"""Where the time of the port's main path goes, on one CUDA card.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 scripts/torch_profile.py [--runs 10] [--out build/torch_profile]
+
+For the alpha-1.0 pair over hard10k and easy10k (10,000 rows each) it prints:
+  * layers: host time of each step of `MegaKernelChecker.check_valid_resolved`
+    (validate, upload, pose, kernel, fetch, resolve), each ended by
+    `torch.cuda.synchronize()`, the kernel also with CUDA events, and the
+    whole call unbroken; median, min and max of `--runs` runs after a warm-up;
+  * trace: `--runs` calls under `torch.profiler`; the device's busy time per
+    call (union of its kernel and copy intervals in the trace), the profiled
+    call's wall time, and the busy time over the unprofiled median call;
+  * batch: the kernel's CUDA-event time on hard10k[:n] for growing n;
+  * fma: the kernel built with -fmad=true against the shipped -fmad=false
+    build on the same poses: verdict bytes that differ, and the time of each
+    (means of `--runs` launches, in the order false, true, true, false).
+Every line carries the card's name and power limit. The traces go to `--out`.
+Imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from robocheck_tpu_torch import MegaKernelChecker, load_obj, read_conf_file  # noqa: E402
+from robocheck_tpu_torch.core.types import validate_confs  # noqa: E402
+from robocheck_tpu_torch.io import assets  # noqa: E402
+from robocheck_tpu_torch.kernels import _build  # noqa: E402
+from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
+from robocheck_tpu_torch.oracle import resolve_coplanar  # noqa: E402
+
+KEYS = ("hard10k", "easy10k")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def host_ms(fn):
+    """(host ms of fn() up to a device sync, its result)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean CUDA-event ms of one call over `reps` calls, after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def spread(xs) -> str:
+    return f"median {statistics.median(xs)} (min {min(xs)}, max {max(xs)})"
+
+
+def layers(checker, confs, runs: int) -> dict:
+    """Host ms of each step of check_valid_resolved, as that method runs them
+    (all rows in one launch), and of the whole call."""
+    steps = {k: [] for k in ("validate", "upload", "pose", "kernel", "kernel_events",
+                             "fetch", "resolve", "end_to_end")}
+    for i in range(runs + 1):
+        ms = {}
+        ms["validate"], c = host_ms(
+            lambda: validate_confs(confs) if np.isfinite(confs).all() else None)
+        ms["upload"], dev = host_ms(lambda: torch.from_numpy(c).to(checker.device))
+        ms["pose"], poses = host_ms(lambda: mk.poses_from_confs(dev))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ms["kernel"], packed = host_ms(lambda: mk.check_poses_cuda(poses, checker.tables))
+        end.record()
+        end.synchronize()
+        ms["kernel_events"] = start.elapsed_time(end)
+        ms["fetch"], packed = host_ms(lambda: packed.cpu().numpy())
+        valid, cop = (packed & 1).astype(bool), (packed >> 1).astype(bool)
+        ms["resolve"], _ = host_ms(lambda: resolve_coplanar(
+            checker.robot, checker.obstacle, confs, valid, cop))
+        ms["end_to_end"], _ = host_ms(lambda: checker.check_valid_resolved(confs))
+        if i:  # the first run is the warm-up
+            for k, v in ms.items():
+                steps[k].append(v)
+    return steps
+
+
+def trace(checker, confs, runs: int, path: Path) -> dict:
+    """Device busy ms per call from a torch.profiler trace of `runs` calls."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    checker.check_valid_resolved(confs)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            checker.check_valid_resolved(confs)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:  # union of the device intervals, in µs
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return {"device_busy_ms": busy / 1e3 / runs, "profiled_wall_ms": wall,
+            "device_events": len(spans)}
+
+
+@contextlib.contextmanager
+def nvcc_flags(flags):
+    """Build and launch the kernel with other nvcc flags inside the block."""
+    saved = _build.NVCC_FLAGS
+    _build.NVCC_FLAGS = tuple(flags)
+    _build.build.cache_clear()
+    _build.library.cache_clear()
+    try:
+        yield
+    finally:
+        _build.NVCC_FLAGS = saved
+        _build.build.cache_clear()
+        _build.library.cache_clear()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--out", type=Path, default=REPO / "build" / "torch_profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile: no CUDA device")
+    args.out.mkdir(parents=True, exist_ok=True)
+    card = card_line()
+    device = torch.device("cuda", 0)
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    robot = load_obj(assets.alpha_robot_path())
+    obstacle = load_obj(assets.alpha_obstacle_path())
+    checker = MegaKernelChecker(robot, obstacle, device=device)
+    data = {k: read_conf_file(assets.dataset_path(k)).confs for k in KEYS}
+    report = {"card": card}
+
+    for key in KEYS:
+        steps = layers(checker, data[key], args.runs)
+        tr = trace(checker, data[key], args.runs, args.out / f"trace_{key}.json")
+        e2e = statistics.median(steps["end_to_end"])
+        tr["busy_over_unprofiled_median"] = tr["device_busy_ms"] / e2e
+        report[key] = {"layers_ms": steps, "trace": tr}
+        print(f"[layers] [{card}] {key}: host ms, {args.runs} runs after a warm-up")
+        for name, xs in steps.items():
+            print(f"  {name}: {spread(xs)}")
+        print(f"[trace] [{card}] {key}: device busy {tr['device_busy_ms']} ms per call "
+              f"({tr['device_events']} device events in {args.runs} calls); profiled "
+              f"call {tr['profiled_wall_ms']} ms; busy over the unprofiled median call "
+              f"{tr['busy_over_unprofiled_median']}")
+
+    hard = mk.poses_from_confs(torch.from_numpy(data["hard10k"]).to(device))
+    report["batch_ms"] = {}
+    for n in (1024, 2048, 4096, 10000):
+        rows = hard[:n].contiguous()
+        ms = event_ms(lambda: mk.check_poses_cuda(rows, checker.tables), args.runs)
+        report["batch_ms"][n] = ms
+        print(f"[batch] [{card}] kernel on hard10k[:{n}]: {ms} ms")
+
+    fma = [f.replace("-fmad=false", "-fmad=true") for f in _build.NVCC_FLAGS]
+    with nvcc_flags(fma):
+        _, log = _build.build()
+    print("[fma] -fmad=true ptxas: " + "; ".join(
+        ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln))
+    report["fma"] = {}
+    for key in KEYS:
+        poses = mk.poses_from_confs(torch.from_numpy(data[key]).to(device))
+        outs, times = {}, {"false": [], "true": []}
+        for mode in ("false", "true", "true", "false"):
+            with nvcc_flags(_build.NVCC_FLAGS if mode == "false" else fma):
+                times[mode].append(event_ms(
+                    lambda: mk.check_poses_cuda(poses, checker.tables), args.runs))
+                outs[mode] = mk.check_poses_cuda(poses, checker.tables).cpu().numpy()
+        diff = int((outs["false"] != outs["true"]).sum())
+        t_off, t_on = statistics.mean(times["false"]), statistics.mean(times["true"])
+        report["fma"][key] = {"bytes_differ": diff, "fmad_false_ms": t_off,
+                              "fmad_true_ms": t_on}
+        print(f"[fma] [{card}] {key}: {diff} verdict bytes differ; kernel "
+              f"-fmad=false {t_off} ms, -fmad=true {t_on} ms")
+
+    (args.out / "report.json").write_text(json.dumps(report, indent=1))
+    print(f"report: {args.out / 'report.json'}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,324 @@
+"""The port's fused check (`robocheck_tpu_torch.kernels.megakernel`) against
+the JAX package's Pallas kernel, run in interpret mode as
+tests/test_megakernel.py runs it.
+
+On the CPU the checker runs the kernel's PyTorch twin; the CUDA kernel is
+held against that twin on the card by `chip_smoke.py`. The two packages are
+compared on identical tables (`prep_from_arrays`) and, where the kernel is
+compared, on the JAX pose rows: `valid` must be equal, and `coplanar` equal
+where valid (a colliding configuration's coplanar bit depends on the order in
+which the kernel visits tiles).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from robocheck_tpu.kernels import megakernel as jmk
+from robocheck_tpu.models.shapes import box as j_box
+from robocheck_tpu.models.shapes import icosphere as j_icosphere
+from robocheck_tpu.models.shapes import tetrahedron as j_tetrahedron
+from robocheck_tpu.oracle import cpu_oracle as j_oracle
+from robocheck_tpu_torch.core.types import Mesh
+from robocheck_tpu_torch.io import assets
+from robocheck_tpu_torch.io.obj import load_obj
+from robocheck_tpu_torch.kernels import megakernel as mk
+from robocheck_tpu_torch.oracle import check_configs
+
+
+def _mesh(m):
+    """A JAX-package Mesh as this package's Mesh (same arrays)."""
+    return Mesh(m.vertices, m.triangles, m.name)
+
+
+def _sphere_scene():
+    robot = j_icosphere(1, radius=1.0, name="robot")  # 80 triangles
+    obstacle = j_icosphere(1, radius=1.5, name="obstacle")
+    rng = np.random.default_rng(77)
+    confs = np.zeros((16, 6), dtype=np.float32)
+    # Deep overlap, shell-crossing, near-miss and far-away rows.
+    confs[:, 0] = np.concatenate([
+        rng.uniform(0.0, 0.4, 4), rng.uniform(0.4, 2.6, 6),
+        rng.uniform(2.6, 2.7, 2), rng.uniform(5.0, 50.0, 4)]).astype(np.float32)
+    confs[:, 3:6] = rng.uniform(-np.pi, np.pi, (16, 3)).astype(np.float32)
+    return robot, obstacle, confs
+
+
+def _tetra_scene():
+    # Interlocking tetrahedra collide at the identity and clear at +100x
+    # (`test-narrow-phase.cu:628-686`).
+    robot = j_tetrahedron()
+    obstacle = type(robot)(np.array([[1, 0.1, 0], [1.5, 1, 2.2], [1, 2.4, 0],
+                                     [3.3, 2, 2]], np.float32), robot.triangles,
+                           "obs-tetra")
+    confs = np.zeros((2, 6), np.float32)
+    confs[1, 0] = 100.0
+    return robot, obstacle, confs
+
+
+def _mismatched_scale_scene():
+    # A unit box on the faces of a 1e4-scale tetrahedron: every plane ratio is
+    # below TOL, so the ratio test flags coplanar (tests/test_megakernel.py::
+    # test_mismatched_scale_coplanar_precheck).
+    robot = j_box(extent=(2.0, 2.0, 2.0))
+    obstacle = j_tetrahedron(scale=1.0e4)
+    confs = np.zeros((8, 6), dtype=np.float32)
+    confs[:, 0:3] = np.array([
+        [6.0e3, 1.8e4, 1.0e4], [6.0e3 + 0.5, 1.8e4, 1.0e4],
+        [2.0e4 - 10.0, 1.9e4, 1.99e4], [0.0, 1.99e4, 5.0],
+        [6.0e3, 1.8e4, 1.0e4 - 2.0], [0.0, 5.0e3, 5.0e3],
+        [1.0, 5.0e3, 5.0e3], [9.0e5, 9.0e5, 9.0e5]], dtype=np.float32)
+    confs[:, 3:6] = np.random.default_rng(3).uniform(
+        -np.pi, np.pi, (8, 3)).astype(np.float32)
+    return robot, obstacle, confs
+
+
+@pytest.fixture(scope="module")
+def port_alpha():
+    return (load_obj(assets.alpha_robot_path()),
+            load_obj(assets.alpha_obstacle_path()))
+
+
+@pytest.fixture(scope="module")
+def cpu_checker(port_alpha):
+    return mk.MegaKernelChecker(*port_alpha, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def sphere_checker():
+    robot, obstacle, _ = _sphere_scene()
+    return mk.MegaKernelChecker(_mesh(robot), _mesh(obstacle), device="cpu")
+
+
+def _assert_tables_equal(a: mk.MegaKernelPrep, b: mk.MegaKernelPrep):
+    for name in ("rob_base", "obs", "obs_mesh", "obs_groups"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype == np.float32, name
+        assert x.shape == y.shape, name
+        # Bitwise, +-inf padding and signed zeros included.
+        np.testing.assert_array_equal(x.view(np.uint32), y.view(np.uint32), name)
+
+
+@pytest.mark.parametrize("scene", ["alpha", "icospheres", "icospheres-no-morton"])
+def test_prep_build_bit_identical_to_jax(scene, alpha_meshes):
+    if scene == "alpha":
+        robot, obstacle = alpha_meshes
+    else:
+        robot, obstacle = j_icosphere(2, 1.0), j_icosphere(1, 1.5)
+    morton = scene != "icospheres-no-morton"
+    ref = jmk.MegaKernelPrep.build(robot, obstacle, morton=morton)
+    mine = mk.MegaKernelPrep.build(_mesh(robot), _mesh(obstacle), morton=morton)
+    _assert_tables_equal(mine, mk.prep_from_arrays(
+        ref.rob_base, ref.obs_t, ref.obs_mesh_aabb, ref.obs_group_aabbs))
+    assert mine.obs.shape[0] // mk.GROUP == ref.num_obs_tiles
+
+
+def test_prep_layout(port_alpha):
+    prep = mk.MegaKernelPrep.build(*port_alpha)
+    assert prep.rob_base.shape == (10, 1024) and prep.obs.shape == (1024, 20)
+    assert prep.rob_base[9, :1008].all() and not prep.rob_base[9, 1008:].any()
+    assert not prep.rob_base[:9, 1008:].any()  # padding corners are zeros
+    assert np.all(prep.obs[1008:, 13:16] == np.inf)
+    assert np.all(prep.obs[1008:, 16:19] == -np.inf)
+    assert prep.obs_groups.shape == (8, 6)
+    dev = prep.to("cpu")
+    assert all(isinstance(t, torch.Tensor) and t.is_contiguous()
+               for t in (dev.rob_base, dev.obs, dev.obs_mesh, dev.obs_groups))
+
+
+def _jax_scene_verdicts(robot, obstacle, confs):
+    """JAX interpret-mode kernel verdicts and the JAX pose rows it used."""
+    ck = jmk.MegaKernelChecker(robot, obstacle, interpret=True)
+    valid, cop = ck.check_valid(confs, chunk=64)
+    poses = np.array(jax.jit(jmk.poses_from_confs)(jnp.asarray(confs)))
+    return ck.prep, poses, valid, cop
+
+
+@pytest.mark.parametrize("scene", ["spheres", "tetrahedra", "mismatched-scale",
+                                   "hard10k[:64]"])
+def test_twin_matches_interpret_kernel(scene, alpha_meshes, hard10k):
+    if scene == "hard10k[:64]":
+        (robot, obstacle), confs = alpha_meshes, hard10k.confs[:64]
+    else:
+        robot, obstacle, confs = {"spheres": _sphere_scene,
+                                  "tetrahedra": _tetra_scene,
+                                  "mismatched-scale": _mismatched_scale_scene}[scene]()
+    jprep, poses, valid, cop = _jax_scene_verdicts(robot, obstacle, confs)
+    prep = mk.prep_from_arrays(jprep.rob_base, jprep.obs_t, jprep.obs_mesh_aabb,
+                               jprep.obs_group_aabbs).to("cpu")
+    packed = mk.check_poses_reference(torch.from_numpy(poses), prep).numpy()
+    assert packed.dtype == np.uint8 and packed.shape == (len(confs),)
+    t_valid, t_cop = (packed & 1).astype(bool), (packed >> 1).astype(bool)
+    np.testing.assert_array_equal(t_valid, valid)
+    np.testing.assert_array_equal(t_cop[valid], cop[valid])
+    if scene == "tetrahedra":
+        np.testing.assert_array_equal(t_valid, [False, True])
+    if scene == "mismatched-scale":
+        assert t_cop[t_valid].any()  # the fixture reaches the coplanar flag
+    if scene == "hard10k[:64]":
+        np.testing.assert_array_equal(t_valid, hard10k.valid[:64])
+
+
+@pytest.mark.parametrize("key", ["hard10k", "easy10k"])
+def test_check_valid_resolved_matches_tags(key, cpu_checker, request):
+    ds = request.getfixturevalue(key)
+    valid = cpu_checker.check_valid_resolved(ds.confs[:512])
+    assert valid.dtype == bool
+    np.testing.assert_array_equal(valid, ds.valid[:512])
+
+
+def test_checker_matches_jax_checker_on_spheres(sphere_checker):
+    robot, obstacle, confs = _sphere_scene()
+    v, c = sphere_checker.check_valid(confs)
+    jv, jc = jmk.MegaKernelChecker(robot, obstacle, interpret=True).check_valid(confs)
+    np.testing.assert_array_equal(v, jv)
+    np.testing.assert_array_equal(c[v], jc[jv])
+    np.testing.assert_array_equal(v, j_oracle.check_configs(robot, obstacle, confs))
+
+
+class TestCheckValid:
+    """Chunking, non-finite rows and chunk-uniform batches
+    (tests/test_megakernel.py::TestCheckValid)."""
+
+    def test_non_divisible_multi_chunk(self, sphere_checker):
+        confs = np.random.default_rng(3).uniform(-2.0, 2.0, (19, 6)).astype(np.float32)
+        v8, c8 = sphere_checker.check_valid(confs, chunk=8)
+        v, c = sphere_checker.check_valid(confs)
+        np.testing.assert_array_equal(v8, v)
+        np.testing.assert_array_equal(c8, c)
+        robot, obstacle, _ = _sphere_scene()
+        np.testing.assert_array_equal(v8, j_oracle.check_configs(robot, obstacle, confs))
+        assert v8.any() and not v8.all()
+
+    def test_nonfinite_rows(self, sphere_checker):
+        confs = np.zeros((6, 6), np.float32)
+        confs[0, 0] = np.nan
+        confs[2, 3] = np.inf
+        confs[4, 0] = 100.0  # far away -> valid
+        v, c = sphere_checker.check_valid(confs, chunk=8)
+        assert not v[0] and not v[2]  # non-finite poses are never valid
+        assert v[4]
+        assert not c[0] and not c[2]
+        robot, obstacle, _ = _sphere_scene()
+        jv, _ = jmk.MegaKernelChecker(robot, obstacle, interpret=True).check_valid(confs)
+        np.testing.assert_array_equal(v, jv)
+
+    def test_all_miss_and_all_hit_chunks(self, sphere_checker):
+        far = np.zeros((8, 6), np.float32)
+        far[:, 0] = 1000.0
+        near = np.zeros((8, 6), np.float32)
+        near[:, 0] = 1.0  # shells cross at |t| in (0.5, 2.5)
+        v, c = sphere_checker.check_valid(np.concatenate([far, near]), chunk=8)
+        assert v[:8].all() and not v[8:].any()
+        assert not c[:8].any()
+
+    def test_empty_batch(self, sphere_checker):
+        v, c = sphere_checker.check_valid(np.zeros((0, 6), np.float32))
+        assert v.shape == c.shape == (0,)
+
+
+class TestCoplanarResolution:
+    """Face-on-face contact that float32 flags coplanar and float64 resolves
+    as colliding (tests/test_megakernel.py::TestCoplanarResolution). The
+    fixture, two triangles in one tilted plane at ~300-unit coordinates, was
+    found by search under this package's arithmetic, which rounds each
+    multiply and add on its own. The JAX test's fixture is not flagged here:
+    its signed distances are rounding noise (|n.c| ~ 1e7, where a float32
+    ulp is 1) that XLA on the CPU computes with fused multiply-adds."""
+
+    RT = np.array([[-172.35173, 118.57849, -337.86478],
+                   [-168.62619, 71.0307, -215.03616],
+                   [-280.98154, 165.06941, -53.021297]], dtype=np.float32)
+    OT = np.array([[-148.91972, 43.489243, -211.57489],
+                   [-222.59364, 145.73175, -222.42876],
+                   [-204.12267, 60.86192, -48.782146]], dtype=np.float32)
+
+    def _checker(self):
+        tris = np.array([[0, 1, 2]], np.int32)
+        return mk.MegaKernelChecker(Mesh(self.RT, tris, "r"), Mesh(self.OT, tris, "o"),
+                                    device="cpu")
+
+    def test_flagged_then_resolved_colliding(self):
+        ck = self._checker()
+        confs = np.zeros((1, 6), np.float32)
+        valid, cop = ck.check_valid(confs)
+        assert valid[0] and cop[0], "fixture must be flagged-but-unresolved"
+        assert not ck.check_valid_resolved(confs)[0], "exact geometry collides"
+        assert not check_configs(ck.robot, ck.obstacle, confs)[0]
+
+    def test_far_rows_not_flagged(self):
+        ck = self._checker()
+        confs = np.zeros((4, 6), np.float32)
+        confs[:, 0] = 1e5
+        valid, cop = ck.check_valid(confs)
+        assert valid.all() and not cop.any()
+        assert ck.check_valid_resolved(confs).all()
+
+
+def test_mismatched_scale_resolved_matches_oracle():
+    robot, obstacle, confs = _mismatched_scale_scene()
+    ck = mk.MegaKernelChecker(_mesh(robot), _mesh(obstacle), device="cpu")
+    _, cop = ck.check_valid(confs)
+    assert cop.any()
+    np.testing.assert_array_equal(ck.check_valid_resolved(confs),
+                                  j_oracle.check_configs(robot, obstacle, confs))
+
+
+def test_morton_off_same_verdicts(sphere_checker):
+    robot, obstacle, confs = _sphere_scene()
+    plain = mk.MegaKernelChecker(_mesh(robot), _mesh(obstacle), device="cpu",
+                                 morton=False)
+    np.testing.assert_array_equal(plain.check_valid(confs)[0],
+                                  sphere_checker.check_valid(confs)[0])
+
+
+def test_cuda_device_raises_without_a_card(port_alpha):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card error")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mk.MegaKernelChecker(*port_alpha, device="cuda")
+
+
+def test_unsupported_device_raises(port_alpha):
+    with pytest.raises(ValueError, match="unsupported device"):
+        mk.MegaKernelChecker(*port_alpha, device="meta")
+
+
+def test_cuda_wrapper_refuses_cpu_tensors(cpu_checker):
+    poses = mk.poses_from_confs(torch.zeros((4, 6)))
+    launches = mk.check_poses_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mk.check_poses_cuda(poses, cpu_checker.tables)
+    assert mk.check_poses_cuda.launches == launches
+    # A CPU checker runs the twin and never reaches the kernel's wrapper.
+    valid, _ = cpu_checker.check_valid(np.zeros((4, 6), np.float32))
+    assert valid.shape == (4,)
+    assert mk.check_poses_cuda.launches == launches
+
+
+def test_twin_broad_miss_and_padding_rows(cpu_checker):
+    # Far rows end at the mesh-box broad phase (byte 1); a row posed at the
+    # origin of the obstacle's frame must not collide through the zero
+    # corners of the robot table's padding triangles.
+    confs = np.zeros((3, 6), np.float32)
+    confs[0, 0] = 1.0e9
+    confs[1, 0] = -1.0e9
+    poses = mk.poses_from_confs(torch.from_numpy(confs))
+    out = mk.check_poses_reference(poses, cpu_checker.tables).numpy()
+    assert out[0] == 1 and out[1] == 1
+    real_only = mk.MegaKernelPrep(
+        cpu_checker.tables.rob_base[:, :1008], cpu_checker.tables.obs,
+        cpu_checker.tables.obs_mesh, cpu_checker.tables.obs_groups)
+    assert out[2] == mk.check_poses_reference(poses, real_only).numpy()[2]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("key", ["hard10k", "easy10k", "samples10k"])
+def test_full_dataset_golden(key, cpu_checker, request):
+    ds = request.getfixturevalue(key)
+    valid = cpu_checker.check_valid_resolved(ds.confs)
+    if key == "samples10k":
+        assert int(valid.sum()) == ds.header_valid == 7296
+    else:
+        np.testing.assert_array_equal(valid, ds.valid)
