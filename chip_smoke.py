@@ -6,15 +6,21 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. the card: name, and `nvidia-smi` name and power limit;
-  2. build the CUDA kernel from `robocheck_tpu_torch/csrc/megakernel.cu`
-     (sm_90a, -fmad=false) and print the ptxas register / shared-memory /
-     spill lines;
+  2. build the CUDA sources `robocheck_tpu_torch/csrc/megakernel.cu` and
+     `stage_probes.cu` (sm_90a, -fmad=false; one nvcc each, started
+     together) and print the ptxas register / shared-memory / spill lines of
+     every kernel instance;
   3. the kernel against its plain PyTorch twin on the card, on the same pose
      rows: alpha-1.0 meshes over hard10k[:2048] and easy10k[:2048], two
      icosphere scenes (one with a 2200-triangle soup obstacle), the
      tetrahedra fixture and two coplanar fixtures. `valid`
      must be identical on every row, `coplanar` on every valid row (the
      tolerance is exact: both compute the same float32 operations);
+  3b. the counter kernel against its twin on the same scenes and the JAX
+     package's TestCoplanarResolution fixture: columns 0-6 identical on valid
+     rows, columns 0 and 3 on every row; on colliding rows the kernel's
+     columns 2 and 4-6 at most the twin's (its any-hit exit stops the
+     counts), with nrest >= 1;
   4. the main path, `MegaKernelChecker(..., device="cuda").check_valid_resolved`,
      on all 10,000 rows of hard10k and easy10k (0 golden mismatches each) and
      of 10,000samples (7296 valid, the file header's count), with the
@@ -23,7 +29,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      in torch.cuda.synchronize()), and the kernel alone and its twin alone
      at the main path's shape, all 10,000 rows of hard10k and of easy10k in
      one launch (CUDA events); their outputs are held against each other as
-     in phase 3.
+     in phase 3;
+  4b. the stats path: `checker.check` with two_phase True and False on all
+     10,000 rows of hard10k and easy10k (`valid` equal to `check_valid`'s on
+     every row; the counter kernel's broad column equal to `broad_block` on
+     every row with two_phase False, and 1 on every survivor of
+     `broad_block` with two_phase True), with the counter kernel's launch
+     counter above 0; `check_valid(presort=True)` equal to presort=False on
+     the three 10k sets; the counter kernel and its twin timed on hard10k and
+     held against each other as in 3b;
+  6. the stage-decomposition surface: every stage variant of the kernel on
+     hard10k (`scripts/torch_roofline.py`; the byte 1 on every row, timed
+     beside the full kernel) and every probe piece of P1-P3 at its script's
+     shape (`scripts/torch_bisect.py`; equal to its plain version, tolerance
+     0), each launched once with the launch counters set to 0 just before,
+     then timed with its plain version by CUDA events.
 The line before the last is the kernel table as JSON; the last line is the
 result as JSON. Without a CUDA device, or without the package beside it, it
 exits non-zero and prints no result.
@@ -32,7 +52,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -41,6 +60,21 @@ import torch
 
 REPLACES = "robocheck_tpu/kernels/megakernel.py:358"
 SOURCE = "robocheck_tpu_torch/csrc/megakernel.cu"
+PROBE_SOURCE = "robocheck_tpu_torch/csrc/stage_probes.cu"
+# The JAX knob each stage variant replaces (robocheck_tpu/kernels/megakernel.py).
+STAGE_REPLACES = {"nosweep": "robocheck_tpu/kernels/megakernel.py:625",
+                  "maskonly": "robocheck_tpu/kernels/megakernel.py:761",
+                  "planesonly": "robocheck_tpu/kernels/megakernel.py:770"}
+# The probe pieces each kernel-table entry is timed on, and the pallas_calls.
+PROBES = {1: ("P1_pose_probe", "mini_level3", "scripts/bisect_stage1.py:142,165"),
+          2: ("P2_empty_probe", "pose_only", "scripts/bisect_stage2.py:73"),
+          3: ("P3_invariant_probe", "auto_invariant_vmem",
+              "scripts/bisect_stage3.py:66,86,105")}
+# tests/test_megakernel.py::TestCoplanarResolution (JAX package), identity pose.
+JAX_COPLANAR_RT = [[-88.58568, -287.5827, -148.07309], [-105.54053, -122.13013, -65.34459],
+                   [9.788717, -353.9158, -98.061005]]
+JAX_COPLANAR_OT = [[-163.90807, -449.27316, -312.38596], [55.186058, -181.60817, 45.36783],
+                   [-9.889383, -480.09338, -190.76962]]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -48,47 +82,37 @@ def require(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int):
-    """(mean device time of one call over `reps` calls with CUDA events, the
-    last call's result)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, out
-
-
-def best_seconds(fn, runs: int = 5) -> float:
-    """Host time of the best of `runs` calls after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    return best
-
-
-def compare_on_card(mk, name, robot, obstacle, confs, device):
-    """Phase 3 for one scene: the kernel and its twin on the same pose rows."""
+def compare_on_card(mk, name, robot, obstacle, confs, device, scenes):
+    """Phase 3 for one scene: the kernel and its twin on the same pose rows.
+    Appends the scene to `scenes` for phase 3b."""
     prep = mk.MegaKernelPrep.build(robot, obstacle).to(device)
     poses = mk.poses_from_confs(torch.from_numpy(confs).to(device))
+    scenes.append((name, prep, poses))
     return compare_bits(name, mk.check_poses_cuda(poses, prep),
                         mk.check_poses_reference(poses, prep))
+
+
+def compare_stats(name, got, want):
+    """Counter rows of the kernel `got` against the twin's `want`: columns
+    0-6 identical on valid rows, 0 and 3 on every row; on colliding rows the
+    kernel's columns 2 and 4-6 at most the twin's and nrest >= 1. Returns the
+    max abs difference of the compared entries."""
+    got, want = got.cpu().numpy().astype(np.int64), want.cpu().numpy().astype(np.int64)
+    valid = want[:, 0] == 1
+    hit = ~valid
+    err = max(int(np.abs(got[valid, :7] - want[valid, :7]).max(initial=0)),
+              int(np.abs(got[:, [0, 3]] - want[:, [0, 3]]).max(initial=0)))
+    print(f"  {name}: {len(got)} rows ({int(valid.sum())} valid), pairs kernel/twin "
+          f"{int(got[:, 2].sum())}/{int(want[:, 2].sum())}, nfull "
+          f"{int(got[:, 4].sum())}/{int(want[:, 4].sum())}, ngate "
+          f"{int(got[:, 5].sum())}/{int(want[:, 5].sum())}, nrest "
+          f"{int(got[:, 6].sum())}/{int(want[:, 6].sum())}, max abs err {err}")
+    require(err == 0, f"{name}: counter rows differ from the twin")
+    require(bool((got[hit][:, [2, 4, 5, 6]] <= want[hit][:, [2, 4, 5, 6]]).all()),
+            f"{name}: a colliding row counts more than the twin")
+    require(bool((got[hit, 6] >= 1).all()), f"{name}: a colliding row has nrest 0")
+    require(not got[:, 7].any(), f"{name}: column 7 is not zero")
+    return err
 
 
 def compare_bits(name, got, want):
@@ -119,6 +143,8 @@ def main() -> None:
     from robocheck_tpu_torch.kernels import _build
     from robocheck_tpu_torch.kernels import megakernel as mk
     from robocheck_tpu_torch.models.shapes import box, icosphere, tetrahedron, triangle_soup
+    from robocheck_tpu_torch.profiling import probes
+    from robocheck_tpu_torch.profiling.timers import benchmark, card_line, event_ms
     from robocheck_tpu_torch.runtime import native
 
     require("jax" not in sys.modules and "robocheck_tpu" not in sys.modules,
@@ -133,13 +159,17 @@ def main() -> None:
 
     # ---- 2. Build. ----
     t0 = time.perf_counter()
-    path, log = _build.build()
-    _build.library()
-    print(f"[2] built {path.name} in {time.perf_counter() - t0:.1f} s "
-          f"({' '.join(_build.NVCC_FLAGS)})")
-    for line in log.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "stack frame")):
-            print(f"  {line.strip()}")
+    built = _build.build()
+    for name in built:
+        _build.library(name)
+    print(f"[2] built {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.perf_counter() - t0:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
+    for name, (_, log) in built.items():
+        print(f"  {name}:")
+        for line in log.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "smem",
+                                       "stack frame")):
+                print(f"    {line.strip()}")
 
     robot = load_obj(assets.alpha_robot_path())
     obstacle = load_obj(assets.alpha_obstacle_path())
@@ -150,23 +180,24 @@ def main() -> None:
     print("[3] kernel vs twin on the card (exact: valid on every row, "
           "coplanar on valid rows)")
     max_err = 0
+    scenes = []  # (name, tables, poses) for phase 3b
     for key in ("hard10k", "easy10k"):
         err, _, _ = compare_on_card(mk, f"alpha {key}[:2048]", robot, obstacle,
-                                    data[key].confs[:2048], device)
+                                    data[key].confs[:2048], device, scenes)
         max_err = max(max_err, err)
     rng = np.random.default_rng(77)
     sphere = np.zeros((256, 6), np.float32)
     sphere[:, 0] = rng.uniform(0.0, 3.0, 256)
     sphere[:, 3:6] = rng.uniform(-np.pi, np.pi, (256, 3))
     err, _, _ = compare_on_card(mk, "icospheres r1.0/r1.5", icosphere(1, 1.0),
-                                icosphere(1, 1.5), sphere, device)
+                                icosphere(1, 1.5), sphere, device, scenes)
     max_err = max(max_err, err)
     # 40 robot tiles x 18 obstacle groups: the gate's compaction takes
     # three rounds (the alpha pair fits one).
     soup = triangle_soup(np.random.default_rng(508), 2200, extent=1.0)
     soup_confs = np.random.default_rng(5).uniform(-1.5, 1.5, (512, 6)).astype(np.float32)
     err, n_valid, _ = compare_on_card(mk, "icosphere(3) in a 2200-triangle soup",
-                                      icosphere(3, 0.3), soup, soup_confs, device)
+                                      icosphere(3, 0.3), soup, soup_confs, device, scenes)
     require(0 < n_valid < len(soup_confs), "soup scene: expected both verdicts")
     max_err = max(max_err, err)
     tet = tetrahedron()
@@ -174,7 +205,8 @@ def main() -> None:
                             np.float32), tet.triangles, "obs-tetra")
     tet_confs = np.zeros((2, 6), np.float32)
     tet_confs[1, 0] = 100.0
-    err, n_valid, _ = compare_on_card(mk, "tetrahedra", tet, tet_obs, tet_confs, device)
+    err, n_valid, _ = compare_on_card(mk, "tetrahedra", tet, tet_obs, tet_confs, device,
+                                      scenes)
     require(n_valid == 1, "tetrahedra: expected row 0 colliding, row 1 clear")
     max_err = max(max_err, err)
     cop_confs = np.zeros((8, 6), np.float32)
@@ -185,7 +217,7 @@ def main() -> None:
     cop_confs[:, 3:6] = np.random.default_rng(3).uniform(-np.pi, np.pi, (8, 3))
     err, _, n_cop = compare_on_card(mk, "unit box on 1e4 tetrahedron (coplanar)",
                                     box(extent=(2.0, 2.0, 2.0)),
-                                    tetrahedron(scale=1.0e4), cop_confs, device)
+                                    tetrahedron(scale=1.0e4), cop_confs, device, scenes)
     require(n_cop > 0, "coplanar fixture flagged no valid row coplanar")
     max_err = max(max_err, err)
     one = np.array([[0, 1, 2]], np.int32)
@@ -194,9 +226,26 @@ def main() -> None:
     face_o = np.array([[-148.91972, 43.489243, -211.57489], [-222.59364, 145.73175, -222.42876],
                        [-204.12267, 60.86192, -48.782146]], np.float32)
     err, _, n_cop = compare_on_card(mk, "face on face (coplanar)", Mesh(face_r, one),
-                                    Mesh(face_o, one), np.zeros((1, 6), np.float32), device)
+                                    Mesh(face_o, one), np.zeros((1, 6), np.float32), device,
+                                    scenes)
     require(n_cop == 1, "face-on-face fixture not flagged coplanar")
     max_err = max(max_err, err)
+
+    # ---- 3b. The counter kernel against its twin, same pose rows. ----
+    print("[3b] counter kernel vs twin on the card (exact: columns 0-6 on valid rows, "
+          "0 and 3 on every row; colliding rows count at most the twin's)")
+    jax_fixture = mk.MegaKernelPrep.build(
+        Mesh(np.array(JAX_COPLANAR_RT, np.float32), one),
+        Mesh(np.array(JAX_COPLANAR_OT, np.float32), one)).to(device)
+    scenes.append(("JAX TestCoplanarResolution fixture, identity pose", jax_fixture,
+                   mk.poses_from_confs(torch.zeros((1, 6), device=device))))
+    stats_err = 0
+    for name, prep, poses in scenes:
+        got = mk.check_poses_stats_cuda(poses, prep)
+        stats_err = max(stats_err, compare_stats(
+            name, got, mk.check_poses_stats_reference(poses, prep)))
+    print(f"  JAX coplanar fixture, card row [valid, coplanar, num_pairs, broad, nfull, "
+          f"ngate, nrest, 0] = {got[0].tolist()}")
 
     # ---- 4. The main path. ----
     checker = MegaKernelChecker(robot, obstacle, device="cuda")
@@ -226,7 +275,7 @@ def main() -> None:
     print(f"[5] times on {card}")
     for key in ("hard10k", "easy10k"):
         confs = data[key].confs
-        s = best_seconds(lambda: checker.check_valid_resolved(confs))
+        s = benchmark(checker.check_valid_resolved, confs)
         print(f"  [{card}] {key}: check_valid_resolved best of 5 {s * 1e3} ms, "
               f"{len(confs) / s} checks/s")
     # The kernel and its twin at the main path's shape (all rows of a set in
@@ -236,8 +285,10 @@ def main() -> None:
     times = {}
     for key in ("hard10k", "easy10k"):
         poses = mk.poses_from_confs(torch.from_numpy(data[key].confs).to(device))
-        k_ms, got = cuda_ms(lambda: mk.check_poses_cuda(poses, tables), reps=20)
-        p_ms, want = cuda_ms(lambda: mk.check_poses_reference(poses, tables), reps=1)
+        k_ms = event_ms(lambda: mk.check_poses_cuda(poses, tables), 20)
+        p_ms = event_ms(lambda: mk.check_poses_reference(poses, tables), 1)
+        got = mk.check_poses_cuda(poses, tables)
+        want = mk.check_poses_reference(poses, tables)
         times[key] = (k_ms, p_ms)
         print(f"  [{card}] kernel alone, {key} {list(poses.shape)} poses: {k_ms} ms; "
               f"twin: {p_ms} ms")
@@ -246,10 +297,107 @@ def main() -> None:
         max_err = max(max_err, err)
     kernel_ms, plain_ms = times["hard10k"]
 
-    print(json.dumps({"kernels": [{
-        "name": "megakernel", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    # ---- 4b. The stats path. ----
+    print("[4b] stats path: MegaKernelChecker(device='cuda').check, broad_block, "
+          "check_valid(presort=True)")
+    mk.check_poses_stats_cuda.launches = 0
+    mk.check_poses_cuda.launches = 0
+    checks = {(key, tp): checker.check(data[key].confs, two_phase=tp)
+              for key in ("hard10k", "easy10k") for tp in (True, False)}
+    presorted = {key: checker.check_valid(ds.confs, presort=True)
+                 for key, ds in data.items()}
+    torch.cuda.synchronize()
+    stats_launches = mk.check_poses_stats_cuda.launches
+    presort_launches = mk.check_poses_cuda.launches
+    require(stats_launches > 0, "the stats path launched no counter kernel")
+    for (key, tp), (valid, cop, pairs, broad) in checks.items():
+        ref_valid, _ = checker.check_valid(data[key].confs)
+        ref_broad = checker.broad_block(data[key].confs).cpu().numpy()
+        print(f"  check({key}, two_phase={tp}): {int(valid.sum())} valid, "
+              f"{int(broad.sum())} broad, {int(cop.sum())} coplanar, mean pairs on broad "
+              f"rows {float(pairs[broad].mean())}")
+        require(np.array_equal(valid, ref_valid), f"check({key}, {tp}): valid != check_valid")
+        if tp:
+            # check() returns broad_block's own mask here; hold the counter
+            # kernel's broad column on the survivors to it instead.
+            surv = np.flatnonzero(ref_broad)
+            col = checker.check_block(data[key].confs[surv])[:, 3].cpu().numpy()
+            require(bool((col == 1).all()), f"check({key}, True): the counter kernel's "
+                    "broad column is 0 on a broad_block survivor")
+        else:
+            require(np.array_equal(broad, ref_broad),
+                    f"check({key}, False): the counter kernel's broad != broad_block")
+    for key, (v_sorted, c_sorted) in presorted.items():
+        v_plain, c_plain = checker.check_valid(data[key].confs)
+        print(f"  check_valid({key}, presort=True): {int(v_sorted.sum())} valid")
+        require(np.array_equal(v_sorted, v_plain) and np.array_equal(c_sorted, c_plain),
+                f"{key}: presort changes a verdict")
+    print(f"  counter-kernel launches in the stats path: {stats_launches}; kernel "
+          f"launches under presort: {presort_launches}")
+    hard_poses = mk.poses_from_confs(torch.from_numpy(data["hard10k"].confs).to(device))
+    stats_ms = event_ms(lambda: mk.check_poses_stats_cuda(hard_poses, tables), 20)
+    stats_plain_ms = event_ms(lambda: mk.check_poses_stats_reference(hard_poses, tables), 1)
+    got = mk.check_poses_stats_cuda(hard_poses, tables)
+    want = mk.check_poses_stats_reference(hard_poses, tables)
+    print(f"  [{card}] counter kernel alone, hard10k {list(hard_poses.shape)}: {stats_ms} ms; "
+          f"twin: {stats_plain_ms} ms")
+    stats_err = max(stats_err, compare_stats("alpha hard10k, counter kernel vs twin",
+                                             got, want))
+
+    # ---- 6. The stage-decomposition surface. ----
+    print(f"[6] stage variants on hard10k {list(hard_poses.shape)} and probe pieces")
+    mk.check_poses_stage_cuda.launches = dict.fromkeys(mk.STAGES, 0)
+    probes.reset_launches()
+    stage_out = {s: mk.check_poses_stage_cuda(hard_poses, tables, s) for s in mk.STAGES}
+    pieces = {st: probes.stage_pieces(st, device, tables.rob_base) for st in (1, 2, 3)}
+    piece_out = {p.name: p.kernel() for st in pieces for p in pieces[st]}
+    torch.cuda.synchronize()
+    stage_launches = dict(mk.check_poses_stage_cuda.launches)
+    probe_launches = {1: sum(probes.pose_probe_cuda.launches.values()),
+                      2: probes.empty_probe_cuda.launches,
+                      3: sum(probes.invariant_probe_cuda.launches.values())}
+    print(f"  launches: stage variants {stage_launches}; probes P1 "
+          f"{probes.pose_probe_cuda.launches}, P2 {probe_launches[2]}, P3 "
+          f"{probes.invariant_probe_cuda.launches}")
+    entries = [
+        {"name": "megakernel", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+         "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "megakernel_stats", "route": "cuda", "source": SOURCE,
+         "replaces": "robocheck_tpu/kernels/megakernel.py:1126", "launches": stats_launches,
+         "max_abs_err": stats_err, "ms": stats_ms, "plain_ms": stats_plain_ms}]
+    full_ms = event_ms(lambda: mk.check_poses_cuda(hard_poses, tables), 20)
+    for stage, out in stage_out.items():
+        require(stage_launches[stage] > 0, f"stage variant {stage} was not launched")
+        err = int((out.int() - 1).abs().max())
+        s_ms = event_ms(lambda: mk.check_poses_stage_cuda(hard_poses, tables, stage), 20)
+        p_ms = event_ms(lambda: torch.ones_like(out), 20)
+        print(f"  [{card}] {stage}: {s_ms} ms (full kernel {full_ms} ms on the same rows); "
+              f"plain (the byte 1) {p_ms} ms; max abs err {err}")
+        require(err == 0, f"stage variant {stage}: a row is not the byte 1")
+        entries.append({"name": f"megakernel_{stage}", "route": "cuda", "source": SOURCE,
+                        "replaces": STAGE_REPLACES[stage], "launches": stage_launches[stage],
+                        "max_abs_err": err, "ms": s_ms, "plain_ms": p_ms})
+    for st, (name, timed, replaces) in PROBES.items():
+        require(probe_launches[st] > 0, f"probe {name} was not launched")
+        worst, timing = 0, None
+        for piece in pieces[st]:
+            err = int((piece_out[piece.name].long() - piece.plain().long()).abs().max())
+            k_ms = event_ms(piece.kernel, 20)
+            p_ms = event_ms(piece.plain, 2)
+            print(f"  [{card}] {name} {piece.name} [{piece.n}]: {k_ms} ms, plain {p_ms} ms, "
+                  f"max abs err {err}")
+            require(err == 0, f"{name} {piece.name}: differs from its plain version")
+            worst = max(worst, err)
+            if piece.name == timed:
+                timing = (k_ms, p_ms)
+        entries.append({"name": name, "route": "cuda", "source": PROBE_SOURCE,
+                        "replaces": replaces, "launches": probe_launches[st],
+                        "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                        "piece": timed})
+
+    print(card)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

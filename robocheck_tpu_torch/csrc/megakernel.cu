@@ -31,6 +31,28 @@
 //     loads), and the block takes the any-hit exit between rounds of tiles
 //     with __syncthreads_or.
 //
+// Instances (`template <bool kStats, int kStage>`):
+//   * <false, kFull>: the packed byte above, the checker's main path;
+//   * <true, kFull>: the counter row of the JAX kernel's stats output
+//     (`megakernel.py:1116-1120`), int32 [n, 8]: 0 valid, 1 coplanar,
+//     2 num_pairs, 3 broad, 4 nfull, 5 ngate, 6 nrest, 7 zero. Columns 4-6
+//     count THIS kernel's tile pairs (32 robot x 128 obstacle triangles),
+//     not the JAX kernel's 128 x 128 tiles: nfull = gated tile pairs with at
+//     least one box-overlapping pair (real robot triangle), ngate = gated
+//     tile pairs with none, nrest = tile pairs with at least one live pair
+//     (both planes straddle the +-TOL band). Counts cover the tile pairs
+//     visited before the any-hit exit, as the JAX kernel's do; warp sums
+//     are taken with __reduce_add_sync, so they are deterministic;
+//   * <false, kNoSweep / kMaskOnly / kPlanesOnly>: the stage-isolating
+//     variants of the JAX kernel's `sweep=False` and `stage_cap` 0 / 1
+//     (`megakernel.py:625-643, 761-774`), which `scripts/torch_roofline.py`
+//     times. Each keeps its stage's work live with `hit |= any && rt_false`
+//     (rt_false is a kernel argument, always 0), so it never sets hit or
+//     coplanar and writes the byte 1 on every row. Table values are never
+//     multiplied by that zero: the obstacle padding rows hold +-inf.
+// `if constexpr` keeps the counter and variant code out of the packed
+// instance.
+//
 // Arithmetic: build with -fmad=false and without fast math. The TOL=1e-6
 // bands and the >= interval tests were validated on arithmetic that rounds
 // each multiply and each add on its own; IEEE division and denormals stay at
@@ -51,6 +73,9 @@ constexpr int kRobFields = 19; // posed corners 0-8, n 9-11, d 12, lo 13-15, hi 
 constexpr int kF_N = 9, kF_D = 12, kF_LO = 13, kF_HI = 16;
 constexpr float kTol = 1e-6f;
 constexpr float kBig = 3.0e38f;  // fill of masked robot boxes
+constexpr int kStatCols = 8;     // columns of the stats instance's output row
+
+enum Stage : int { kFull = 0, kNoSweep = 1, kMaskOnly = 2, kPlanesOnly = 3 };
 
 // NaN-propagating min / max, as torch.minimum / jnp.minimum.
 __device__ __forceinline__ float min_nan(float a, float b) {
@@ -128,8 +153,22 @@ __device__ __forceinline__ bool ratio_coplanar(const float r[4], const float o[4
   return ok;
 }
 
+// Plane stage of one pair: the signed corner distances to the other plane.
+__device__ __forceinline__ void plane_dists(const float rf[kRobFields], const float oc[9],
+                                            const float4 a2, const float4 a3,
+                                            float dist_o[3], float dist_r[3]) {
+  const float nox = a2.y, noy = a2.z, noz = a2.w, dob = a3.x;
+  const float nrx = rf[kF_N], nry = rf[kF_N + 1], nrz = rf[kF_N + 2], drb = rf[kF_D];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    dist_o[c] = nrx * oc[3 * c] + nry * oc[3 * c + 1] + nrz * oc[3 * c + 2] + drb;
+    dist_r[c] = nox * rf[3 * c] + noy * rf[3 * c + 1] + noz * rf[3 * c + 2] + dob;
+  }
+}
+
 // Plane stage, interval stage and coplanar flag of one box-overlapping pair.
-__device__ __forceinline__ void pair_test(const float rf[kRobFields], const float4 a0,
+// Returns whether the pair is live (both planes straddled).
+__device__ __forceinline__ bool pair_test(const float rf[kRobFields], const float4 a0,
                                           const float4 a1, const float4 a2,
                                           const float4 a3, bool& hit, bool& cop) {
   const float oc[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x};
@@ -137,14 +176,10 @@ __device__ __forceinline__ void pair_test(const float rf[kRobFields], const floa
   const float nrx = rf[kF_N], nry = rf[kF_N + 1], nrz = rf[kF_N + 2], drb = rf[kF_D];
 
   float dist_o[3], dist_r[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    dist_o[c] = nrx * oc[3 * c] + nry * oc[3 * c + 1] + nrz * oc[3 * c + 2] + drb;
-    dist_r[c] = nox * rf[3 * c] + noy * rf[3 * c + 1] + noz * rf[3 * c + 2] + dob;
-  }
+  plane_dists(rf, oc, a2, a3, dist_o, dist_r);
   if (!straddles(dist_o[0], dist_o[1], dist_o[2]) ||
       !straddles(dist_r[0], dist_r[1], dist_r[2]))
-    return;
+    return false;
 
   const float Dx = nry * noz - nrz * noy;
   const float Dy = nrz * nox - nrx * noz;
@@ -165,6 +200,18 @@ __device__ __forceinline__ void pair_test(const float rf[kRobFields], const floa
   const bool coplanar = ratio_coplanar(pl_r, pl_o);
   hit = hit || (isect && !coplanar);
   cop = cop || coplanar;
+  return true;
+}
+
+// Plane stage only (the kPlanesOnly variant): whether the pair is live.
+__device__ __forceinline__ bool pair_live(const float rf[kRobFields], const float4 a0,
+                                          const float4 a1, const float4 a2,
+                                          const float4 a3) {
+  const float oc[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x};
+  float dist_o[3], dist_r[3];
+  plane_dists(rf, oc, a2, a3, dist_o, dist_r);
+  return straddles(dist_o[0], dist_o[1], dist_o[2]) &&
+         straddles(dist_r[0], dist_r[1], dist_r[2]);
 }
 
 __host__ __device__ constexpr size_t smem_floats(int tr) {
@@ -176,14 +223,19 @@ __host__ __device__ constexpr size_t smem_bytes(int tr, int n_groups) {
   return 4 * (smem_floats(tr) + size_t(tr / kRobTile) * n_groups + kWarps);
 }
 
+// `out` is uint8 [n] (packed instances) or int32 [n, kStatCols] (kStats).
+template <bool kStats, int kStage>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float* __restrict__ poses, int64_t n_confs,
            const float* __restrict__ rob_base, int tr,
            const float* __restrict__ obs,
            const float* __restrict__ obs_mesh,
            const float* __restrict__ obs_groups, int n_groups,
-           uint8_t* __restrict__ out) {
+           void* __restrict__ out_ptr, int rt_false) {
+  static_assert(!kStats || kStage == kFull, "counters come with the full sweep only");
   extern __shared__ float smem[];
+  uint8_t* out = static_cast<uint8_t*>(out_ptr);
+  int32_t* out_stats = static_cast<int32_t*>(out_ptr);
   const int n_tiles = tr / kRobTile;
   float* rob = smem;                              // [kRobFields][tr]
   float* tile_box = rob + size_t(kRobFields) * tr;  // [n_tiles][6]
@@ -269,7 +321,14 @@ megakernel(const float* __restrict__ poses, int64_t n_confs,
     for (int k = 0; k < 3; ++k)
       broad = broad && mesh[k] <= obs_mesh[3 + k] && obs_mesh[k] <= mesh[3 + k];
     if (!broad) {
-      if (tid == 0) out[b] = 1;
+      if (tid == 0) {
+        if constexpr (kStats) {
+#pragma unroll
+          for (int c = 0; c < kStatCols; ++c) out_stats[b * kStatCols + c] = c == 0;
+        } else {
+          out[b] = 1;
+        }
+      }
       continue;
     }
 
@@ -300,9 +359,20 @@ megakernel(const float* __restrict__ poses, int64_t n_confs,
       __syncthreads();
     }
 
+    if constexpr (kStage == kNoSweep) {
+      // Stage 1 and the epilogue only; the gate's work list stays live.
+      const bool hit = n_items > 0 && rt_false;
+      if (tid == 0) out[b] = hit ? 0 : 1;
+      continue;
+    }
+
     // ---- Gated pair sweep: one tile pair per warp, any-hit exit. ----
     bool hit = false, cop = false;
     int any_hit = 0;
+    // Per-warp counters of the tile pairs this warp visited (kStats only):
+    // box-overlapping pairs, tile pairs with some / no such pair, tile
+    // pairs with some live pair. Warp-uniform after __reduce_add_sync.
+    int w_pairs = 0, w_full = 0, w_gate = 0, w_rest = 0;
     for (int base = 0; base < n_items; base += kWarps) {
       const int k = base + warp;
       if (k < n_items) {
@@ -314,6 +384,12 @@ megakernel(const float* __restrict__ poses, int64_t n_confs,
 #pragma unroll
         for (int f = 0; f < kRobFields; ++f) rf[f] = rob[f * tr + r];
         const float4* grp = obs4 + size_t(j) * kGroup * (kObsCols / 4);
+        // Box-overlapping pairs of this lane (kStats, kMaskOnly), or its live
+        // pairs (kPlanesOnly: a count, so the plane stage runs on every
+        // box-overlapping pair, as in the full kernel, and is never skipped
+        // once one pair is live).
+        int n_pairs = 0;
+        bool live = false;  // some live pair on this lane (kStats)
         for (int o = 0; o < kGroup && real; ++o) {
           const float4* row = grp + o * (kObsCols / 4);
           const float4 a3 = __ldg(row + 3);  // d, lo x, lo y, lo z
@@ -322,16 +398,88 @@ megakernel(const float* __restrict__ poses, int64_t n_confs,
               rf[kF_LO] <= a4.x && a3.y <= rf[kF_HI] &&
               rf[kF_LO + 1] <= a4.y && a3.z <= rf[kF_HI + 1] &&
               rf[kF_LO + 2] <= a4.z && a3.w <= rf[kF_HI + 2];
+          if constexpr (kStage == kMaskOnly) {
+            n_pairs += overlap;
+            continue;
+          }
           if (!overlap) continue;
-          pair_test(rf, __ldg(row), __ldg(row + 1), __ldg(row + 2), a3, hit, cop);
+          if constexpr (kStage == kPlanesOnly) {
+            n_pairs += pair_live(rf, __ldg(row), __ldg(row + 1), __ldg(row + 2), a3);
+            continue;
+          }
+          const bool pair_is_live =
+              pair_test(rf, __ldg(row), __ldg(row + 1), __ldg(row + 2), a3, hit, cop);
+          if constexpr (kStats) {
+            ++n_pairs;
+            live = live || pair_is_live;
+          }
+        }
+        if constexpr (kStage == kMaskOnly || kStage == kPlanesOnly)
+          hit = hit || (n_pairs > 0 && rt_false);
+        if constexpr (kStats) {
+          const int t_pairs = int(__reduce_add_sync(0xffffffffu, unsigned(n_pairs)));
+          w_pairs += t_pairs;
+          w_full += t_pairs > 0;
+          w_gate += t_pairs == 0;
+          w_rest += __any_sync(0xffffffffu, live);
         }
       }
       any_hit = __syncthreads_or(hit);
       if (any_hit) break;
     }
+    if constexpr (kStats) {
+      // `red` is free after the mesh box; __syncthreads_or below orders
+      // these writes before thread 0 reads them.
+      int* w_stats = reinterpret_cast<int*>(red);  // [kWarps][4]
+      if (lane == 0) {
+        w_stats[warp * 4 + 0] = w_pairs;
+        w_stats[warp * 4 + 1] = w_full;
+        w_stats[warp * 4 + 2] = w_gate;
+        w_stats[warp * 4 + 3] = w_rest;
+      }
+    }
     const int any_cop = __syncthreads_or(cop);
-    if (tid == 0) out[b] = uint8_t((any_hit ? 0 : 1) | (any_cop ? 2 : 0));
+    if (tid == 0) {
+      if constexpr (kStats) {
+        int sums[4] = {0, 0, 0, 0};
+        const int* w_stats = reinterpret_cast<const int*>(red);
+        for (int w = 0; w < kWarps; ++w)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sums[c] += w_stats[w * 4 + c];
+        int32_t* row = out_stats + b * kStatCols;
+        row[0] = any_hit ? 0 : 1;
+        row[1] = any_cop ? 1 : 0;
+        row[2] = sums[0];
+        row[3] = 1;
+        row[4] = sums[1];
+        row[5] = sums[2];
+        row[6] = sums[3];
+        row[7] = 0;
+      } else {
+        out[b] = uint8_t((any_hit ? 0 : 1) | (any_cop ? 2 : 0));
+      }
+    }
   }
+}
+
+// Checks the launch's arguments, sets the instance's shared memory and
+// launches it on `stream`; returns the cudaError_t (0 = launched).
+template <bool kStats, int kStage>
+int launch(const float* poses, int64_t n, const float* rob_base, int tr,
+           const float* obs, int to, const float* obs_mesh, const float* obs_groups,
+           int n_groups, void* out, int rt_false, cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  if (tr <= 0 || tr % kRobTile != 0 || to != n_groups * kGroup)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(tr, n_groups);
+  cudaError_t err = cudaFuncSetAttribute(megakernel<kStats, kStage>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(smem));
+  if (err != cudaSuccess) return err;
+  const int grid = int(n < 65535 ? n : 65535);
+  megakernel<kStats, kStage><<<grid, kThreads, smem, stream>>>(
+      poses, n, rob_base, tr, obs, obs_mesh, obs_groups, n_groups, out, rt_false);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -355,17 +503,39 @@ int rc_megakernel_check(const float* poses, int64_t n, const float* rob_base,
                         int tr, const float* obs, int to, const float* obs_mesh,
                         const float* obs_groups, int n_groups, uint8_t* out,
                         cudaStream_t stream) {
-  if (n <= 0) return cudaSuccess;
-  if (tr <= 0 || tr % kRobTile != 0 || to != n_groups * kGroup)
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(tr, n_groups);
-  cudaError_t err = cudaFuncSetAttribute(
-      megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = int(n < 65535 ? n : 65535);
-  megakernel<<<grid, kThreads, smem, stream>>>(poses, n, rob_base, tr, obs, obs_mesh,
-                                               obs_groups, n_groups, out);
-  return cudaGetLastError();
+  return launch<false, kFull>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
+                              n_groups, out, 0, stream);
+}
+
+// As rc_megakernel_check, with the counter row: out[n, 8] int32 (columns in
+// the header comment).
+int rc_megakernel_check_stats(const float* poses, int64_t n, const float* rob_base,
+                              int tr, const float* obs, int to, const float* obs_mesh,
+                              const float* obs_groups, int n_groups, int32_t* out,
+                              cudaStream_t stream) {
+  return launch<true, kFull>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
+                             n_groups, out, 0, stream);
+}
+
+// A stage-isolating variant (stage 1 = no sweep, 2 = box test only, 3 = box
+// test and planes), packed output; rt_false must be 0.
+int rc_megakernel_check_stage(const float* poses, int64_t n, const float* rob_base,
+                              int tr, const float* obs, int to, const float* obs_mesh,
+                              const float* obs_groups, int n_groups, uint8_t* out,
+                              int stage, int rt_false, cudaStream_t stream) {
+  switch (stage) {
+    case kNoSweep:
+      return launch<false, kNoSweep>(poses, n, rob_base, tr, obs, to, obs_mesh,
+                                     obs_groups, n_groups, out, rt_false, stream);
+    case kMaskOnly:
+      return launch<false, kMaskOnly>(poses, n, rob_base, tr, obs, to, obs_mesh,
+                                      obs_groups, n_groups, out, rt_false, stream);
+    case kPlanesOnly:
+      return launch<false, kPlanesOnly>(poses, n, rob_base, tr, obs, to, obs_mesh,
+                                        obs_groups, n_groups, out, rt_false, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
-"""Build `csrc/megakernel.cu` with nvcc and bind it with ctypes.
+"""Build the CUDA sources of `csrc/` with nvcc and bind them with ctypes.
 
-The kernel is compiled at first use into ``build/robocheck_tpu_torch/`` at
-the repository root, under a name keyed by the source and the flags, so an
-edited source is never served from a stale build. A plain ``extern "C"``
-interface keeps the build to seconds (no PyTorch headers).
+Each source (`megakernel.cu`, the fused check; `stage_probes.cu`, its probe
+kernels) is compiled at first use into ``build/robocheck_tpu_torch/`` at the
+repository root, all nvcc processes started together, under names keyed by
+every source and the flags, so an edited source is never served from a stale
+build. Plain ``extern "C"`` interfaces keep each build to seconds (no PyTorch
+headers).
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import os
 import subprocess
 from pathlib import Path
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "megakernel.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"megakernel": _CSRC / "megakernel.cu",
+           "stage_probes": _CSRC / "stage_probes.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "robocheck_tpu_torch"
 # -fmad=false: the TOL-band math rounds every multiply and add on its own.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,36 +34,60 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def build() -> tuple[Path, str]:
-    """Compile the kernel if needed; returns (shared library, nvcc log with
-    the -Xptxas -v register, shared-memory and spill lines)."""
-    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"megakernel-{key.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
+def build() -> dict[str, tuple[Path, str]]:
+    """Compile every source not yet built; returns {name: (shared library,
+    nvcc log with the -Xptxas -v register, shared-memory and spill lines)}."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(SOURCES):
+        key.update(name.encode() + SOURCES[name].read_bytes())
+    libs = {name: BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so" for name in SOURCES}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    return lib, log.read_text()
+        procs = {}
+        for name, lib in todo.items():
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {SOURCES[name].name} with exit code "
+                              f"{proc.returncode}:\n{log}")
+                continue
+            todo[name].with_suffix(".log").write_text(log)
+            os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return {name: (lib, lib.with_suffix(".log").read_text()) for name, lib in libs.items()}
+
+
+def _bind(fn, restype, argtypes) -> None:
+    fn.restype = restype
+    fn.argtypes = argtypes
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The built kernel library, with its entry points' C signatures."""
-    path, _ = build()
+def library(name: str = "megakernel") -> ctypes.CDLL:
+    """The built library ``name`` (a key of SOURCES), with its entry points'
+    C signatures (pointers and the stream as c_void_p)."""
+    path, _ = build()[name]
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.rc_megakernel_check.restype = i32
-    lib.rc_megakernel_check.argtypes = [ptr, i64, ptr, i32, ptr, i32, ptr, ptr,
-                                        i32, ptr, ptr]
-    lib.rc_megakernel_smem_bytes.restype = i64
-    lib.rc_megakernel_smem_bytes.argtypes = [i32, i32]
-    lib.rc_error_string.restype = ctypes.c_char_p
-    lib.rc_error_string.argtypes = [i32]
+    # poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups, n_groups, out
+    check = [ptr, i64, ptr, i32, ptr, i32, ptr, ptr, i32, ptr]
+    if name == "megakernel":
+        _bind(lib.rc_megakernel_check, i32, check + [ptr])
+        _bind(lib.rc_megakernel_check_stats, i32, check + [ptr])
+        _bind(lib.rc_megakernel_check_stage, i32, check + [i32, i32, ptr])
+        _bind(lib.rc_megakernel_smem_bytes, i64, [i32, i32])
+        _bind(lib.rc_error_string, ctypes.c_char_p, [i32])
+    elif name == "stage_probes":
+        _bind(lib.rc_pose_probe_smem_bytes, i64, [i32])
+        _bind(lib.rc_pose_probe, i32, [ptr, i64, ptr, i32, i32, i32, ptr, i64, ptr])
+        _bind(lib.rc_empty_probe, i32,
+              [ptr, i64, ptr, i32, ptr, i32, ptr, i32, i32, i32, ptr, ptr])
+        _bind(lib.rc_invariant_probe, i32, [ptr, i64, ptr, i32, i32, ptr, i64, ptr])
     return lib

@@ -17,7 +17,12 @@ kernel (not `ops.narrow`'s, which rounds the interval endpoint differently):
   * ``check_poses_reference`` is its plain PyTorch twin (any device), which
     the CPU tests run and the GPU smoke check holds the kernel against.
 
-``MegaKernelChecker`` takes the kernel on a CUDA device and the twin on the
+The same pair exists for the counter output (``check_poses_stats_cuda`` /
+``check_poses_stats_reference``, int32 [B, OUT_COLS]), and
+``check_poses_stage_cuda`` launches the kernel's stage-isolating variants
+(`STAGES`), whose plain expectation is the byte 1 on every row.
+
+``MegaKernelChecker`` takes the kernels on a CUDA device and the twins on the
 CPU, chosen once from its device.
 
 Host tables (``MegaKernelPrep``), Morton-ordered like the JAX package's:
@@ -51,8 +56,25 @@ OBS_COLS = 20
 # a multiple of it (as the JAX tables do), so the two packages' tables are
 # equal array for array.
 GROUP = LANE
+# Robot triangles per tile of the CUDA kernel's gate (one per lane of a warp).
+ROB_TILE = 32
 # Fill value of masked robot boxes in the mesh-box reduction (`megakernel.py:403`).
 _BIG = 3.0e38
+# Columns of the counter output (`megakernel.py:1116-1120`): 0 valid,
+# 1 coplanar, 2 num_pairs (box-overlapping pairs of real robot triangles in
+# the tile pairs visited before the any-hit exit), 3 broad, 4 nfull, 5 ngate,
+# 6 nrest, 7 zero. Columns 4-6 count this package's tile pairs (ROB_TILE robot
+# x GROUP obstacle triangles), not the JAX kernel's 128 x 128 tiles: nfull =
+# gated tile pairs with at least one box-overlapping pair, ngate = gated tile
+# pairs with none, nrest = tile pairs with at least one live pair (both planes
+# straddle the +-TOL band).
+OUT_COLS = 8
+# Stage-isolating variants of the CUDA kernel, by their code in
+# `csrc/megakernel.cu`: pose + broad phase + gate then the epilogue
+# (`sweep=False`, `megakernel.py:625-643`); the sweep with the box test only
+# (`stage_cap=0`); box test and plane stage, never the interval stage
+# (`stage_cap=1`, `megakernel.py:761-774`).
+STAGES = {"nosweep": 1, "maskonly": 2, "planesonly": 3}
 # Pair elements the twin materialises per step (bounds its memory).
 _PAIR_BUDGET = 1 << 24
 
@@ -208,8 +230,8 @@ def _interval(p, d3):
     return torch.minimum(t01, t12), torch.maximum(t01, t12)
 
 
-def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hit, coplanar) of each pair, fields given as 1-D tensors: plane
+def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hit, coplanar, live) of each pair, fields given as 1-D tensors: plane
     stage, interval stage and the exact ratio test (`megakernel.py:133-217,
     281-303`; the separation band and the ratio test are `ops.narrow`'s,
     whose arithmetic there is the kernel's). The kernel's conservative
@@ -237,7 +259,41 @@ def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, torch.Tensor]:
     coplanar = is_coplanar(torch.stack([r["nx"], r["ny"], r["nz"]], dim=-1), r["d"],
                            torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1),
                            o["d"]) & live
-    return isect & ~coplanar, coplanar
+    return isect & ~coplanar, coplanar, live
+
+
+def mesh_broad(poses: torch.Tensor, rob_base: torch.Tensor,
+               obs_mesh: torch.Tensor) -> torch.Tensor:
+    """[B,16] pose rows -> [B] bool: the posed robot's mesh box (real
+    triangles only) overlaps the obstacle's on closed intervals. The JAX
+    package's `_broad_overlap` (`megakernel.py:1232-1248`) in its operation
+    order, which is the kernel's stage 1: each corner posed as
+    r0*x + r1*y + r2*z + t, masked min / max."""
+    real = rob_base[9] > 0.0
+    broad = torch.ones(poses.shape[0], dtype=torch.bool, device=poses.device)
+    for k in range(3):
+        r0, r1, r2, t = (poses[:, 4 * k + j : 4 * k + j + 1] for j in range(4))
+        lo = hi = None
+        for c in range(3):
+            v = r0 * rob_base[3 * c] + r1 * rob_base[3 * c + 1] + r2 * rob_base[3 * c + 2] + t
+            lo = v if lo is None else torch.minimum(lo, v)
+            hi = v if hi is None else torch.maximum(hi, v)
+        mesh_lo = torch.where(real, lo, _BIG).amin(dim=1)
+        mesh_hi = torch.where(real, hi, -_BIG).amax(dim=1)
+        broad &= (mesh_lo <= obs_mesh[3 + k]) & (obs_mesh[k] <= mesh_hi)
+    return broad
+
+
+def _box_pairs(fb: dict, o: dict, real: torch.Tensor):
+    """(config, robot, obstacle) indices of every pair whose triangle boxes
+    overlap on closed intervals, robot triangle real (`megakernel.py:736-739`):
+    the x axis on the dense [b, Tr, To] grid, then y and z on survivors."""
+    m = ((fb["lo0"][:, :, None] <= o["hi0"]) & (o["lo0"] <= fb["hi0"][:, :, None])
+         & real[:, None])
+    bi, ri, oi = m.nonzero(as_tuple=True)
+    keep = ((fb["lo1"][bi, ri] <= o["hi1"][oi]) & (o["lo1"][oi] <= fb["hi1"][bi, ri])
+            & (fb["lo2"][bi, ri] <= o["hi2"][oi]) & (o["lo2"][oi] <= fb["hi2"][bi, ri]))
+    return bi[keep], ri[keep], oi[keep]
 
 
 def check_poses_reference(poses: torch.Tensor,
@@ -253,11 +309,7 @@ def check_poses_reference(poses: torch.Tensor,
     rob_base, obs = prep.rob_base, prep.obs
     f = _posed_robot(poses, rob_base)
     real = rob_base[9] > 0.0
-    broad = torch.ones(poses.shape[0], dtype=torch.bool, device=poses.device)
-    for k in range(3):
-        mesh_lo = torch.where(real, f[f"lo{k}"], _BIG).amin(dim=1)
-        mesh_hi = torch.where(real, f[f"hi{k}"], -_BIG).amax(dim=1)
-        broad &= (mesh_lo <= prep.obs_mesh[3 + k]) & (prep.obs_mesh[k] <= mesh_hi)
+    broad = mesh_broad(poses, rob_base, prep.obs_mesh)
 
     out = torch.ones(poses.shape[0], dtype=torch.uint8, device=poses.device)
     o = _obstacle_fields(obs)
@@ -265,20 +317,73 @@ def check_poses_reference(poses: torch.Tensor,
     step = max(1, _PAIR_BUDGET // (tr * to))
     for rows in broad.nonzero()[:, 0].split(step):
         fb = {key: v[rows] for key, v in f.items()}
-        # x axis on the dense [b, Tr, To] grid, then y and z on survivors.
-        m = ((fb["lo0"][:, :, None] <= o["hi0"]) & (o["lo0"] <= fb["hi0"][:, :, None])
-             & real[:, None])
-        bi, ri, oi = m.nonzero(as_tuple=True)
-        keep = ((fb["lo1"][bi, ri] <= o["hi1"][oi]) & (o["lo1"][oi] <= fb["hi1"][bi, ri])
-                & (fb["lo2"][bi, ri] <= o["hi2"][oi]) & (o["lo2"][oi] <= fb["hi2"][bi, ri]))
-        bi, ri, oi = bi[keep], ri[keep], oi[keep]
-        hit, cop = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
-                               {key: v[oi] for key, v in o.items()})
+        bi, ri, oi = _box_pairs(fb, o, real)
+        hit, cop, _ = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
+                                  {key: v[oi] for key, v in o.items()})
         any_hit = torch.zeros(len(rows), dtype=torch.bool, device=poses.device)
         any_cop = torch.zeros_like(any_hit)
         any_hit[bi[hit]] = True
         any_cop[bi[cop]] = True
         out[rows] = (~any_hit).to(torch.uint8) | (any_cop.to(torch.uint8) << 1)
+    return out
+
+
+def check_poses_stats_reference(poses: torch.Tensor,
+                                prep: MegaKernelPrep) -> torch.Tensor:
+    """Plain PyTorch twin of the counter kernel: [B,16] pose rows -> [B,
+    OUT_COLS] int32 (the columns documented at OUT_COLS), on the device of
+    its inputs.
+
+    It tests every box-overlapping pair with no any-hit exit, and counts
+    tile pairs with the kernel's gate: the box of each ROB_TILE-triangle
+    robot tile (real triangles only) against each obstacle group box. Every
+    box-overlapping pair lies in a gated tile pair, so on a valid row (which
+    the kernel sweeps to the end) all columns equal the kernel's; on a
+    colliding row the kernel's columns 2 and 4-6 count only the tile pairs
+    visited before its exit and are at most these."""
+    rob_base, obs = prep.rob_base, prep.obs
+    f = _posed_robot(poses, rob_base)
+    real = rob_base[9] > 0.0
+    broad = mesh_broad(poses, rob_base, prep.obs_mesh)
+    out = torch.zeros((poses.shape[0], OUT_COLS), dtype=torch.int32, device=poses.device)
+    out[:, 0] = 1
+    out[:, 3] = broad.to(torch.int32)
+
+    o = _obstacle_fields(obs)
+    tr, to = rob_base.shape[1], obs.shape[0]
+    n_tiles, n_groups = tr // ROB_TILE, to // GROUP
+    n_pairs_t = n_tiles * n_groups
+    g = prep.obs_groups
+    step = max(1, _PAIR_BUDGET // (tr * to))
+    for rows in broad.nonzero()[:, 0].split(step):
+        b = len(rows)
+        fb = {key: v[rows] for key, v in f.items()}
+        gate = torch.ones((b, n_tiles, n_groups), dtype=torch.bool, device=poses.device)
+        for k in range(3):
+            t_lo = torch.where(real, fb[f"lo{k}"], _BIG).view(b, n_tiles, ROB_TILE).amin(-1)
+            t_hi = torch.where(real, fb[f"hi{k}"], -_BIG).view(b, n_tiles, ROB_TILE).amax(-1)
+            gate &= (t_lo[:, :, None] <= g[:, 3 + k]) & (g[:, k] <= t_hi[:, :, None])
+        n_gated = gate.sum((1, 2))
+
+        bi, ri, oi = _box_pairs(fb, o, real)
+        hit, cop, live = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
+                                     {key: v[oi] for key, v in o.items()})
+        cell = bi * n_pairs_t + (ri // ROB_TILE) * n_groups + oi // GROUP
+        full = torch.zeros(b * n_pairs_t, dtype=torch.bool, device=poses.device)
+        rest = torch.zeros_like(full)
+        full[cell] = True
+        rest[cell[live]] = True
+        any_hit = torch.zeros(b, dtype=torch.bool, device=poses.device)
+        any_cop = torch.zeros_like(any_hit)
+        any_hit[bi[hit]] = True
+        any_cop[bi[cop]] = True
+        n_full = full.view(b, n_pairs_t).sum(1)
+        out[rows, 0] = (~any_hit).to(torch.int32)
+        out[rows, 1] = any_cop.to(torch.int32)
+        out[rows, 2] = torch.bincount(bi, minlength=b).to(torch.int32)
+        out[rows, 4] = n_full.to(torch.int32)
+        out[rows, 5] = (n_gated - n_full).to(torch.int32)
+        out[rows, 6] = rest.view(b, n_pairs_t).sum(1).to(torch.int32)
     return out
 
 
@@ -297,10 +402,12 @@ def _require(t: torch.Tensor, name: str, shape: tuple, device: torch.device):
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
 
 
-def check_poses_cuda(poses: torch.Tensor, prep: MegaKernelPrep) -> torch.Tensor:
-    """Launch the kernel of `csrc/megakernel.cu` on the current stream:
-    [B,16] pose rows -> [B] uint8, same bits as ``check_poses_reference``.
-    Raises on inputs the kernel does not take and on a refused launch."""
+def _launch(entry: str, poses: torch.Tensor, prep: MegaKernelPrep, out_shape: tuple,
+            out_dtype: torch.dtype, *extra) -> tuple[bool, torch.Tensor]:
+    """Check the inputs, allocate the output and launch the C entry ``entry``
+    of `csrc/megakernel.cu` on the current stream. Returns (launched, output):
+    an empty batch launches nothing. Raises on inputs the kernel does not take
+    and on a refused launch."""
     from . import _build
 
     if not poses.is_cuda:
@@ -318,32 +425,72 @@ def check_poses_cuda(poses: torch.Tensor, prep: MegaKernelPrep) -> torch.Tensor:
     if prep.obs.data_ptr() % 16:
         raise ValueError("obs must be 16-byte aligned (it is read as float4)")
     n = poses.shape[0]
-    out = torch.empty((n,), dtype=torch.uint8, device=dev)
+    out = torch.empty((n, *out_shape), dtype=out_dtype, device=dev)
     if n == 0:
-        return out
+        return False, out
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.rc_megakernel_check(
+        err = getattr(lib, entry)(
             poses.data_ptr(), n, prep.rob_base.data_ptr(), tr,
             prep.obs.data_ptr(), to, prep.obs_mesh.data_ptr(),
-            prep.obs_groups.data_ptr(), n_groups, out.data_ptr(),
+            prep.obs_groups.data_ptr(), n_groups, out.data_ptr(), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(
-            f"megakernel launch failed: {lib.rc_error_string(err).decode()} "
+            f"{entry} launch failed: {lib.rc_error_string(err).decode()} "
             f"(cudaError {err}; {lib.rc_megakernel_smem_bytes(tr, n_groups)} "
             f"bytes of shared memory for {tr} robot triangles)")
-    check_poses_cuda.launches += 1
+    return True, out
+
+
+def check_poses_cuda(poses: torch.Tensor, prep: MegaKernelPrep) -> torch.Tensor:
+    """Launch the kernel of `csrc/megakernel.cu` on the current stream:
+    [B,16] pose rows -> [B] uint8, same bits as ``check_poses_reference``.
+    Raises on inputs the kernel does not take and on a refused launch."""
+    launched, out = _launch("rc_megakernel_check", poses, prep, (), torch.uint8)
+    if launched:
+        check_poses_cuda.launches += 1
+    return out
+
+
+def check_poses_stats_cuda(poses: torch.Tensor, prep: MegaKernelPrep) -> torch.Tensor:
+    """Launch the counter instance of the kernel: [B,16] pose rows -> [B,
+    OUT_COLS] int32, columns as ``check_poses_stats_reference``'s (equal on
+    valid rows; on colliding rows the counts stop at the any-hit exit)."""
+    launched, out = _launch("rc_megakernel_check_stats", poses, prep, (OUT_COLS,),
+                            torch.int32)
+    if launched:
+        check_poses_stats_cuda.launches += 1
+    return out
+
+
+def check_poses_stage_cuda(poses: torch.Tensor, prep: MegaKernelPrep,
+                           stage: str) -> torch.Tensor:
+    """Launch the stage-isolating variant ``stage`` (a key of STAGES):
+    [B,16] pose rows -> [B] uint8, which is 1 on every row (a variant never
+    sets hit or coplanar; its work is kept live by a runtime zero)."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {sorted(STAGES)}, got {stage!r}")
+    launched, out = _launch("rc_megakernel_check_stage", poses, prep, (), torch.uint8,
+                            STAGES[stage], 0)
+    if launched:
+        check_poses_stage_cuda.launches[stage] += 1
     return out
 
 
 check_poses_cuda.launches = 0
+check_poses_stats_cuda.launches = 0
+check_poses_stage_cuda.launches = dict.fromkeys(STAGES, 0)
 
 
 class MegaKernelChecker:
     """Batched collision verdicts for one robot/obstacle mesh pair on one
-    device: the CUDA kernel on a CUDA device, its PyTorch twin on the CPU.
-    There is no automatic choice and no fallback between the two."""
+    device: the CUDA kernels on a CUDA device, their PyTorch twins on the CPU.
+    There is no automatic choice and no fallback between the two.
+
+    ``check_valid`` / ``check_valid_resolved`` are the throughput path (one
+    verdict byte per configuration); ``check`` (over ``broad_block`` and
+    ``check_block``) is the stats path with the kernel's counter columns."""
 
     # Configurations per kernel launch in ``check_valid``.
     STREAM_CHUNK = 16384
@@ -356,21 +503,31 @@ class MegaKernelChecker:
                                "device is available")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        # The kernel launches or raises; the twin runs only on the CPU.
-        self._check_poses = (check_poses_cuda if self.device.type == "cuda"
-                             else check_poses_reference)
+        # The kernels launch or raise; the twins run only on the CPU.
+        on_card = self.device.type == "cuda"
+        self._check_poses = check_poses_cuda if on_card else check_poses_reference
+        self._check_stats = (check_poses_stats_cuda if on_card
+                             else check_poses_stats_reference)
         self.robot = robot
         self.obstacle = obstacle
         self.prep = MegaKernelPrep.build(robot, obstacle, morton=morton)
         self.tables = self.prep.to(self.device)
 
-    def check_valid(self, confs: np.ndarray, chunk: int | None = None):
+    def check_valid(self, confs: np.ndarray, chunk: int | None = None,
+                    presort: bool | None = None):
         """[N,6] configurations -> (valid[N], coplanar[N]) numpy bools.
 
         Uploads the batch once, poses it on the device, checks it in chunks
         of ``chunk`` rows (the last may be short) and fetches the verdict
         bytes once. Non-finite rows are reported invalid
-        (`megakernel.py:1341-1352`)."""
+        (`megakernel.py:1341-1352`).
+
+        ``presort`` (default off, as in the JAX package, so the main path is
+        one kernel launch per chunk) first runs ``broad_block`` (the kernel's
+        own stage 1, bit for bit) and orders broad-phase hits first; chunks
+        past the hits are never launched and get the byte 1 (a broad miss is
+        valid and not coplanar). It costs one scalar ``.item()`` sync.
+        Verdicts are identical either way (`megakernel.py:1361-1408`)."""
         confs = validate_confs(confs)
         n = confs.shape[0]
         finite = np.isfinite(confs).all(axis=1)
@@ -379,15 +536,39 @@ class MegaKernelChecker:
             out_c = np.zeros((n,), dtype=bool)
             if finite.any():
                 out_v[finite], out_c[finite] = self.check_valid(
-                    confs[finite], chunk=chunk)
+                    confs[finite], chunk=chunk, presort=presort)
             return out_v, out_c
         if n == 0:
             return np.zeros((0,), dtype=bool), np.zeros((0,), dtype=bool)
         chunk = chunk or self.STREAM_CHUNK
         poses = poses_from_confs(torch.from_numpy(confs).to(self.device))
-        packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables)
-                            for lo in range(0, n, chunk)]).cpu().numpy()
+        if presort:
+            packed = self._check_presorted(poses, chunk)
+        else:
+            packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables)
+                                for lo in range(0, n, chunk)])
+        packed = packed.cpu().numpy()
         return (packed & 1).astype(bool), (packed >> 1).astype(bool)
+
+    def _check_presorted(self, poses: torch.Tensor, chunk: int) -> torch.Tensor:
+        """Packed bytes of ``poses`` checked hits-first: the JAX package's
+        `_broad_sort` (a stable partition by cumsums and one scatter) and
+        `_unpermute` (`megakernel.py:1176-1206`) as torch ops."""
+        n = poses.shape[0]
+        hits = mesh_broad(poses, self.tables.rob_base, self.tables.obs_mesh)
+        n_hit = torch.cumsum(hits, 0)
+        n_miss = torch.cumsum(~hits, 0)
+        dest = torch.where(hits, n_hit - 1, n_hit[-1] + n_miss - 1)
+        src = torch.empty_like(dest)
+        src[dest] = torch.arange(n, device=poses.device)
+        k = int(n_hit[-1].item())  # the one sync: how many rows need the kernel
+        ordered = poses[src]
+        outs = [self._check_poses(ordered[lo : lo + chunk], self.tables)
+                for lo in range(0, k, chunk)]
+        done = min(n, len(outs) * chunk)
+        if done < n:
+            outs.append(torch.ones((n - done,), dtype=torch.uint8, device=poses.device))
+        return torch.cat(outs)[dest]
 
     def check_valid_resolved(self, confs: np.ndarray,
                              chunk: int | None = None) -> np.ndarray:
@@ -397,3 +578,55 @@ class MegaKernelChecker:
 
         valid, cop = self.check_valid(confs, chunk=chunk)
         return resolve_coplanar(self.robot, self.obstacle, confs, valid, cop)
+
+    def check_block(self, confs) -> torch.Tensor:
+        """[B,6] configurations (numpy, or a tensor on the checker's device)
+        -> [B, OUT_COLS] int32 counter rows on the device
+        (`megakernel.py:1286-1295`)."""
+        confs = torch.as_tensor(confs, dtype=torch.float32, device=self.device)
+        return self._check_stats(poses_from_confs(confs), self.tables)
+
+    def broad_block(self, confs) -> torch.Tensor:
+        """[B,6] configurations -> [B] bool mesh-box overlap on the device
+        (True = needs the narrow phase), bit for bit the kernel's stage-1
+        broad phase (`megakernel.py:1297-1302`)."""
+        confs = torch.as_tensor(confs, dtype=torch.float32, device=self.device)
+        return mesh_broad(poses_from_confs(confs), self.tables.rob_base,
+                          self.tables.obs_mesh)
+
+    def check(self, confs: np.ndarray, two_phase: bool = True):
+        """[N,6] configurations -> (valid, coplanar, num_pairs, broad) numpy
+        arrays (`megakernel.py:1444-1491`).
+
+        ``two_phase``: the broad phase over the whole batch first, then the
+        counter kernel on its survivors only (one ``nonzero``); otherwise the
+        counter kernel on every row. Non-finite rows are reported invalid,
+        not coplanar, with 0 pairs and broad True."""
+        confs = validate_confs(confs)
+        n = confs.shape[0]
+        finite = np.isfinite(confs).all(axis=1)
+        if not finite.all():
+            out_v = np.zeros((n,), dtype=bool)
+            out_c = np.zeros((n,), dtype=bool)
+            out_p = np.zeros((n,), dtype=np.int32)
+            out_b = np.ones((n,), dtype=bool)
+            if finite.any():
+                (out_v[finite], out_c[finite], out_p[finite],
+                 out_b[finite]) = self.check(confs[finite], two_phase=two_phase)
+            return out_v, out_c, out_p, out_b
+        dev = torch.from_numpy(confs).to(self.device)
+        if not two_phase:
+            out = self.check_block(dev).cpu().numpy()
+            return (out[:, 0].astype(bool), out[:, 1].astype(bool), out[:, 2],
+                    out[:, 3].astype(bool))
+        overlap = self.broad_block(dev)
+        idx = overlap.nonzero()[:, 0]
+        out = self.check_block(dev[idx]).cpu().numpy()
+        idx = idx.cpu().numpy()
+        valid = np.ones((n,), dtype=bool)
+        coplanar = np.zeros((n,), dtype=bool)
+        num_pairs = np.zeros((n,), dtype=np.int32)
+        valid[idx] = out[:, 0].astype(bool)
+        coplanar[idx] = out[:, 1].astype(bool)
+        num_pairs[idx] = out[:, 2]
+        return valid, coplanar, num_pairs, overlap.cpu().numpy()

@@ -16,7 +16,8 @@ For the alpha-1.0 pair over hard10k and easy10k (10,000 rows each) it prints:
   * fma: the kernel built with -fmad=true against the shipped -fmad=false
     build on the same poses: verdict bytes that differ, and the time of each
     (means of `--runs` launches, in the order false, true, true, false).
-Every line carries the card's name and power limit. The traces go to `--out`.
+Every line carries the card's name and power limit. The traces go to
+`--out/<set>/trace.json`.
 Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -25,7 +26,6 @@ import argparse
 import contextlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -42,15 +42,10 @@ from robocheck_tpu_torch.io import assets  # noqa: E402
 from robocheck_tpu_torch.kernels import _build  # noqa: E402
 from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
 from robocheck_tpu_torch.oracle import resolve_coplanar  # noqa: E402
+from robocheck_tpu_torch.profiling import timers  # noqa: E402
+from robocheck_tpu_torch.profiling.timers import card_line, event_ms  # noqa: E402
 
 KEYS = ("hard10k", "easy10k")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def host_ms(fn):
@@ -59,19 +54,6 @@ def host_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
-
-
-def event_ms(fn, reps: int) -> float:
-    """Mean CUDA-event ms of one call over `reps` calls, after one warm-up."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def spread(xs) -> str:
@@ -107,26 +89,23 @@ def layers(checker, confs, runs: int) -> dict:
     return steps
 
 
-def trace(checker, confs, runs: int, path: Path) -> dict:
-    """Device busy ms per call from a torch.profiler trace of `runs` calls."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+def busy(checker, confs, runs: int, log_dir: Path) -> dict:
+    """Device busy ms per call from a trace of `runs` calls, written to
+    `log_dir/trace.json`."""
     checker.check_valid_resolved(confs)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with timers.trace(str(log_dir)) as path:
         t0 = time.perf_counter()
         for _ in range(runs):
             checker.check_valid_resolved(confs)
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / runs
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, float("-inf")
+    spans = timers.device_intervals(path, ("kernel", "gpu_memcpy", "gpu_memset"))
+    total, end = 0.0, float("-inf")
     for lo, hi in spans:  # union of the device intervals, in µs
-        busy += max(0.0, hi - max(lo, end))
+        total += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    return {"device_busy_ms": busy / 1e3 / runs, "profiled_wall_ms": wall,
+    return {"device_busy_ms": total / 1e3 / runs, "profiled_wall_ms": wall,
             "device_events": len(spans)}
 
 
@@ -165,7 +144,7 @@ def main() -> None:
 
     for key in KEYS:
         steps = layers(checker, data[key], args.runs)
-        tr = trace(checker, data[key], args.runs, args.out / f"trace_{key}.json")
+        tr = busy(checker, data[key], args.runs, args.out / key)
         e2e = statistics.median(steps["end_to_end"])
         tr["busy_over_unprofiled_median"] = tr["device_busy_ms"] / e2e
         report[key] = {"layers_ms": steps, "trace": tr}
@@ -187,7 +166,7 @@ def main() -> None:
 
     fma = [f.replace("-fmad=false", "-fmad=true") for f in _build.NVCC_FLAGS]
     with nvcc_flags(fma):
-        _, log = _build.build()
+        _, log = _build.build()["megakernel"]
     print("[fma] -fmad=true ptxas: " + "; ".join(
         ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln))
     report["fma"] = {}

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Stage decomposition of the port's fused kernel on one CUDA card: the port
+of `scripts/roofline.py` on the tracked 10k datasets.
+
+    python3 scripts/torch_roofline.py
+
+For the alpha-1.0 pair it prints one JSON line per measurement, each with
+the card's name and power limit:
+  * throughput_{hard10k,easy10k}: `check_valid` best of 5 after a warm-up
+    (host clock, synchronised), and its mismatches against the tags;
+  * device_{hard10k,allmiss,allhit}: the packed kernel's device µs per
+    configuration (CUDA events, mean of REPS launches) on all 10,000 rows
+    of hard10k, on 10,000 rows at x = 1e9 (every row ends at the broad
+    phase) and on 10,000 rows at the identity translation with random
+    rotations from default_rng(0) (every row collides);
+  * device_hard10k_{full,pose,nosweep,maskonly,planesonly}: on hard10k, the
+    packed kernel, the pose stage alone (probe P1 at level 3: pose, mesh
+    box, K1's 19 fields) and the kernel's stage-isolating variants
+    (`STAGES`); hard10k_decomposition: µs per configuration of pose, gate
+    (nosweep - pose), mask (maskonly - nosweep), planes (planesonly -
+    maskonly) and interval (full - planesonly);
+  * the same on the valid rows of hard10k alone (device_hard10k_valid_*,
+    hard10k_valid_decomposition): the variants never take the any-hit exit,
+    so on colliding rows they visit tile pairs the full kernel skips, while
+    on valid rows every one of them visits every gated tile pair;
+  * hard_counters: the counter kernel over hard10k, with the keys of
+    `roofline.py`'s line (tile counts are this port's 32 x 128 tile pairs).
+Imports neither JAX nor the JAX package.
+"""
+import json
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from robocheck_tpu_torch import MegaKernelChecker, load_obj, read_conf_file  # noqa: E402
+from robocheck_tpu_torch.io import assets  # noqa: E402
+from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
+from robocheck_tpu_torch.profiling import probes  # noqa: E402
+from robocheck_tpu_torch.profiling.timers import benchmark, card_line, event_ms  # noqa: E402
+
+REPS = 20  # launches per CUDA-event mean
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_roofline: no CUDA device")
+    card = card_line()
+    device = torch.device("cuda", 0)
+
+    def emit(**kw):
+        print(json.dumps({**kw, "card": card}), flush=True)
+
+    robot = load_obj(assets.alpha_robot_path())
+    obstacle = load_obj(assets.alpha_obstacle_path())
+    hard = read_conf_file(assets.dataset_path("hard10k"))
+    easy = read_conf_file(assets.dataset_path("easy10k"))
+    checker = MegaKernelChecker(robot, obstacle, device=device)
+    tables = checker.tables
+
+    for name, ds in (("hard10k", hard), ("easy10k", easy)):
+        v, _ = checker.check_valid(ds.confs)
+        best = benchmark(checker.check_valid, ds.confs)
+        emit(measure=f"throughput_{name}", checks_per_s=len(ds.confs) / best,
+             best_s=best, mismatches=int((v != ds.valid).sum()))
+
+    n = len(hard.confs)
+    rng = np.random.default_rng(0)
+    far = np.zeros((n, 6), np.float32)
+    far[:, 0] = 1.0e9  # broad-phase miss: stage 1 and the epilogue only
+    hit = np.zeros((n, 6), np.float32)  # identity translation: the meshes interlock
+    hit[:, 3:6] = rng.uniform(-np.pi, np.pi, (n, 3)).astype(np.float32)
+
+    def poses_of(confs):
+        return mk.poses_from_confs(torch.from_numpy(confs).to(device))
+
+    hard_poses = poses_of(hard.confs)
+    for name, poses in (("hard10k", hard_poses), ("allmiss", poses_of(far)),
+                        ("allhit", poses_of(hit))):
+        ms = event_ms(lambda: mk.check_poses_cuda(poses, tables), REPS)
+        emit(measure=f"device_{name}", checks_per_s=n / ms * 1e3, us_per_conf=ms * 1e3 / n)
+
+    valid_rows = torch.from_numpy(hard.valid).to(device)
+    for tag, poses in (("hard10k", hard_poses), ("hard10k_valid", hard_poses[valid_rows])):
+        m = poses.shape[0]
+        runs = {"full": lambda: mk.check_poses_cuda(poses, tables),
+                "pose": lambda: probes.pose_probe_cuda(poses, tables.rob_base, 3)}
+        runs.update({stage: lambda s=stage: mk.check_poses_stage_cuda(poses, tables, s)
+                     for stage in mk.STAGES})
+        t = {name: event_ms(fn, REPS) * 1e3 / m for name, fn in runs.items()}
+        for name, v in t.items():
+            emit(measure=f"device_{tag}_{name}", n=m, us_per_conf=v)
+        emit(measure=f"{tag}_decomposition", unit="us_per_conf", n=m, pose=t["pose"],
+             gate=t["nosweep"] - t["pose"], mask=t["maskonly"] - t["nosweep"],
+             planes=t["planesonly"] - t["maskonly"], interval=t["full"] - t["planesonly"],
+             full=t["full"])
+
+    out = checker.check_block(hard.confs).cpu().numpy()
+    bh = out[:, 3] > 0
+    emit(measure="hard_counters", n=n,
+         broad_hit_rate=float(bh.mean()),
+         valid_rate=float(out[:, 0].mean()),
+         mean_pairs_given_bh=float(out[bh, 2].mean()),
+         mean_boxtest_tiles_given_bh=float((out[bh, 4] + out[bh, 5]).mean()),
+         mean_plane_tiles_given_bh=float(out[bh, 4].mean()),
+         mean_interval_tiles_given_bh=float(out[bh, 6].mean()))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
