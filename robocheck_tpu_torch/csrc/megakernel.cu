@@ -4,136 +4,275 @@
 // robocheck_tpu/kernels/megakernel.py (launched by `_mega_call`). It computes
 // what that kernel computes, in the same float32 operation order, and writes
 // one byte per configuration: bit 0 = valid (no intersecting triangle pair),
-// bit 1 = some live pair was flagged coplanar. Its plain PyTorch twin is
-// `check_poses_reference` in robocheck_tpu_torch/kernels/megakernel.py.
+// bit 1 = some live pair was flagged coplanar, bit 2 = some box-overlapping
+// pair is uncertain: not live, but float32 rounding could make it live (see
+// kErr below). The checker sends valid rows with bit 1 or bit 2 to the
+// float64 oracle. Its plain PyTorch twin is `check_poses_reference` in
+// robocheck_tpu_torch/kernels/megakernel.py.
 //
-// What bounds it on an H100: each configuration is a short chain of
-// dependent stages (pose -> mesh box -> gate -> gated pair sweep with an
-// any-hit exit), and the pair tests branch on data. It moves almost no bytes:
-// 64 B of pose in, 1 B out, and the mesh tables (~40 KB robot, ~80 KB
-// obstacle for the alpha-1.0 pair) stay in L2 and L1 for the whole launch.
-// It is latency- and issue-bound per configuration, not bandwidth-bound.
+// What bounds it on an H100: it moves almost no bytes (64 B of pose in, 1 B
+// out; the tables are read once per resident block), and its arithmetic is
+// ~0.8 G single-lane float32 operations per 10,000 hard rows, ~0.02 ms at the
+// card's peak. What it has to overcome is latency: each configuration is a
+// chain of dependent steps (pose -> mesh box -> gate -> gated pair sweep with
+// an any-hit exit) whose tests branch on data, and a few rows hold thousands
+// of box-overlapping pairs. The first port (one 256-thread block per row)
+// held 80 KB of posed robot per block, so two rows were in flight per SM,
+// and its warps stepped through every obstacle row of a gated tile pair in
+// lock-step, one overlapping lane taking the whole warp into the plane stage.
 //
 // What the design does about it:
-//   * one thread block (256 threads) per configuration, grid-stride over the
-//     batch, so the 132 SMs work on independent configurations and
-//     latency hides across resident blocks;
-//   * the posed robot (19 fields per triangle) is built once per
-//     configuration in shared memory (dynamic, 19 x 4 x Tr bytes: 77,824 for
-//     the 1024-row alpha table), with each warp's 32 triangles forming one
-//     robot tile whose box is reduced with shuffles on the way;
-//   * the mesh-box broad phase ends a miss after the pose stage;
-//   * the gate keeps only (robot tile x obstacle group) pairs whose boxes
-//     overlap (a necessary condition for any pair-box overlap), compacted in
-//     order into a work list;
-//   * each warp takes one gated tile pair at a time (lane = robot triangle,
-//     loop over the group's 128 obstacle triangles, read as broadcast float4
-//     loads), and the block takes the any-hit exit between rounds of tiles
-//     with __syncthreads_or.
-//
+//   * nothing posed is stored: a block stages the configuration-invariant
+//     tables into shared memory once (rest-frame robot corners in a
+//     tile-transposed, 33-padded layout, the obstacle triangles' boxes as a
+//     structure of arrays, the group boxes, the real-triangle bits; ~62 KB
+//     for the alpha-1.0 pair), stays resident (grid = resident blocks x
+//     SMs), and posed triangles are recomputed from the rest-frame corners
+//     where a step needs them (bit-identical: the same operations);
+//   * several rows per block: the block's 16 warps form 4 teams of 4, each
+//     team checks one row at a time, taken from the batch's counter, and
+//     its warps meet at the team's own named barrier, so 4 rows share one
+//     copy of the tables; one block (83 KB, 128 registers, no spills) fits
+//     an SM. (Measured on an H100 against this: one warp per row lost on
+//     easy10k, whose few heavy rows then ran on one warp each; one row per
+//     block of 4 or 8 warps, the tables copied per block, fitted 2-3 rows
+//     per SM and was 16-25% slower on hard10k; 3 teams were slower, and 5
+//     or 6 teams spilled registers.)
+//   * the pose pass gives lane l robot tile l of each block of 32 tiles and
+//     splits a tile's 32 triangles over the team's warps (conflict-free
+//     thanks to the padding); tile boxes meet in shared memory, and the mesh
+//     box ends a broad-phase miss;
+//   * the gate keeps (robot tile x obstacle group) pairs whose boxes overlap,
+//     compacted in Morton order (tile-major), and the team's warps take
+//     them in that order from a shared counter;
+//   * a two-sided gate inside each gated tile pair: the lanes test 32
+//     obstacle rows' boxes against the robot tile's box per ballot, and only
+//     the rows whose bits are set are swept (the JAX gate's `cc > 0` made per
+//     row);
+//   * compaction instead of lock-step branches: each swept row's
+//     box-overlapping (robot, obstacle) pairs are appended to the warp's
+//     queue in shared memory with ballot prefix sums; every 32 queued pairs
+//     the plane stage, the uncertain test, the interval stage and the
+//     coplanar test run one pair per lane (`run_pairs`, kept out of line so
+//     that its registers stay out of the sweep's loops), so obstacle rows
+//     are read only for queued pairs;
+//   * the any-hit exit: a warp that finds a hit after a flush raises a
+//     shared flag, and every warp stops at its next tile pair.
+
 // Instances (`template <bool kStats, int kStage>`):
 //   * <false, kFull>: the packed byte above, the checker's main path;
 //   * <true, kFull>: the counter row of the JAX kernel's stats output
 //     (`megakernel.py:1116-1120`), int32 [n, 8]: 0 valid, 1 coplanar,
 //     2 num_pairs, 3 broad, 4 nfull, 5 ngate, 6 nrest, 7 zero. Columns 4-6
-//     count THIS kernel's tile pairs (32 robot x 128 obstacle triangles),
-//     not the JAX kernel's 128 x 128 tiles: nfull = gated tile pairs with at
-//     least one box-overlapping pair (real robot triangle), ngate = gated
-//     tile pairs with none, nrest = tile pairs with at least one live pair
-//     (both planes straddle the +-TOL band). Counts cover the tile pairs
-//     visited before the any-hit exit, as the JAX kernel's do; warp sums
-//     are taken with __reduce_add_sync, so they are deterministic;
-//   * <false, kNoSweep / kMaskOnly / kPlanesOnly>: the stage-isolating
-//     variants of the JAX kernel's `sweep=False` and `stage_cap` 0 / 1
-//     (`megakernel.py:625-643, 761-774`), which `scripts/torch_roofline.py`
-//     times. Each keeps its stage's work live with `hit |= any && rt_false`
-//     (rt_false is a kernel argument, always 0), so it never sets hit or
-//     coplanar and writes the byte 1 on every row. Table values are never
-//     multiplied by that zero: the obstacle padding rows hold +-inf.
+//     count this kernel's tile pairs (32 robot x 128 obstacle triangles),
+//     not the JAX kernel's 128 x 128 tiles, in the same units as the first
+//     port: nfull = gated tile pairs with at least one box-overlapping pair
+//     (real robot triangle), ngate = gated tile pairs with none, nrest = tile
+//     pairs with at least one live pair (both planes straddle the +-TOL
+//     band). Counts cover what was visited before the any-hit exit, as the
+//     JAX kernel's do; every count is a sum of ballot popcounts, so they are
+//     deterministic. This instance leaves out the uncertain test (column 7
+//     stays 0);
+//   * <false, kNoSweep / kMaskOnly / kPlanesOnly / kNoDiv>: the
+//     stage-isolating variants of the JAX kernel's `sweep=False` and
+//     `stage_cap` 0 / 1 / 3 (`megakernel.py:625-643, 761-775`), which
+//     `scripts/torch_roofline.py` times: the gate only; the sweep up to the
+//     queue (box tests and compaction); the plane stage on queued pairs
+//     (with the uncertain test of the pairs that are not live); and the full
+//     sweep with every divide of the interval stage and the coplanar test
+//     replaced by a multiply (`_probe_div`). Each keeps its stage's work
+//     live with `hit = count > 0 && rt_false` (rt_false is a kernel
+//     argument, always 0), so it never sets hit, coplanar or uncertain and
+//     writes the byte 1 on every row; none takes the any-hit exit. Table
+//     values are never multiplied by that zero: the obstacle padding rows
+//     hold +-inf.
 // `if constexpr` keeps the counter and variant code out of the packed
 // instance.
 //
 // Arithmetic: build with -fmad=false and without fast math. The TOL=1e-6
 // bands and the >= interval tests were validated on arithmetic that rounds
 // each multiply and each add on its own; IEEE division and denormals stay at
-// nvcc's defaults.
+// nvcc's defaults. Box minima and maxima propagate NaN (min.NaN / max.NaN),
+// as torch.minimum and jnp.minimum do.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRobTile = 32;   // robot triangles per tile: one per lane
-constexpr int kGroup = 128;    // obstacle triangles per group box
-constexpr int kObsCols = 20;   // obstacle row: corners 0-8, n 9-11, d 12,
-                               // box lo 13-15, box hi 16-18, zero 19
-constexpr int kRobFields = 19; // posed corners 0-8, n 9-11, d 12, lo 13-15, hi 16-18
-constexpr int kF_N = 9, kF_D = 12, kF_LO = 13, kF_HI = 16;
+constexpr int kWarps = 4;              // warps sharing one row
+constexpr int kRows = 4;               // rows in flight per block, one per team of kWarps warps
+constexpr int kTeamThreads = 32 * kWarps;
+constexpr int kThreads = kTeamThreads * kRows;
+constexpr int kMinBlocks = 1;          // resident blocks per SM
+constexpr int kRobTile = 32;           // robot triangles per tile: one per lane
+constexpr int kGroup = 128;            // obstacle triangles per group box
+constexpr int kObsCols = 20;           // obstacle row: corners 0-8, n 9-11, d 12,
+                                       // box lo 13-15, box hi 16-18, zero 19
+constexpr int kObsLo = 13;
+constexpr int kPad = 33;               // padded row of the transposed robot table
+constexpr int kTileBlock = 32 * kPad;  // floats of one field of 32 robot tiles
+constexpr int kQueue = 64;             // per-warp pair queue: < 32 left + 32 new
 constexpr float kTol = 1e-6f;
-constexpr float kBig = 3.0e38f;  // fill of masked robot boxes
-constexpr int kStatCols = 8;     // columns of the stats instance's output row
+constexpr float kBig = 3.0e38f;        // fill of boxes with no real triangle
+constexpr int kStatCols = 8;           // columns of the stats instance's output row
+constexpr unsigned kAll = 0xffffffffu;
 
-enum Stage : int { kFull = 0, kNoSweep = 1, kMaskOnly = 2, kPlanesOnly = 3 };
+// Rounding bound of a signed distance s = ((nx*cx + ny*cy) + nz*cz) + d,
+// evaluated in float32 from float32 corners and planes, one rounding per
+// multiply and add (-fmad=false). The product nx*cx passes through four
+// roundings (its own and three adds), so with u = 2^-24 the standard bound
+// for a dot product (Higham, Accuracy and Stability, 3.1) gives
+//   |fl(s) - s| <= gamma_4 * (|nx*cx| + |ny*cy| + |nz*cz| + |d|),
+//   gamma_4 = 4u / (1 - 4u) = 2.3841864e-7.
+// kErr is that gamma_4 times a safety factor of 2 (2 * gamma_4 =
+// 4.7683727e-7, rounded up): the factor covers the float32 rounding of the
+// bound itself (relative <= gamma_4) and of the shifted comparisons
+// d +- e against +-TOL (one rounding each), with a margin of gamma_4 times
+// the sum left over, far above the error of a float64 evaluation of the same
+// inputs. Underflow adds at most 2^-149 per operation, far below that margin
+// wherever d is near +-TOL. An overflowing sum gives e = inf, which marks the
+// pair uncertain: conservative.
+constexpr float kErr = 4.7684e-07f;
 
-// NaN-propagating min / max, as torch.minimum / jnp.minimum.
+enum Stage : int { kFull = 0, kNoSweep = 1, kMaskOnly = 2, kPlanesOnly = 3, kNoDiv = 4 };
+
+// NaN-propagating min / max (torch.minimum / jnp.minimum), one instruction each.
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = min_nan(v, __shfl_xor_sync(0xffffffffu, v, s));
+  for (int s = 16; s > 0; s >>= 1) v = min_nan(v, __shfl_xor_sync(kAll, v, s));
   return v;
 }
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, s));
+  for (int s = 16; s > 0; s >>= 1) v = max_nan(v, __shfl_xor_sync(kAll, v, s));
   return v;
 }
 
-// Some corner at or above +TOL and some at or below -TOL.
-__device__ __forceinline__ bool straddles(float d0, float d1, float d2) {
-  return (d0 >= kTol || d1 >= kTol || d2 >= kTol) &&
-         (d0 <= -kTol || d1 <= -kTol || d2 <= -kTol);
+// Closed-interval overlap of boxes a and b, each lo x,y,z then hi x,y,z.
+__device__ __forceinline__ bool boxes_touch(const float a[6], const float b[6]) {
+  return a[0] <= b[3] && b[0] <= a[3] && a[1] <= b[4] && b[1] <= a[4] &&
+         a[2] <= b[5] && b[2] <= a[5];
 }
 
+// Offset of robot triangle t in one field of the transposed table: 32 tiles
+// of 32 triangles per tile block, triangle k of tile l at k * kPad + l.
+__device__ __forceinline__ int rob_slot(int t) {
+  return (t >> 10) * kTileBlock + (t & 31) * kPad + ((t >> 5) & 31);
+}
+
+// Posed corners of the triangle whose fields start at `s` (field stride
+// `fs`): r0*x + r1*y + r2*z + t per axis, as the twin and the JAX kernel.
+__device__ __forceinline__ void pose_tri(const float* s, int fs, const float p[12],
+                                         float c[9]) {
+#pragma unroll
+  for (int cc = 0; cc < 3; ++cc) {
+    const float X = s[(3 * cc) * fs], Y = s[(3 * cc + 1) * fs], Z = s[(3 * cc + 2) * fs];
+    c[3 * cc + 0] = p[0] * X + p[1] * Y + p[2] * Z + p[3];
+    c[3 * cc + 1] = p[4] * X + p[5] * Y + p[6] * Z + p[7];
+    c[3 * cc + 2] = p[8] * X + p[9] * Y + p[10] * Z + p[11];
+  }
+}
+
+__device__ __forceinline__ void tri_box(const float c[9], float box[6]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    box[k] = min_nan(min_nan(c[k], c[3 + k]), c[6 + k]);
+    box[3 + k] = max_nan(max_nan(c[k], c[3 + k]), c[6 + k]);
+  }
+}
+
+// Plane n = (c1 - c0) x (c2 - c1), d = -n.c0 of posed corners c[0..8],
+// written to c[9..12].
+__device__ __forceinline__ void tri_plane(float c[13]) {
+  const float e1x = c[3] - c[0], e1y = c[4] - c[1], e1z = c[5] - c[2];
+  const float e2x = c[6] - c[3], e2y = c[7] - c[4], e2z = c[8] - c[5];
+  c[9] = e1y * e2z - e1z * e2y;
+  c[10] = e1z * e2x - e1x * e2z;
+  c[11] = e1x * e2y - e1y * e2x;
+  c[12] = -(c[9] * c[0] + c[10] * c[1] + c[11] * c[2]);
+}
+
+// a / b, or a * b in the kNoDiv variant (`_probe_div`).
+template <bool kDiv>
+__device__ __forceinline__ float dv(float a, float b) {
+  if constexpr (kDiv) return a / b;
+  else return a * b;
+}
+
+// Some corner at or above +TOL and some at or below -TOL.
+__device__ __forceinline__ bool straddles(const float d[3]) {
+  return (d[0] >= kTol || d[1] >= kTol || d[2] >= kTol) &&
+         (d[0] <= -kTol || d[1] <= -kTol || d[2] <= -kTol);
+}
+
+// As straddles, with each distance moved by its rounding bound e toward it.
+__device__ __forceinline__ bool may_straddle(const float d[3], const float e[3]) {
+  return (d[0] + e[0] >= kTol || d[1] + e[1] >= kTol || d[2] + e[2] >= kTol) &&
+         (d[0] - e[0] <= -kTol || d[1] - e[1] <= -kTol || d[2] - e[2] <= -kTol);
+}
+
+// Signed distances of corners `c` to plane `pl` (nx, ny, nz, d), and (if
+// `err`) their rounding bounds.
+__device__ __forceinline__ void dists(const float pl[4], const float c[9], float d[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    d[k] = pl[0] * c[3 * k] + pl[1] * c[3 * k + 1] + pl[2] * c[3 * k + 2] + pl[3];
+}
+__device__ __forceinline__ void dist_errs(const float pl[4], const float c[9], float e[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    e[k] = kErr * (((fabsf(pl[0] * c[3 * k]) + fabsf(pl[1] * c[3 * k + 1])) +
+                    fabsf(pl[2] * c[3 * k + 2])) + fabsf(pl[3]));
+}
+
+template <bool kDiv>
 __device__ __forceinline__ float endpoint(float pa, float pb, float da, float db) {
   float dd = da - db;
   if (dd == 0.f) dd = 1.f;
-  return pa + (pb - pa) * (da / dd);
+  return pa + (pb - pa) * dv<kDiv>(da, dd);
 }
 
 // Canonical permutation and interval ends on the intersection line.
-__device__ __forceinline__ void interval(float p0, float p1, float p2, float d0,
-                                         float d1, float d2, float& lo, float& hi) {
-  const bool c01 = (d0 > 0.f && d1 > 0.f) || (d0 < 0.f && d1 < 0.f);
-  const bool c02 = (d0 > 0.f && d2 > 0.f) || (d0 < 0.f && d2 < 0.f);
-  const float q0 = c01 ? p0 : (c02 ? p0 : p1);
-  const float q1 = c01 ? p2 : (c02 ? p1 : p0);
-  const float q2 = c01 ? p1 : p2;
-  const float e0 = c01 ? d0 : (c02 ? d0 : d1);
-  const float e1 = c01 ? d2 : (c02 ? d1 : d0);
-  const float e2 = c01 ? d1 : d2;
-  const float t01 = endpoint(q0, q1, e0, e1);
-  const float t12 = endpoint(q1, q2, e1, e2);
+template <bool kDiv>
+__device__ __forceinline__ void interval(const float p[3], const float d[3], float& lo,
+                                         float& hi) {
+  const bool c01 = (d[0] > 0.f && d[1] > 0.f) || (d[0] < 0.f && d[1] < 0.f);
+  const bool c02 = (d[0] > 0.f && d[2] > 0.f) || (d[0] < 0.f && d[2] < 0.f);
+  const float q0 = c01 ? p[0] : (c02 ? p[0] : p[1]);
+  const float q1 = c01 ? p[2] : (c02 ? p[1] : p[0]);
+  const float q2 = c01 ? p[1] : p[2];
+  const float e0 = c01 ? d[0] : (c02 ? d[0] : d[1]);
+  const float e1 = c01 ? d[2] : (c02 ? d[1] : d[0]);
+  const float e2 = c01 ? d[1] : d[2];
+  const float t01 = endpoint<kDiv>(q0, q1, e0, e1);
+  const float t12 = endpoint<kDiv>(q1, q2, e1, e2);
   lo = min_nan(t01, t12);
   hi = max_nan(t01, t12);
 }
 
+template <bool kDiv>
 __device__ __forceinline__ bool isclose(float v1, float v2) {
   const float a1 = fabsf(v1), a2 = fabsf(v2);
   const bool both = a1 < kTol && a2 < kTol;
   const bool one = a1 < kTol || a2 < kTol;
-  const bool rel = fabsf((v1 - v2) / (a1 < kTol ? 1.f : v1)) < kTol;
+  const bool rel = fabsf(dv<kDiv>(v1 - v2, a1 < kTol ? 1.f : v1)) < kTol;
   return both || (!one && rel);
 }
 
-// Exact component-ratio coplanarity test of planes (nr, dr) and (no, do).
+// Exact component-ratio coplanarity test of planes r and o (nx, ny, nz, d).
+template <bool kDiv>
 __device__ __forceinline__ bool ratio_coplanar(const float r[4], const float o[4]) {
   bool mismatch = false, valid[4];
   float ratio[4];
@@ -142,45 +281,26 @@ __device__ __forceinline__ bool ratio_coplanar(const float r[4], const float o[4
     const bool zr = fabsf(r[k]) < kTol, zo = fabsf(o[k]) < kTol;
     mismatch |= zr != zo;
     valid[k] = !zr && !zo;
-    ratio[k] = r[k] / (valid[k] ? o[k] : 1.f);
+    ratio[k] = dv<kDiv>(r[k], valid[k] ? o[k] : 1.f);
   }
   const float ratio0 = valid[0] ? ratio[0]
                      : valid[1] ? ratio[1]
                      : valid[2] ? ratio[2] : ratio[3];
   bool ok = !mismatch;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) ok = ok && (!valid[k] || isclose(ratio0, ratio[k]));
+  for (int k = 0; k < 4; ++k) ok = ok && (!valid[k] || isclose<kDiv>(ratio0, ratio[k]));
   return ok;
 }
 
-// Plane stage of one pair: the signed corner distances to the other plane.
-__device__ __forceinline__ void plane_dists(const float rf[kRobFields], const float oc[9],
-                                            const float4 a2, const float4 a3,
-                                            float dist_o[3], float dist_r[3]) {
-  const float nox = a2.y, noy = a2.z, noz = a2.w, dob = a3.x;
-  const float nrx = rf[kF_N], nry = rf[kF_N + 1], nrz = rf[kF_N + 2], drb = rf[kF_D];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    dist_o[c] = nrx * oc[3 * c] + nry * oc[3 * c + 1] + nrz * oc[3 * c + 2] + drb;
-    dist_r[c] = nox * rf[3 * c] + noy * rf[3 * c + 1] + noz * rf[3 * c + 2] + dob;
-  }
-}
-
-// Plane stage, interval stage and coplanar flag of one box-overlapping pair.
-// Returns whether the pair is live (both planes straddled).
-__device__ __forceinline__ bool pair_test(const float rf[kRobFields], const float4 a0,
-                                          const float4 a1, const float4 a2,
-                                          const float4 a3, bool& hit, bool& cop) {
-  const float oc[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x};
-  const float nox = a2.y, noy = a2.z, noz = a2.w, dob = a3.x;
-  const float nrx = rf[kF_N], nry = rf[kF_N + 1], nrz = rf[kF_N + 2], drb = rf[kF_D];
-
-  float dist_o[3], dist_r[3];
-  plane_dists(rf, oc, a2, a3, dist_o, dist_r);
-  if (!straddles(dist_o[0], dist_o[1], dist_o[2]) ||
-      !straddles(dist_r[0], dist_r[1], dist_r[2]))
-    return false;
-
+// Interval stage and coplanar flag of one live pair: robot fields rf
+// (corners 0-8, plane 9-12), obstacle corners oc and plane op.
+template <bool kDiv>
+__device__ __forceinline__ void interval_stage(const float rf[13], const float oc[9],
+                                               const float op[4], const float dist_o[3],
+                                               const float dist_r[3], bool& hit,
+                                               bool& cop) {
+  const float nrx = rf[9], nry = rf[10], nrz = rf[11];
+  const float nox = op[0], noy = op[1], noz = op[2];
   const float Dx = nry * noz - nrz * noy;
   const float Dy = nrz * nox - nrx * noz;
   const float Dz = nrx * noy - nry * nox;
@@ -191,140 +311,267 @@ __device__ __forceinline__ bool pair_test(const float rf[kRobFields], const floa
     po[c] = Dx * oc[3 * c] + Dy * oc[3 * c + 1] + Dz * oc[3 * c + 2];
   }
   float min_r, max_r, min_o, max_o;
-  interval(pr[0], pr[1], pr[2], dist_r[0], dist_r[1], dist_r[2], min_r, max_r);
-  interval(po[0], po[1], po[2], dist_o[0], dist_o[1], dist_o[2], min_o, max_o);
+  interval<kDiv>(pr, dist_r, min_r, max_r);
+  interval<kDiv>(po, dist_o, min_o, max_o);
   const bool isect = !(min_r >= max_o || min_o >= max_r);
-
-  const float pl_r[4] = {nrx, nry, nrz, drb};
-  const float pl_o[4] = {nox, noy, noz, dob};
-  const bool coplanar = ratio_coplanar(pl_r, pl_o);
-  hit = hit || (isect && !coplanar);
-  cop = cop || coplanar;
-  return true;
+  const bool coplanar = ratio_coplanar<kDiv>(rf + 9, op);
+  hit = isect && !coplanar;
+  cop = coplanar;
 }
 
-// Plane stage only (the kPlanesOnly variant): whether the pair is live.
-__device__ __forceinline__ bool pair_live(const float rf[kRobFields], const float4 a0,
-                                          const float4 a1, const float4 a2,
-                                          const float4 a3) {
-  const float oc[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x};
-  float dist_o[3], dist_r[3];
-  plane_dists(rf, oc, a2, a3, dist_o, dist_r);
-  return straddles(dist_o[0], dist_o[1], dist_o[2]) &&
-         straddles(dist_r[0], dist_r[1], dist_r[2]);
+// Barrier of the kWarps warps (team t) checking one row, and the same with
+// an OR of `v` over their threads (named barriers 1..kRows; 0 is the block's).
+__device__ __forceinline__ void team_sync(int t) {
+  asm volatile("bar.sync %0, %1;" ::"r"(t + 1), "r"(kTeamThreads) : "memory");
+}
+__device__ __forceinline__ bool team_or(int t, bool v) {
+  int r;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.u32 p, %1, 0;\n bar.red.or.pred q, %2, %3, p;\n"
+      " selp.s32 %0, 1, 0, q;\n}"
+      : "=r"(r)
+      : "r"(int(v)), "r"(t + 1), "r"(kTeamThreads)
+      : "memory");
+  return r != 0;
 }
 
-__host__ __device__ constexpr size_t smem_floats(int tr) {
-  // posed robot fields, tile boxes, per-warp reduction, mesh box, pose
-  return size_t(kRobFields) * tr + size_t(tr / kRobTile) * 6 + kWarps * 6 + 8 + 16;
-}
+// Per-warp state of one configuration's sweep. hit / cop / unc / keep are
+// per lane; the counters are warp-uniform.
+struct Acc {
+  bool hit = false, cop = false, unc = false;
+  int keep = 0;  // work kept live in the stage variants
+  int pairs = 0, full = 0, gate = 0, rest = 0, last_seq = -1;  // kStats
+};
 
-__host__ __device__ constexpr size_t smem_bytes(int tr, int n_groups) {
-  return 4 * (smem_floats(tr) + size_t(tr / kRobTile) * n_groups + kWarps);
-}
-
-// `out` is uint8 [n] (packed instances) or int32 [n, kStatCols] (kStats).
+// The queued pairs 0..cnt-1, lane l taking pair l: plane stage, then the
+// interval stage of live pairs and the uncertain test of the others. Not
+// inlined: its registers (the interval stage and IEEE divides) stay out of
+// the sweep's loops, which call it once per 32 queued pairs.
 template <bool kStats, int kStage>
-__global__ void __launch_bounds__(kThreads)
-megakernel(const float* __restrict__ poses, int64_t n_confs,
+__device__ __noinline__ Acc run_pairs(int cnt, const int* queue, const int* qseq,
+                                      const float* rob_s, int fs, const float* pose,
+                                      const float4* __restrict__ obs4, Acc a) {
+  const int lane = threadIdx.x & 31;
+  bool live = false;
+  if (lane < cnt) {
+    if constexpr (kStage == kMaskOnly) {
+      ++a.keep;
+    } else {
+      const int e = queue[lane];
+      float p[12], rf[13];
+#pragma unroll
+      for (int k = 0; k < 12; ++k) p[k] = pose[k];
+      pose_tri(rob_s + rob_slot(e >> 16), fs, p, rf);
+      tri_plane(rf);
+      const float4* row = obs4 + size_t(e & 0xffff) * (kObsCols / 4);
+      const float4 a0 = __ldg(row), a1 = __ldg(row + 1), a2 = __ldg(row + 2);
+      const float4 a3 = __ldg(row + 3);
+      const float oc[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x};
+      const float op[4] = {a2.y, a2.z, a2.w, a3.x};
+      float dist_o[3], dist_r[3];
+      dists(rf + 9, oc, dist_o);  // obstacle corners to the robot plane
+      dists(op, rf, dist_r);      // robot corners to the obstacle plane
+      live = straddles(dist_o) && straddles(dist_r);
+      if (live) {
+        if constexpr (kStage == kPlanesOnly) {
+          ++a.keep;
+        } else {
+          bool h, c;
+          interval_stage<kStage != kNoDiv>(rf, oc, op, dist_o, dist_r, h, c);
+          if constexpr (kStage == kNoDiv) {
+            a.keep += h || c;
+          } else {
+            a.hit = a.hit || h;
+            a.cop = a.cop || c;
+          }
+        }
+      } else if constexpr (!kStats) {
+        float e_o[3], e_r[3];
+        dist_errs(rf + 9, oc, e_o);
+        dist_errs(op, rf, e_r);
+        const bool u = may_straddle(dist_o, e_o) && may_straddle(dist_r, e_r);
+        if constexpr (kStage == kFull) a.unc = a.unc || u;
+        else a.keep += u;
+      }
+    }
+  }
+  if constexpr (kStats) {
+    // nrest: the tile pairs (sequence numbers, ascending along the queue)
+    // with a live pair, each counted once across flushes.
+    const unsigned lb = __ballot_sync(kAll, live);
+    if (lb) {
+      const int sq = lane < cnt ? qseq[lane] : 0;
+      const unsigned before = lb & ((1u << lane) - 1u);
+      int prev_sq = __shfl_sync(kAll, sq, before ? 31 - __clz(before) : 0);
+      if (!before) prev_sq = a.last_seq;
+      a.rest += __popc(__ballot_sync(kAll, live && sq != prev_sq));
+      a.last_seq = __shfl_sync(kAll, sq, 31 - __clz(lb));
+    }
+  }
+  return a;
+}
+
+// Control words (shared) of the row a team is checking: its index, the
+// next gated tile pair to take, the any-hit flag, the counter sums, and the
+// gate's per-warp counts.
+enum Ctl : int {
+  cRow = 0, cNext, cHit, cPairs, cFull, cGate, cRest, cWCount, cWords = cWCount + kWarps
+};
+
+// Shared-memory layout (floats) of one block for tr robot and to obstacle rows.
+struct Layout {
+  int n_tiles, n_groups, to, fs;  // fs: field stride of the transposed robot table
+  __host__ __device__ Layout(int tr, int to_, int groups)
+      : n_tiles(tr / kRobTile), n_groups(groups), to(to_),
+        fs(((tr / kRobTile + 31) / 32) * kTileBlock) {}
+  // The tables: rest-frame robot corners [9][fs], obstacle boxes [6][to],
+  // group boxes [n_groups][6], real-triangle bits [n_tiles].
+  __host__ __device__ int obox() const { return 9 * fs; }
+  __host__ __device__ int gbox() const { return obox() + 6 * to; }
+  __host__ __device__ int realw() const { return gbox() + 6 * n_groups; }
+  // Per team t: control words [cWords], pose [16], tile boxes
+  // [n_tiles][6], gated tile pairs [n_tiles * n_groups], and scratch: the
+  // pose pass's partial tile boxes [kWarps][6][32], later the warps' pair
+  // queues and tags [kWarps][2 * kQueue].
+  __host__ __device__ int row_floats() const {
+    const int part = kWarps * 6 * 32, queues = kWarps * 2 * kQueue;
+    return cWords + 16 + 6 * n_tiles + n_tiles * n_groups + (part > queues ? part : queues);
+  }
+  __host__ __device__ int ctl(int t) const { return realw() + n_tiles + t * row_floats(); }
+  __host__ __device__ int pose(int t) const { return ctl(t) + cWords; }
+  __host__ __device__ int tile_box(int t) const { return pose(t) + 16; }
+  __host__ __device__ int items(int t) const { return tile_box(t) + 6 * n_tiles; }
+  __host__ __device__ int scratch(int t) const { return items(t) + n_tiles * n_groups; }
+  __host__ __device__ size_t bytes() const { return 4 * size_t(ctl(kRows)); }
+};
+
+// `out` is uint8 [n] (packed instances) or int32 [n, kStatCols] (kStats);
+// `work` is the batch's row counter, 0 at launch.
+template <bool kStats, int kStage>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+megakernel(const float* __restrict__ poses, int n_confs,
            const float* __restrict__ rob_base, int tr,
-           const float* __restrict__ obs,
+           const float* __restrict__ obs, int to,
            const float* __restrict__ obs_mesh,
            const float* __restrict__ obs_groups, int n_groups,
-           void* __restrict__ out_ptr, int rt_false) {
+           void* __restrict__ out_ptr, int* __restrict__ work, int rt_false) {
   static_assert(!kStats || kStage == kFull, "counters come with the full sweep only");
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L(tr, to, n_groups);
+  const int n_tiles = L.n_tiles, fs = L.fs;
+  float* rob_s = smem + 0;                // [9][fs] rest-frame corners, transposed
+  float* obox = smem + L.obox();          // [6][to] obstacle boxes lo x,y,z, hi x,y,z
+  float* gbox = smem + L.gbox();          // [n_groups][6] group boxes
+  unsigned* realw = reinterpret_cast<unsigned*>(smem + L.realw());  // real bits per tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // This thread's team (the warps checking one row), its warp and thread
+  // index within the team.
+  const int team = warp / kWarps, twarp = warp % kWarps, ttid = tid % kTeamThreads;
+  volatile int* ctl = reinterpret_cast<int*>(smem + L.ctl(team));
+  float* pose = smem + L.pose(team);
+  float* tile_box = smem + L.tile_box(team);
+  int* items = reinterpret_cast<int*>(smem + L.items(team));
+  float* part = smem + L.scratch(team);
+  int* queue = reinterpret_cast<int*>(part) + twarp * 2 * kQueue;  // robot << 16 | obs
+  int* qseq = queue + kQueue;                                     // tile-pair tags (kStats)
+  const float4* obs4 = reinterpret_cast<const float4*>(obs);
   uint8_t* out = static_cast<uint8_t*>(out_ptr);
   int32_t* out_stats = static_cast<int32_t*>(out_ptr);
-  const int n_tiles = tr / kRobTile;
-  float* rob = smem;                              // [kRobFields][tr]
-  float* tile_box = rob + size_t(kRobFields) * tr;  // [n_tiles][6]
-  float* red = tile_box + n_tiles * 6;            // [kWarps][6]
-  float* mesh = red + kWarps * 6;                 // [6] (+2 pad)
-  float* pose = mesh + 8;                         // [12] (+4 pad)
-  int* items = reinterpret_cast<int*>(smem + smem_floats(tr));  // [n_tiles * n_groups]
-  int* wcount = items + n_tiles * n_groups;       // [kWarps]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* rob_real = rob_base + 9 * tr;
-  const float4* obs4 = reinterpret_cast<const float4*>(obs);
+  // ---- The configuration-invariant tables, once per block. ----
+  for (int i = tid; i < 9 * tr; i += kThreads) {
+    const int f = i / tr, t = i - f * tr;
+    rob_s[f * fs + rob_slot(t)] = rob_base[i];
+  }
+  for (int i = tid; i < 6 * to; i += kThreads) {
+    const int s = i / to, o = i - s * to;
+    obox[i] = obs[size_t(o) * kObsCols + kObsLo + s];
+  }
+  for (int i = tid; i < 6 * n_groups; i += kThreads) gbox[i] = obs_groups[i];
+  for (int tile = warp; tile < n_tiles; tile += kThreads / 32) {
+    const unsigned w = __ballot_sync(kAll, rob_base[9 * tr + tile * kRobTile + lane] > 0.f);
+    if (lane == 0) realw[tile] = w;
+  }
+  __syncthreads();
+  const int total = n_tiles * n_groups;
+  // Rows are taken one at a time from the batch's counter, the next row's
+  // index fetched while this one is checked.
+  int next_row = 0;
+  if (ttid == 0) next_row = atomicAdd(work, 1);
 
-  for (int64_t b = blockIdx.x; b < n_confs; b += gridDim.x) {
-    __syncthreads();  // the previous configuration's readers are done
-    if (tid < 12) pose[tid] = poses[b * 16 + tid];
-    __syncthreads();
+  for (;;) {
+    if (ttid == 0) {
+      ctl[cRow] = next_row;
+      next_row = atomicAdd(work, 1);
+      for (int c = cNext; c < cWCount; ++c) ctl[c] = 0;
+    }
+    team_sync(team);  // also: the previous row's readers of the scratch are done
+    const int b = ctl[cRow];
+    if (b >= n_confs) break;
+    if (ttid < 12) pose[ttid] = __ldg(poses + size_t(b) * 16 + ttid);
+    team_sync(team);
     float p[12];
 #pragma unroll
     for (int k = 0; k < 12; ++k) p[k] = pose[k];
 
-    // ---- Pose the corners; planes, boxes, tile boxes, mesh box. ----
-    float m_lo[3] = {kBig, kBig, kBig}, m_hi[3] = {-kBig, -kBig, -kBig};
-    for (int r = tid; r < tr; r += kThreads) {  // tr % 32 == 0: whole warps
-      float c[9];
+    // ---- Pose pass: lane l poses robot tile l of each tile block, its
+    // triangles split across the team's warps; partial boxes meet in
+    // `part`. ----
+    for (int tb = 0; tb * 32 < n_tiles; ++tb) {
+      const int tile = tb * 32 + lane;
+      float t[6] = {kBig, kBig, kBig, -kBig, -kBig, -kBig};
+      if (tile < n_tiles) {
+        const float* base = rob_s + tb * kTileBlock + lane;
+        const unsigned rw = realw[tile];
 #pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        const float X = rob_base[(3 * cc) * tr + r];
-        const float Y = rob_base[(3 * cc + 1) * tr + r];
-        const float Z = rob_base[(3 * cc + 2) * tr + r];
-        c[3 * cc + 0] = p[0] * X + p[1] * Y + p[2] * Z + p[3];
-        c[3 * cc + 1] = p[4] * X + p[5] * Y + p[6] * Z + p[7];
-        c[3 * cc + 2] = p[8] * X + p[9] * Y + p[10] * Z + p[11];
-      }
-      const float e1x = c[3] - c[0], e1y = c[4] - c[1], e1z = c[5] - c[2];
-      const float e2x = c[6] - c[3], e2y = c[7] - c[4], e2z = c[8] - c[5];
-      const float nx = e1y * e2z - e1z * e2y;
-      const float ny = e1z * e2x - e1x * e2z;
-      const float nz = e1x * e2y - e1y * e2x;
-      const float d = -(nx * c[0] + ny * c[1] + nz * c[2]);
+        for (int j = 0; j < (kRobTile + kWarps - 1) / kWarps; ++j) {
+          const int k = twarp + kWarps * j;
+          if (k >= kRobTile) break;
+          float c[9], box[6];
+          pose_tri(base + k * kPad, fs, p, c);
+          tri_box(c, box);
+          const bool real = (rw >> k) & 1u;
 #pragma unroll
-      for (int f = 0; f < 9; ++f) rob[f * tr + r] = c[f];
-      rob[kF_N * tr + r] = nx;
-      rob[(kF_N + 1) * tr + r] = ny;
-      rob[(kF_N + 2) * tr + r] = nz;
-      rob[kF_D * tr + r] = d;
-      const bool real = rob_real[r] > 0.f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float lo = min_nan(min_nan(c[k], c[3 + k]), c[6 + k]);
-        const float hi = max_nan(max_nan(c[k], c[3 + k]), c[6 + k]);
-        rob[(kF_LO + k) * tr + r] = lo;
-        rob[(kF_HI + k) * tr + r] = hi;
-        const float tlo = warp_min(real ? lo : kBig);
-        const float thi = warp_max(real ? hi : -kBig);
-        m_lo[k] = min_nan(m_lo[k], tlo);
-        m_hi[k] = max_nan(m_hi[k], thi);
-        if (lane == 0) {
-          tile_box[(r / kRobTile) * 6 + k] = tlo;
-          tile_box[(r / kRobTile) * 6 + 3 + k] = thi;
+          for (int ax = 0; ax < 3; ++ax) {
+            t[ax] = min_nan(t[ax], real ? box[ax] : kBig);
+            t[3 + ax] = max_nan(t[3 + ax], real ? box[3 + ax] : -kBig);
+          }
         }
       }
+#pragma unroll
+      for (int k = 0; k < 6; ++k) part[(twarp * 6 + k) * 32 + lane] = t[k];
+      team_sync(team);
+      for (int e = ttid; e < 6 * 32; e += kTeamThreads) {
+        const int k = e >> 5;
+        float v = part[e];
+        for (int w = 1; w < kWarps; ++w) {
+          const float x = part[w * 6 * 32 + e];
+          v = k < 3 ? min_nan(v, x) : max_nan(v, x);
+        }
+        if (tb * 32 + lane < n_tiles) tile_box[(tb * 32 + lane) * 6 + k] = v;
+      }
+      team_sync(team);
     }
-    if (lane == 0) {
+    // Mesh-box broad phase (closed intervals), on every warp alike.
+    float m[6] = {kBig, kBig, kBig, -kBig, -kBig, -kBig};
+    for (int tile = lane; tile < n_tiles; tile += 32) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        red[warp * 6 + k] = m_lo[k];
-        red[warp * 6 + 3 + k] = m_hi[k];
+        m[k] = min_nan(m[k], tile_box[tile * 6 + k]);
+        m[3 + k] = max_nan(m[3 + k], tile_box[tile * 6 + 3 + k]);
       }
     }
-    __syncthreads();
-    if (tid < 6) {
-      float v = red[tid];
-      for (int w = 1; w < kWarps; ++w)
-        v = tid < 3 ? min_nan(v, red[w * 6 + tid]) : max_nan(v, red[w * 6 + tid]);
-      mesh[tid] = v;
-    }
-    __syncthreads();
-
-    // ---- Mesh-box broad phase (closed intervals). ----
     bool broad = true;
 #pragma unroll
     for (int k = 0; k < 3; ++k)
-      broad = broad && mesh[k] <= obs_mesh[3 + k] && obs_mesh[k] <= mesh[3 + k];
+      broad = broad && warp_min(m[k]) <= __ldg(obs_mesh + 3 + k) &&
+              __ldg(obs_mesh + k) <= warp_max(m[3 + k]);
     if (!broad) {
-      if (tid == 0) {
+      if (ttid == 0) {
         if constexpr (kStats) {
 #pragma unroll
-          for (int c = 0; c < kStatCols; ++c) out_stats[b * kStatCols + c] = c == 0;
+          for (int c = 0; c < kStatCols; ++c) out_stats[size_t(b) * kStatCols + c] = c == 0;
         } else {
           out[b] = 1;
         }
@@ -333,152 +580,184 @@ megakernel(const float* __restrict__ poses, int64_t n_confs,
     }
 
     // ---- Gate: robot tile box x obstacle group box, compacted in order. ----
-    const int total = n_tiles * n_groups;
     int n_items = 0;
-    for (int q0 = 0; q0 < total; q0 += kThreads) {
-      const int q = q0 + tid;
-      bool pass = false;
-      if (q < total) {
-        const int i = q / n_groups, j = q - i * n_groups;
-        const float* tb = tile_box + i * 6;
-        const float* gb = obs_groups + j * 6;
-        pass = tb[0] <= gb[3] && gb[0] <= tb[3] && tb[1] <= gb[4] &&
-               gb[1] <= tb[4] && tb[2] <= gb[5] && gb[2] <= tb[5];
-      }
-      const unsigned ballot = __ballot_sync(0xffffffffu, pass);
-      if (lane == 0) wcount[warp] = __popc(ballot);
-      __syncthreads();
+    for (int q0 = 0; q0 < total; q0 += kTeamThreads) {
+      const int q = q0 + ttid;
+      const bool pass =
+          q < total && boxes_touch(tile_box + (q / n_groups) * 6, gbox + (q % n_groups) * 6);
+      const unsigned ballot = __ballot_sync(kAll, pass);
+      if (lane == 0) ctl[cWCount + twarp] = __popc(ballot);
+      team_sync(team);
       int off = n_items, round_total = 0;
       for (int w = 0; w < kWarps; ++w) {
-        const int cnt = wcount[w];
-        if (w < warp) off += cnt;
+        const int cnt = ctl[cWCount + w];
+        if (w < twarp) off += cnt;
         round_total += cnt;
       }
       if (pass) items[off + __popc(ballot & ((1u << lane) - 1u))] = q;
       n_items += round_total;
-      __syncthreads();
+      team_sync(team);
     }
 
+    // ---- Sweep: the team's warps take gated tile pairs in order from a
+    // shared counter; two-sided gate, compaction, pair stages; any-hit
+    // exit. ----
+    Acc a;
     if constexpr (kStage == kNoSweep) {
-      // Stage 1 and the epilogue only; the gate's work list stays live.
-      const bool hit = n_items > 0 && rt_false;
-      if (tid == 0) out[b] = hit ? 0 : 1;
-      continue;
-    }
-
-    // ---- Gated pair sweep: one tile pair per warp, any-hit exit. ----
-    bool hit = false, cop = false;
-    int any_hit = 0;
-    // Per-warp counters of the tile pairs this warp visited (kStats only):
-    // box-overlapping pairs, tile pairs with some / no such pair, tile
-    // pairs with some live pair. Warp-uniform after __reduce_add_sync.
-    int w_pairs = 0, w_full = 0, w_gate = 0, w_rest = 0;
-    for (int base = 0; base < n_items; base += kWarps) {
-      const int k = base + warp;
-      if (k < n_items) {
+      a.keep = n_items;
+    } else {
+      int qn = 0;      // queued pairs
+      int posed = -1;  // robot tile whose triangle this lane holds
+      float rb[6];     // this lane's robot triangle posed_tile*32+lane: box, real
+      bool real = false;
+      for (;;) {
+        int k = 0;
+        if (lane == 0) k = atomicAdd(const_cast<int*>(ctl + cNext), 1);
+        k = __shfl_sync(kAll, k, 0);
+        if (k >= n_items) break;
+        if (kStage == kFull && ctl[cHit]) goto swept;  // another warp found a hit
         const int q = items[k];
         const int i = q / n_groups, j = q - i * n_groups;
-        const int r = i * kRobTile + lane;
-        const bool real = rob_real[r] > 0.f;
-        float rf[kRobFields];
+        float tbox[6];
 #pragma unroll
-        for (int f = 0; f < kRobFields; ++f) rf[f] = rob[f * tr + r];
-        const float4* grp = obs4 + size_t(j) * kGroup * (kObsCols / 4);
-        // Box-overlapping pairs of this lane (kStats, kMaskOnly), or its live
-        // pairs (kPlanesOnly: a count, so the plane stage runs on every
-        // box-overlapping pair, as in the full kernel, and is never skipped
-        // once one pair is live).
-        int n_pairs = 0;
-        bool live = false;  // some live pair on this lane (kStats)
-        for (int o = 0; o < kGroup && real; ++o) {
-          const float4* row = grp + o * (kObsCols / 4);
-          const float4 a3 = __ldg(row + 3);  // d, lo x, lo y, lo z
-          const float4 a4 = __ldg(row + 4);  // hi x, hi y, hi z, 0
-          const bool overlap =
-              rf[kF_LO] <= a4.x && a3.y <= rf[kF_HI] &&
-              rf[kF_LO + 1] <= a4.y && a3.z <= rf[kF_HI + 1] &&
-              rf[kF_LO + 2] <= a4.z && a3.w <= rf[kF_HI + 2];
-          if constexpr (kStage == kMaskOnly) {
-            n_pairs += overlap;
-            continue;
-          }
-          if (!overlap) continue;
-          if constexpr (kStage == kPlanesOnly) {
-            n_pairs += pair_live(rf, __ldg(row), __ldg(row + 1), __ldg(row + 2), a3);
-            continue;
-          }
-          const bool pair_is_live =
-              pair_test(rf, __ldg(row), __ldg(row + 1), __ldg(row + 2), a3, hit, cop);
-          if constexpr (kStats) {
-            ++n_pairs;
-            live = live || pair_is_live;
+        for (int c = 0; c < 6; ++c) tbox[c] = tile_box[i * 6 + c];
+        if (posed != i) {
+          float c[9];
+          pose_tri(rob_s + rob_slot(i * kRobTile + lane), fs, p, c);
+          tri_box(c, rb);
+          real = (realw[i] >> lane) & 1u;
+          posed = i;
+        }
+        int tp_pairs = 0;
+        for (int s = 0; s < kGroup / 32; ++s) {
+          const int o0 = j * kGroup + s * 32;
+          float ob[6];
+#pragma unroll
+          for (int c = 0; c < 6; ++c) ob[c] = obox[c * to + o0 + lane];
+          for (unsigned rows = __ballot_sync(kAll, boxes_touch(tbox, ob)); rows;
+               rows &= rows - 1) {
+            const int src = __ffs(rows) - 1;
+            float x[6];
+#pragma unroll
+            for (int c = 0; c < 6; ++c) x[c] = __shfl_sync(kAll, ob[c], src);
+            const bool ov = real && boxes_touch(rb, x);
+            const unsigned hits = __ballot_sync(kAll, ov);
+            if (!hits) continue;
+            if (ov) {
+              const int at = qn + __popc(hits & ((1u << lane) - 1u));
+              queue[at] = ((i * kRobTile + lane) << 16) | (o0 + src);
+              if constexpr (kStats) qseq[at] = k;
+            }
+            const int added = __popc(hits);
+            if constexpr (kStats) {
+              a.pairs += added;
+              a.full += tp_pairs == 0;
+            }
+            tp_pairs += added;
+            qn += added;
+            if (qn >= 32) {
+              __syncwarp();
+              a = run_pairs<kStats, kStage>(32, queue, qseq, rob_s, fs, pose, obs4, a);
+              const int left = qn - 32;
+              int e = 0, es = 0;
+              if (lane < left) {
+                e = queue[32 + lane];
+                es = qseq[32 + lane];
+              }
+              __syncwarp();
+              if (lane < left) {
+                queue[lane] = e;
+                qseq[lane] = es;
+              }
+              __syncwarp();
+              qn = left;
+              if constexpr (kStage == kFull) {
+                if (__any_sync(kAll, a.hit)) {  // any-hit exit
+                  if (lane == 0) ctl[cHit] = 1;
+                  goto swept;
+                }
+              }
+            }
           }
         }
-        if constexpr (kStage == kMaskOnly || kStage == kPlanesOnly)
-          hit = hit || (n_pairs > 0 && rt_false);
-        if constexpr (kStats) {
-          const int t_pairs = int(__reduce_add_sync(0xffffffffu, unsigned(n_pairs)));
-          w_pairs += t_pairs;
-          w_full += t_pairs > 0;
-          w_gate += t_pairs == 0;
-          w_rest += __any_sync(0xffffffffu, live);
-        }
+        if constexpr (kStats) a.gate += tp_pairs == 0;
       }
-      any_hit = __syncthreads_or(hit);
-      if (any_hit) break;
+      if (qn > 0) {
+        __syncwarp();
+        a = run_pairs<kStats, kStage>(qn, queue, qseq, rob_s, fs, pose, obs4, a);
+      }
     }
+  swept:
     if constexpr (kStats) {
-      // `red` is free after the mesh box; __syncthreads_or below orders
-      // these writes before thread 0 reads them.
-      int* w_stats = reinterpret_cast<int*>(red);  // [kWarps][4]
       if (lane == 0) {
-        w_stats[warp * 4 + 0] = w_pairs;
-        w_stats[warp * 4 + 1] = w_full;
-        w_stats[warp * 4 + 2] = w_gate;
-        w_stats[warp * 4 + 3] = w_rest;
+        atomicAdd(const_cast<int*>(ctl + cPairs), a.pairs);
+        atomicAdd(const_cast<int*>(ctl + cFull), a.full);
+        atomicAdd(const_cast<int*>(ctl + cGate), a.gate);
+        atomicAdd(const_cast<int*>(ctl + cRest), a.rest);
       }
     }
-    const int any_cop = __syncthreads_or(cop);
-    if (tid == 0) {
-      if constexpr (kStats) {
-        int sums[4] = {0, 0, 0, 0};
-        const int* w_stats = reinterpret_cast<const int*>(red);
-        for (int w = 0; w < kWarps; ++w)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sums[c] += w_stats[w * 4 + c];
-        int32_t* row = out_stats + b * kStatCols;
-        row[0] = any_hit ? 0 : 1;
-        row[1] = any_cop ? 1 : 0;
-        row[2] = sums[0];
-        row[3] = 1;
-        row[4] = sums[1];
-        row[5] = sums[2];
-        row[6] = sums[3];
-        row[7] = 0;
-      } else {
-        out[b] = uint8_t((any_hit ? 0 : 1) | (any_cop ? 2 : 0));
+    if constexpr (kStage == kFull) {
+      const bool any_hit = team_or(team, a.hit);
+      const bool any_cop = team_or(team, a.cop);
+      const bool any_unc = team_or(team, a.unc);
+      if (ttid == 0) {
+        if constexpr (kStats) {
+          int32_t* row = out_stats + size_t(b) * kStatCols;
+          row[0] = any_hit ? 0 : 1;
+          row[1] = any_cop ? 1 : 0;
+          row[2] = ctl[cPairs];
+          row[3] = 1;
+          row[4] = ctl[cFull];
+          row[5] = ctl[cGate];
+          row[6] = ctl[cRest];
+          row[7] = 0;
+        } else {
+          out[b] = uint8_t((any_hit ? 0 : 1) | (any_cop ? 2 : 0) | (any_unc ? 4 : 0));
+        }
       }
+    } else {
+      const bool hit = team_or(team, a.keep > 0) && rt_false;
+      if (ttid == 0) out[b] = hit ? 0 : 1;
     }
   }
 }
 
-// Checks the launch's arguments, sets the instance's shared memory and
-// launches it on `stream`; returns the cudaError_t (0 = launched).
+template <bool kStats, int kStage>
+int resident_blocks(const Layout& L, int* per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, megakernel<kStats, kStage>,
+                                                       kThreads, L.bytes());
+}
+
+// Checks the launch's arguments, sets the instance's shared memory, zeroes
+// the row counter `work` (one int32 on the device) and launches the instance
+// on `stream` with as many blocks as stay resident (at most one team per
+// row); returns the cudaError_t (0 = launched).
 template <bool kStats, int kStage>
 int launch(const float* poses, int64_t n, const float* rob_base, int tr,
            const float* obs, int to, const float* obs_mesh, const float* obs_groups,
-           int n_groups, void* out, int rt_false, cudaStream_t stream) {
+           int n_groups, void* out, int* work, int rt_false, cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
-  if (tr <= 0 || tr % kRobTile != 0 || to != n_groups * kGroup)
+  if (n > (int64_t(1) << 30) || tr <= 0 || tr % kRobTile != 0 || tr >= 65536 ||
+      n_groups <= 0 || to != n_groups * kGroup || to >= 65536)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(tr, n_groups);
+  const Layout L(tr, to, n_groups);
   cudaError_t err = cudaFuncSetAttribute(megakernel<kStats, kStage>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
+                                         int(L.bytes()));
   if (err != cudaSuccess) return err;
-  const int grid = int(n < 65535 ? n : 65535);
-  megakernel<kStats, kStage><<<grid, kThreads, smem, stream>>>(
-      poses, n, rob_base, tr, obs, obs_mesh, obs_groups, n_groups, out, rt_false);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaError_t(resident_blocks<kStats, kStage>(L, &per_sm))) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if ((err = cudaMemsetAsync(work, 0, sizeof(int), stream)) != cudaSuccess) return err;
+  const int64_t want = (n + kRows - 1) / kRows;
+  const int grid = int(want < int64_t(per_sm) * sms ? want : int64_t(per_sm) * sms);
+  megakernel<kStats, kStage><<<grid, kThreads, L.bytes(), stream>>>(
+      poses, int(n), rob_base, tr, obs, to, obs_mesh, obs_groups, n_groups, out, work,
+      rt_false);
   return cudaGetLastError();
 }
 
@@ -486,9 +765,23 @@ int launch(const float* poses, int64_t n, const float* rob_base, int tr,
 
 extern "C" {
 
-// Dynamic shared memory of one block for a robot table of `tr` rows.
+// Dynamic shared memory of one block for a robot table of `tr` rows and
+// `n_groups` obstacle groups.
 int64_t rc_megakernel_smem_bytes(int tr, int n_groups) {
-  return int64_t(smem_bytes(tr, n_groups));
+  return int64_t(Layout(tr, n_groups * kGroup, n_groups).bytes());
+}
+
+// Blocks of the packed instance resident on one SM for these tables (0 if
+// none fits), or a negative cudaError_t.
+int rc_megakernel_blocks_per_sm(int tr, int n_groups) {
+  const Layout L(tr, n_groups * kGroup, n_groups);
+  cudaError_t err = cudaFuncSetAttribute(megakernel<false, kFull>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(L.bytes()));
+  if (err != cudaSuccess) return -int(err);
+  int per_sm = 0;
+  err = cudaError_t(resident_blocks<false, kFull>(L, &per_sm));
+  return err != cudaSuccess ? -int(err) : per_sm;
 }
 
 const char* rc_error_string(int err) {
@@ -497,14 +790,15 @@ const char* rc_error_string(int err) {
 
 // Checks n pose rows (poses [n,16] f32) against the tables; writes out[n]
 // uint8 on `stream`. rob_base [10,tr], obs [to,20], obs_mesh [6],
-// obs_groups [to/128,6], all f32, contiguous, on the current device.
+// obs_groups [to/128,6], all f32, contiguous, on the current device; work:
+// one int32 of scratch on that device (the row counter, zeroed here).
 // Returns the launch's cudaError_t (0 = launched); does not synchronise.
 int rc_megakernel_check(const float* poses, int64_t n, const float* rob_base,
                         int tr, const float* obs, int to, const float* obs_mesh,
-                        const float* obs_groups, int n_groups, uint8_t* out,
+                        const float* obs_groups, int n_groups, uint8_t* out, int* work,
                         cudaStream_t stream) {
   return launch<false, kFull>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
-                              n_groups, out, 0, stream);
+                              n_groups, out, work, 0, stream);
 }
 
 // As rc_megakernel_check, with the counter row: out[n, 8] int32 (columns in
@@ -512,27 +806,31 @@ int rc_megakernel_check(const float* poses, int64_t n, const float* rob_base,
 int rc_megakernel_check_stats(const float* poses, int64_t n, const float* rob_base,
                               int tr, const float* obs, int to, const float* obs_mesh,
                               const float* obs_groups, int n_groups, int32_t* out,
-                              cudaStream_t stream) {
+                              int* work, cudaStream_t stream) {
   return launch<true, kFull>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
-                             n_groups, out, 0, stream);
+                             n_groups, out, work, 0, stream);
 }
 
-// A stage-isolating variant (stage 1 = no sweep, 2 = box test only, 3 = box
-// test and planes), packed output; rt_false must be 0.
+// A stage-isolating variant (stage 1 = no sweep, 2 = box tests only, 3 = box
+// tests and planes, 4 = the full sweep with multiplies for divides), packed
+// output; rt_false must be 0.
 int rc_megakernel_check_stage(const float* poses, int64_t n, const float* rob_base,
                               int tr, const float* obs, int to, const float* obs_mesh,
                               const float* obs_groups, int n_groups, uint8_t* out,
-                              int stage, int rt_false, cudaStream_t stream) {
+                              int* work, int stage, int rt_false, cudaStream_t stream) {
   switch (stage) {
     case kNoSweep:
       return launch<false, kNoSweep>(poses, n, rob_base, tr, obs, to, obs_mesh,
-                                     obs_groups, n_groups, out, rt_false, stream);
+                                     obs_groups, n_groups, out, work, rt_false, stream);
     case kMaskOnly:
       return launch<false, kMaskOnly>(poses, n, rob_base, tr, obs, to, obs_mesh,
-                                      obs_groups, n_groups, out, rt_false, stream);
+                                      obs_groups, n_groups, out, work, rt_false, stream);
     case kPlanesOnly:
       return launch<false, kPlanesOnly>(poses, n, rob_base, tr, obs, to, obs_mesh,
-                                        obs_groups, n_groups, out, rt_false, stream);
+                                        obs_groups, n_groups, out, work, rt_false, stream);
+    case kNoDiv:
+      return launch<false, kNoDiv>(poses, n, rob_base, tr, obs, to, obs_mesh,
+                                   obs_groups, n_groups, out, work, rt_false, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,4 +1,5 @@
-// Stage-isolating probe kernels of the fused check, with K1's launch shape.
+// Stage-isolating probe kernels of the fused check, with the launch shape of
+// its first design.
 //
 // Replace the Pallas probe kernels of the JAX package's bisection scripts:
 //   P1 `mini_kernel`, `mini_kernel_t` (scripts/bisect_stage1.py:73,117):
@@ -13,12 +14,14 @@
 // each probe computes the same float32 operations as its plain version, so the
 // two agree exactly.
 //
-// Launch shape, unless a probe says otherwise: K1's (csrc/megakernel.cu), one
-// 256-thread block per configuration, grid-stride over the batch, and K1's
-// dynamic shared memory (rc_megakernel_smem_bytes, ~78 KB for the alpha-1.0
-// tables), so occupancy is K1's two blocks per SM. The probes are instruments
-// of K1's costs; their shape is K1's on purpose, not the fastest for the
-// little work each does.
+// Launch shape, unless a probe says otherwise: that of the fused kernel K1's
+// first design (one 256-thread block per configuration with the posed robot
+// in shared memory), grid-stride over the batch, with that design's dynamic
+// shared memory (`k1_smem_bytes` in profiling/probes.py, ~78 KB for the
+// alpha-1.0 tables), so two blocks are resident per SM. The probes are
+// instruments of those costs, as the TPU probes are of the TPU kernel's;
+// their shape is that design's on purpose, not the fastest for the little
+// work each does, and stays fixed so that their times stay comparable.
 //
 // What bounds each, and what the design does about it:
 //   * P2 is launch- and scheduling-bound: a block does a 64-byte pose read
@@ -32,12 +35,13 @@
 //     -> store, with little arithmetic. P3's modes differ only in where the
 //     table comes from: `cp.async` into shared memory once per persistent
 //     block (2 x SM count blocks), the constant cache, or `__ldg` per
-//     configuration through L1 (how K1 reads rob_base).
+//     configuration through L1 (how K1's first design reads rob_base).
 //   * P1 level 3 is bound by shared-memory bandwidth and bank conflicts: 19
 //     fields per triangle, written field-major ([19][Tr], consecutive lanes on
-//     consecutive banks, conflict-free) as K1 does; the transposed probe
-//     writes triangle-major ([Tr][20], 80 B per triangle), whose 20-float
-//     stride puts 4 lanes of a warp on each bank used (4-way conflicts).
+//     consecutive banks, conflict-free) as K1's first design does; the
+//     transposed probe writes triangle-major ([Tr][20], 80 B per triangle),
+//     whose 20-float stride puts 4 lanes of a warp on each bank used (4-way
+//     conflicts).
 //
 // Level 1 keeps the corner transforms of every triangle live by folding their
 // bits into a word that is stored only when rt_false (an argument, always 0)
@@ -54,7 +58,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kOutCols = 128;   // output row: int32 [B, 128], as the TPU probes
-constexpr int kRobFields = 19;  // K1's posed fields: corners 0-8, n 9-11, d 12, lo 13-15, hi 16-18
+// Posed fields of K1's first design: corners 0-8, n 9-11, d 12, lo 13-15, hi 16-18.
+constexpr int kRobFields = 19;
 constexpr int kTStride = 20;    // triangle-major row of the transposed probe (80 B)
 constexpr int kTransposed = 4;  // pose_probe level of the triangle-major writes
 constexpr float kBig = 3.0e38f;
@@ -83,7 +88,7 @@ int grid_for(int64_t blocks) { return int(blocks < 65535 ? blocks : 65535); }
 //   level 1: + corner transforms of every robot triangle; acc += c0x[l]
 //   level 2: + masked boxes, block reduction to the mesh box; acc += broad
 //            against the [-1,1]^3 cube
-//   level 3: + K1's 19 posed fields written field-major [19][Tr];
+//   level 3: + the 19 posed fields of K1's first design, field-major [19][Tr];
 //            acc += smem[0][l]
 //   kTransposed: corners, planes and boxes written triangle-major
 //            [Tr][20]; out = c0x[l] + smem[l][0]

@@ -5,7 +5,8 @@ kernels) is compiled at first use into ``build/robocheck_tpu_torch/`` at the
 repository root, all nvcc processes started together, under names keyed by
 every source and the flags, so an edited source is never served from a stale
 build. Plain ``extern "C"`` interfaces keep each build to seconds (no PyTorch
-headers).
+headers). ``copy_library`` builds another copy of `megakernel.cu` (an older
+revision, for timing two designs in one process) the same way.
 """
 from __future__ import annotations
 
@@ -33,6 +34,30 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _compile(todo: dict[str, tuple[Path, Path]]) -> None:
+    """Run nvcc on each {name: (source, library)} at once; keeps each log
+    beside its library. Raises if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (src, lib) in todo.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        src, lib = todo[name]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} with exit code "
+                          f"{proc.returncode}:\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def build() -> dict[str, tuple[Path, str]]:
     """Compile every source not yet built; returns {name: (shared library,
@@ -41,32 +66,32 @@ def build() -> dict[str, tuple[Path, str]]:
     for name in sorted(SOURCES):
         key.update(name.encode() + SOURCES[name].read_bytes())
     libs = {name: BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so" for name in SOURCES}
-    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    todo = {name: (SOURCES[name], lib) for name, lib in libs.items() if not lib.exists()}
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name, lib in todo.items():
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        failed = []
-        for name, (tmp, proc) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on {SOURCES[name].name} with exit code "
-                              f"{proc.returncode}:\n{log}")
-                continue
-            todo[name].with_suffix(".log").write_text(log)
-            os.replace(tmp, todo[name])
-        if failed:
-            raise RuntimeError("\n".join(failed))
+        _compile(todo)
     return {name: (lib, lib.with_suffix(".log").read_text()) for name, lib in libs.items()}
 
 
 def _bind(fn, restype, argtypes) -> None:
     fn.restype = restype
     fn.argtypes = argtypes
+
+
+def _bind_megakernel(lib: ctypes.CDLL) -> None:
+    """Bind the fused kernel's entry points. ``lib.takes_work``: whether they
+    take the row-counter scratch after ``out`` (copies built from sources
+    older than `rc_megakernel_blocks_per_sm` do not)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.takes_work = hasattr(lib, "rc_megakernel_blocks_per_sm")
+    # poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups, n_groups, out[, work]
+    check = [ptr, i64, ptr, i32, ptr, i32, ptr, ptr, i32, ptr] + [ptr] * lib.takes_work
+    _bind(lib.rc_megakernel_check, i32, check + [ptr])
+    _bind(lib.rc_megakernel_check_stats, i32, check + [ptr])
+    _bind(lib.rc_megakernel_check_stage, i32, check + [i32, i32, ptr])
+    _bind(lib.rc_megakernel_smem_bytes, i64, [i32, i32])
+    _bind(lib.rc_error_string, ctypes.c_char_p, [i32])
+    if lib.takes_work:
+        _bind(lib.rc_megakernel_blocks_per_sm, i32, [i32, i32])
 
 
 @functools.cache
@@ -76,14 +101,8 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
     path, _ = build()[name]
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    # poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups, n_groups, out
-    check = [ptr, i64, ptr, i32, ptr, i32, ptr, ptr, i32, ptr]
     if name == "megakernel":
-        _bind(lib.rc_megakernel_check, i32, check + [ptr])
-        _bind(lib.rc_megakernel_check_stats, i32, check + [ptr])
-        _bind(lib.rc_megakernel_check_stage, i32, check + [i32, i32, ptr])
-        _bind(lib.rc_megakernel_smem_bytes, i64, [i32, i32])
-        _bind(lib.rc_error_string, ctypes.c_char_p, [i32])
+        _bind_megakernel(lib)
     elif name == "stage_probes":
         _bind(lib.rc_pose_probe_smem_bytes, i64, [i32])
         _bind(lib.rc_pose_probe, i32, [ptr, i64, ptr, i32, i32, i32, ptr, i64, ptr])
@@ -91,3 +110,18 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
               [ptr, i64, ptr, i32, ptr, i32, ptr, i32, i32, i32, ptr, ptr])
         _bind(lib.rc_invariant_probe, i32, [ptr, i64, ptr, i32, i32, ptr, i64, ptr])
     return lib
+
+
+@functools.cache
+def copy_library(source: str) -> tuple[ctypes.CDLL, str]:
+    """Another copy of `megakernel.cu` at ``source`` (same C interface, at
+    least `rc_megakernel_check`), built with NVCC_FLAGS under a name keyed by
+    its content; returns (library, nvcc log)."""
+    src = Path(source).resolve()
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes()).hexdigest()
+    lib = BUILD_DIR / f"copy-{src.stem}-{key[:16]}.so"
+    if not lib.exists():
+        _compile({src.stem: (src, lib)})
+    out = ctypes.CDLL(str(lib))
+    _bind_megakernel(out)
+    return out, lib.with_suffix(".log").read_text()

@@ -6,8 +6,11 @@ pose the robot's pre-gathered triangle corners, per-triangle planes and
 boxes, the mesh-box broad phase, the (robot tile x obstacle group) gate, and
 the Moller interval test on every pair whose triangle boxes overlap, with an
 any-hit exit. Each configuration yields one byte: bit 0 = valid (no
-intersecting pair), bit 1 = some live pair was flagged coplanar (resolved in
-float64 by `oracle.resolve_coplanar`).
+intersecting pair), bit 1 = some live pair was flagged coplanar, bit 2 = some
+box-overlapping pair is uncertain: not live as computed, but live once each
+signed distance moves by its float32 rounding bound toward straddling the
++-TOL band. Valid rows with bit 1 or bit 2 are resolved in float64 by
+`oracle.resolve_coplanar` (``check_valid_resolved``).
 
 Two implementations share the tables and the arithmetic order of the Pallas
 kernel (not `ops.narrow`'s, which rounds the interval endpoint differently):
@@ -43,7 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.constants import LANE, round_up
+from ..core.constants import LANE, TOL, round_up
 from ..core.types import Mesh, validate_confs
 from ..ops.narrow import is_coplanar, no_overlap
 from ..ops.transform import rotation_matrices
@@ -71,10 +74,15 @@ _BIG = 3.0e38
 OUT_COLS = 8
 # Stage-isolating variants of the CUDA kernel, by their code in
 # `csrc/megakernel.cu`: pose + broad phase + gate then the epilogue
-# (`sweep=False`, `megakernel.py:625-643`); the sweep with the box test only
-# (`stage_cap=0`); box test and plane stage, never the interval stage
-# (`stage_cap=1`, `megakernel.py:761-774`).
-STAGES = {"nosweep": 1, "maskonly": 2, "planesonly": 3}
+# (`sweep=False`, `megakernel.py:625-643`); the sweep up to the pair queue,
+# box tests only (`stage_cap=0`); box tests and plane stage, never the
+# interval stage (`stage_cap=1`, `megakernel.py:761-774`); the full sweep with
+# every divide of the interval stage and the coplanar test replaced by a
+# multiply (`stage_cap=3`, `_probe_div`, `megakernel.py:94-97, 775`).
+STAGES = {"nosweep": 1, "maskonly": 2, "planesonly": 3, "nodiv": 4}
+# Rounding-bound factor of a signed distance: 2 * gamma_4 (u = 2**-24), as
+# `kErr` in `csrc/megakernel.cu`, which derives it.
+_ERR = 4.7684e-07
 # Pair elements the twin materialises per step (bounds its memory).
 _PAIR_BUDGET = 1 << 24
 
@@ -230,19 +238,37 @@ def _interval(p, d3):
     return torch.minimum(t01, t12), torch.maximum(t01, t12)
 
 
-def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(hit, coplanar, live) of each pair, fields given as 1-D tensors: plane
-    stage, interval stage and the exact ratio test (`megakernel.py:133-217,
-    281-303`; the separation band and the ratio test are `ops.narrow`'s,
-    whose arithmetic there is the kernel's). The kernel's conservative
-    coplanarity precheck only skips the exact test where it cannot fire, so
-    it is left out here."""
+def _dist_err(n: dict, s: dict) -> list[torch.Tensor]:
+    """Rounding bound of each signed distance n.c + d of the corners of ``s``
+    to the plane of ``n`` (the `kErr` comment in `csrc/megakernel.cu`)."""
+    return [_ERR * ((((n["nx"] * s[f"c{c}x"]).abs() + (n["ny"] * s[f"c{c}y"]).abs())
+                     + (n["nz"] * s[f"c{c}z"]).abs()) + n["d"].abs()) for c in range(3)]
+
+
+def _may_straddle(d3: list, e3: list) -> torch.Tensor:
+    """Some d_i + e_i >= TOL and some d_j - e_j <= -TOL."""
+    up = (d3[0] + e3[0] >= TOL) | (d3[1] + e3[1] >= TOL) | (d3[2] + e3[2] >= TOL)
+    down = (d3[0] - e3[0] <= -TOL) | (d3[1] - e3[1] <= -TOL) | (d3[2] - e3[2] <= -TOL)
+    return up & down
+
+
+def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, ...]:
+    """(hit, coplanar, live, uncertain) of each pair, fields given as 1-D
+    tensors: plane stage, interval stage and the exact ratio test
+    (`megakernel.py:133-217, 281-303`; the separation band and the ratio
+    test are `ops.narrow`'s, whose arithmetic there is the kernel's). The
+    kernel's conservative coplanarity precheck only skips the exact test
+    where it cannot fire, so it is left out here. ``uncertain``: not live,
+    but live once each signed distance moves by its rounding bound toward
+    straddling (packed bit 2)."""
     dist_o = [r["nx"] * o[f"c{c}x"] + r["ny"] * o[f"c{c}y"]
               + r["nz"] * o[f"c{c}z"] + r["d"] for c in range(3)]
     dist_r = [o["nx"] * r[f"c{c}x"] + o["ny"] * r[f"c{c}y"]
               + o["nz"] * r[f"c{c}z"] + o["d"] for c in range(3)]
     live = (~no_overlap(torch.stack(dist_o, dim=-1))
             & ~no_overlap(torch.stack(dist_r, dim=-1)))
+    uncertain = (~live & _may_straddle(dist_o, _dist_err(r, o))
+                 & _may_straddle(dist_r, _dist_err(o, r)))
 
     axx, bxx = r["ny"] * o["nz"], r["nz"] * o["ny"]
     axy, bxy = r["nz"] * o["nx"], r["nx"] * o["nz"]
@@ -259,7 +285,7 @@ def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Ten
     coplanar = is_coplanar(torch.stack([r["nx"], r["ny"], r["nz"]], dim=-1), r["d"],
                            torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1),
                            o["d"]) & live
-    return isect & ~coplanar, coplanar, live
+    return isect & ~coplanar, coplanar, live, uncertain
 
 
 def mesh_broad(poses: torch.Tensor, rob_base: torch.Tensor,
@@ -299,11 +325,12 @@ def _box_pairs(fb: dict, o: dict, real: torch.Tensor):
 def check_poses_reference(poses: torch.Tensor,
                           prep: MegaKernelPrep) -> torch.Tensor:
     """Plain PyTorch twin of the CUDA kernel: [B,16] pose rows -> [B] uint8
-    (bit 0 = valid, bit 1 = coplanar seen), on the device of its inputs.
+    (bit 0 = valid, bit 1 = coplanar seen, bit 2 = uncertain pair seen), on
+    the device of its inputs.
 
     A pair counts where the robot triangle is real and the two triangle boxes
     overlap on closed intervals (`megakernel.py:736-739`); the twin finds
-    those pairs with ``nonzero`` and tests all of them, so its coplanar bit
+    those pairs with ``nonzero`` and tests all of them, so its bits 1 and 2
     of a colliding configuration may differ from the kernel's (whose any-hit
     exit depends on visiting order). Valid rows agree bit for bit."""
     rob_base, obs = prep.rob_base, prep.obs
@@ -318,13 +345,16 @@ def check_poses_reference(poses: torch.Tensor,
     for rows in broad.nonzero()[:, 0].split(step):
         fb = {key: v[rows] for key, v in f.items()}
         bi, ri, oi = _box_pairs(fb, o, real)
-        hit, cop, _ = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
-                                  {key: v[oi] for key, v in o.items()})
+        hit, cop, _, unc = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
+                                       {key: v[oi] for key, v in o.items()})
         any_hit = torch.zeros(len(rows), dtype=torch.bool, device=poses.device)
         any_cop = torch.zeros_like(any_hit)
+        any_unc = torch.zeros_like(any_hit)
         any_hit[bi[hit]] = True
         any_cop[bi[cop]] = True
-        out[rows] = (~any_hit).to(torch.uint8) | (any_cop.to(torch.uint8) << 1)
+        any_unc[bi[unc]] = True
+        out[rows] = ((~any_hit).to(torch.uint8) | (any_cop.to(torch.uint8) << 1)
+                     | (any_unc.to(torch.uint8) << 2))
     return out
 
 
@@ -366,8 +396,8 @@ def check_poses_stats_reference(poses: torch.Tensor,
         n_gated = gate.sum((1, 2))
 
         bi, ri, oi = _box_pairs(fb, o, real)
-        hit, cop, live = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
-                                     {key: v[oi] for key, v in o.items()})
+        hit, cop, live, _ = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
+                                        {key: v[oi] for key, v in o.items()})
         cell = bi * n_pairs_t + (ri // ROB_TILE) * n_groups + oi // GROUP
         full = torch.zeros(b * n_pairs_t, dtype=torch.bool, device=poses.device)
         rest = torch.zeros_like(full)
@@ -428,12 +458,13 @@ def _launch(entry: str, poses: torch.Tensor, prep: MegaKernelPrep, out_shape: tu
     out = torch.empty((n, *out_shape), dtype=out_dtype, device=dev)
     if n == 0:
         return False, out
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # the kernel's row counter
     lib = _build.library()
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
             poses.data_ptr(), n, prep.rob_base.data_ptr(), tr,
             prep.obs.data_ptr(), to, prep.obs_mesh.data_ptr(),
-            prep.obs_groups.data_ptr(), n_groups, out.data_ptr(), *extra,
+            prep.obs_groups.data_ptr(), n_groups, out.data_ptr(), work.data_ptr(), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(
@@ -468,7 +499,8 @@ def check_poses_stage_cuda(poses: torch.Tensor, prep: MegaKernelPrep,
                            stage: str) -> torch.Tensor:
     """Launch the stage-isolating variant ``stage`` (a key of STAGES):
     [B,16] pose rows -> [B] uint8, which is 1 on every row (a variant never
-    sets hit or coplanar; its work is kept live by a runtime zero)."""
+    sets hit, coplanar or uncertain; its work is kept live by a runtime
+    zero)."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {sorted(STAGES)}, got {stage!r}")
     launched, out = _launch("rc_megakernel_check_stage", poses, prep, (), torch.uint8,
@@ -488,8 +520,8 @@ class MegaKernelChecker:
     device: the CUDA kernels on a CUDA device, their PyTorch twins on the CPU.
     There is no automatic choice and no fallback between the two.
 
-    ``check_valid`` / ``check_valid_resolved`` are the throughput path (one
-    verdict byte per configuration); ``check`` (over ``broad_block`` and
+    ``check_packed`` / ``check_valid`` / ``check_valid_resolved`` are the
+    throughput path (one verdict byte per configuration); ``check`` (over ``broad_block`` and
     ``check_block``) is the stats path with the kernel's counter columns."""
 
     # Configurations per kernel launch in ``check_valid``.
@@ -513,33 +545,32 @@ class MegaKernelChecker:
         self.prep = MegaKernelPrep.build(robot, obstacle, morton=morton)
         self.tables = self.prep.to(self.device)
 
-    def check_valid(self, confs: np.ndarray, chunk: int | None = None,
-                    presort: bool | None = None):
-        """[N,6] configurations -> (valid[N], coplanar[N]) numpy bools.
+    def check_packed(self, confs: np.ndarray, chunk: int | None = None,
+                     presort: bool | None = None) -> np.ndarray:
+        """[N,6] configurations -> [N] uint8 verdict bytes (bit 0 valid,
+        bit 1 coplanar, bit 2 uncertain; see ``check_poses_reference``).
 
         Uploads the batch once, poses it on the device, checks it in chunks
         of ``chunk`` rows (the last may be short) and fetches the verdict
-        bytes once. Non-finite rows are reported invalid
+        bytes once. Non-finite rows get the byte 0: invalid, nothing flagged
         (`megakernel.py:1341-1352`).
 
         ``presort`` (default off, as in the JAX package, so the main path is
         one kernel launch per chunk) first runs ``broad_block`` (the kernel's
         own stage 1, bit for bit) and orders broad-phase hits first; chunks
         past the hits are never launched and get the byte 1 (a broad miss is
-        valid and not coplanar). It costs one scalar ``.item()`` sync.
+        valid and flags nothing). It costs one scalar ``.item()`` sync.
         Verdicts are identical either way (`megakernel.py:1361-1408`)."""
         confs = validate_confs(confs)
         n = confs.shape[0]
         finite = np.isfinite(confs).all(axis=1)
         if not finite.all():
-            out_v = np.zeros((n,), dtype=bool)
-            out_c = np.zeros((n,), dtype=bool)
+            out = np.zeros((n,), dtype=np.uint8)
             if finite.any():
-                out_v[finite], out_c[finite] = self.check_valid(
-                    confs[finite], chunk=chunk, presort=presort)
-            return out_v, out_c
+                out[finite] = self.check_packed(confs[finite], chunk=chunk, presort=presort)
+            return out
         if n == 0:
-            return np.zeros((0,), dtype=bool), np.zeros((0,), dtype=bool)
+            return np.zeros((0,), dtype=np.uint8)
         chunk = chunk or self.STREAM_CHUNK
         poses = poses_from_confs(torch.from_numpy(confs).to(self.device))
         if presort:
@@ -547,8 +578,14 @@ class MegaKernelChecker:
         else:
             packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables)
                                 for lo in range(0, n, chunk)])
-        packed = packed.cpu().numpy()
-        return (packed & 1).astype(bool), (packed >> 1).astype(bool)
+        return packed.cpu().numpy()
+
+    def check_valid(self, confs: np.ndarray, chunk: int | None = None,
+                    presort: bool | None = None):
+        """[N,6] configurations -> (valid[N], coplanar[N]) numpy bools: bits 0
+        and 1 of ``check_packed``."""
+        packed = self.check_packed(confs, chunk=chunk, presort=presort)
+        return (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
 
     def _check_presorted(self, poses: torch.Tensor, chunk: int) -> torch.Tensor:
         """Packed bytes of ``poses`` checked hits-first: the JAX package's
@@ -572,12 +609,14 @@ class MegaKernelChecker:
 
     def check_valid_resolved(self, confs: np.ndarray,
                              chunk: int | None = None) -> np.ndarray:
-        """``check_valid`` + exact float64 re-check of the valid rows flagged
-        coplanar (`oracle.resolve_coplanar`). Returns valid[N] bool."""
+        """``check_packed`` + exact float64 re-check of the valid rows flagged
+        coplanar (bit 1) or uncertain (bit 2) by `oracle.resolve_coplanar`.
+        Returns valid[N] bool."""
         from ..oracle import resolve_coplanar
 
-        valid, cop = self.check_valid(confs, chunk=chunk)
-        return resolve_coplanar(self.robot, self.obstacle, confs, valid, cop)
+        packed = self.check_packed(confs, chunk=chunk)
+        return resolve_coplanar(self.robot, self.obstacle, confs,
+                                (packed & 1).astype(bool), (packed & 6).astype(bool))
 
     def check_block(self, confs) -> torch.Tensor:
         """[B,6] configurations (numpy, or a tensor on the checker's device)

@@ -131,10 +131,13 @@ def _poses(poses: torch.Tensor) -> torch.device:
 
 
 def k1_smem_bytes(tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP) -> int:
-    """The fused kernel's dynamic shared memory per block for these tables."""
-    from ..kernels import _build
-
-    return int(_build.library("megakernel").rc_megakernel_smem_bytes(tr, n_groups))
+    """Dynamic shared memory per block of the fused kernel's first design,
+    whose launch shape the probes keep (`csrc/stage_probes.cu`): 19 posed
+    fields per robot triangle, tile boxes, the gate's work list and
+    reduction scratch, for these tables (79,936 bytes for the alpha-1.0
+    pair)."""
+    n_tiles = tr // 32
+    return 4 * (19 * tr + 6 * n_tiles + 8 * 6 + 8 + 16 + n_tiles * n_groups + 8)
 
 
 def _call(entry: str, dev: torch.device, *args) -> None:
@@ -157,7 +160,7 @@ def _out(poses: torch.Tensor) -> torch.Tensor:
 def pose_probe_cuda(poses: torch.Tensor, rob_base: torch.Tensor, level) -> torch.Tensor:
     """P1 on the card: [B,16] poses, rob_base [10, Tr] -> int32 [B, 128], as
     ``pose_probe_reference``. One block per configuration with the larger of
-    the fused kernel's shared memory and the probe's own."""
+    ``k1_smem_bytes`` and the probe's own shared memory."""
     from ..kernels import _build
 
     if level not in POSE_LEVELS:
@@ -183,7 +186,7 @@ def empty_probe_cuda(poses: torch.Tensor, tables=(), scratch: bool = False,
     """P2 on the card: int(pose0) across each row, after copying each table
     of ``tables`` (contiguous float32 CUDA tensors, at most three, sizes
     multiples of 4 floats) into shared memory per block step. ``scratch``
-    adds the fused kernel's shared memory, unused; ``cpb`` is 1 or 8
+    adds ``k1_smem_bytes`` of shared memory, unused; ``cpb`` is 1 or 8
     configurations per block (one warp each)."""
     dev = _poses(poses)
     if cpb not in (1, 8):
@@ -210,7 +213,7 @@ def invariant_probe_cuda(poses: torch.Tensor, table: torch.Tensor, mode: str) ->
     2 x SM-count persistent blocks that copy the whole table into shared
     memory once (cp.async); ``smem_invariant`` reads the 8 x 8 table from
     constant memory; ``auto`` reads row 0 with __ldg per configuration.
-    All take the fused kernel's block size and shared memory."""
+    All take 256-thread blocks and ``k1_smem_bytes`` of shared memory."""
     if mode not in INVARIANT_MODES:
         raise ValueError(f"mode must be one of {sorted(INVARIANT_MODES)}, got {mode!r}")
     dev = _poses(poses)

@@ -79,9 +79,9 @@ def layers(checker, confs, runs: int) -> dict:
         end.synchronize()
         ms["kernel_events"] = start.elapsed_time(end)
         ms["fetch"], packed = host_ms(lambda: packed.cpu().numpy())
-        valid, cop = (packed & 1).astype(bool), (packed >> 1).astype(bool)
+        valid, flagged = (packed & 1).astype(bool), (packed & 6).astype(bool)
         ms["resolve"], _ = host_ms(lambda: resolve_coplanar(
-            checker.robot, checker.obstacle, confs, valid, cop))
+            checker.robot, checker.obstacle, confs, valid, flagged))
         ms["end_to_end"], _ = host_ms(lambda: checker.check_valid_resolved(confs))
         if i:  # the first run is the warm-up
             for k, v in ms.items():

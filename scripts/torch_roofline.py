@@ -12,13 +12,16 @@ the card's name and power limit:
     configuration (CUDA events, mean of REPS launches) on all 10,000 rows
     of hard10k, on 10,000 rows at x = 1e9 (every row ends at the broad
     phase) and on 10,000 rows at the identity translation with random
-    rotations from default_rng(0) (every row collides);
-  * device_hard10k_{full,pose,nosweep,maskonly,planesonly}: on hard10k, the
-    packed kernel, the pose stage alone (probe P1 at level 3: pose, mesh
-    box, K1's 19 fields) and the kernel's stage-isolating variants
+    rotations from default_rng(0) (2,590 of the rows collide);
+  * device_hard10k_{full,pose,nosweep,maskonly,planesonly,nodiv}: on
+    hard10k, the packed kernel, the pose stage alone (the packed kernel on
+    the same rows moved 1e9 along x, so every row ends after the pose pass
+    and the mesh-box broad phase) and the kernel's stage-isolating variants
     (`STAGES`); hard10k_decomposition: µs per configuration of pose, gate
-    (nosweep - pose), mask (maskonly - nosweep), planes (planesonly -
-    maskonly) and interval (full - planesonly);
+    (nosweep - pose), mask (maskonly - nosweep: two-sided gate, box tests
+    and compaction), planes (planesonly - maskonly: the plane stage and the
+    uncertain test of queued pairs), interval (full - planesonly) and its
+    divide share (full - nodiv);
   * the same on the valid rows of hard10k alone (device_hard10k_valid_*,
     hard10k_valid_decomposition): the variants never take the any-hit exit,
     so on colliding rows they visit tile pairs the full kernel skips, while
@@ -40,7 +43,6 @@ import torch  # noqa: E402
 from robocheck_tpu_torch import MegaKernelChecker, load_obj, read_conf_file  # noqa: E402
 from robocheck_tpu_torch.io import assets  # noqa: E402
 from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
-from robocheck_tpu_torch.profiling import probes  # noqa: E402
 from robocheck_tpu_torch.profiling.timers import benchmark, card_line, event_ms  # noqa: E402
 
 REPS = 20  # launches per CUDA-event mean
@@ -87,8 +89,10 @@ def main() -> int:
     valid_rows = torch.from_numpy(hard.valid).to(device)
     for tag, poses in (("hard10k", hard_poses), ("hard10k_valid", hard_poses[valid_rows])):
         m = poses.shape[0]
+        far_poses = poses.clone()
+        far_poses[:, 3] += 1.0e9
         runs = {"full": lambda: mk.check_poses_cuda(poses, tables),
-                "pose": lambda: probes.pose_probe_cuda(poses, tables.rob_base, 3)}
+                "pose": lambda: mk.check_poses_cuda(far_poses, tables)}
         runs.update({stage: lambda s=stage: mk.check_poses_stage_cuda(poses, tables, s)
                      for stage in mk.STAGES})
         t = {name: event_ms(fn, REPS) * 1e3 / m for name, fn in runs.items()}
@@ -97,7 +101,7 @@ def main() -> int:
         emit(measure=f"{tag}_decomposition", unit="us_per_conf", n=m, pose=t["pose"],
              gate=t["nosweep"] - t["pose"], mask=t["maskonly"] - t["nosweep"],
              planes=t["planesonly"] - t["maskonly"], interval=t["full"] - t["planesonly"],
-             full=t["full"])
+             divide=t["full"] - t["nodiv"], full=t["full"])
 
     out = checker.check_block(hard.confs).cpu().numpy()
     bh = out[:, 3] > 0

@@ -27,17 +27,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_no_jax():
     # A fresh interpreter: the package, its kernel and profiling modules and
-    # the three entry-point scripts (their imports, not main()) load torch and
+    # the entry-point scripts (their imports, not main()) load torch and
     # numpy only, never jax or the JAX package.
     code = ("import sys, runpy; import robocheck_tpu_torch; "
             "import robocheck_tpu_torch.kernels.megakernel; "
             "import robocheck_tpu_torch.kernels._build; "
             "import robocheck_tpu_torch.oracle; "
+            "import robocheck_tpu_torch.profiling.bounds; "
             "import robocheck_tpu_torch.profiling.counters; "
             "import robocheck_tpu_torch.profiling.timers; "
             "import robocheck_tpu_torch.profiling.probes; "
             "[runpy.run_path(f'scripts/{n}.py', run_name='imported') for n in "
-            "('torch_run_integration', 'torch_roofline', 'torch_bisect')]; "
+            "('torch_run_integration', 'torch_roofline', 'torch_bisect', 'torch_profile', "
+            "'torch_k1_compare', 'torch_gate_study')]; "
+            "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "
             "assert not bad, bad; print('ok')")

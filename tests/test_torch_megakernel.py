@@ -149,7 +149,7 @@ def test_twin_matches_interpret_kernel(scene, alpha_meshes, hard10k):
                                jprep.obs_group_aabbs).to("cpu")
     packed = mk.check_poses_reference(torch.from_numpy(poses), prep).numpy()
     assert packed.dtype == np.uint8 and packed.shape == (len(confs),)
-    t_valid, t_cop = (packed & 1).astype(bool), (packed >> 1).astype(bool)
+    t_valid, t_cop = (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
     np.testing.assert_array_equal(t_valid, valid)
     np.testing.assert_array_equal(t_cop[valid], cop[valid])
     if scene == "tetrahedra":
@@ -322,3 +322,87 @@ def test_full_dataset_golden(key, cpu_checker, request):
         assert int(valid.sum()) == ds.header_valid == 7296
     else:
         np.testing.assert_array_equal(valid, ds.valid)
+
+
+def _near_coplanar_pairs(rng, n=96):
+    """Robot triangles R at ~300-unit coordinates, and obstacle triangles O
+    through R's interior and across R's plane: O's corner c0 lies on R's
+    plane in float64 (then rounded to float32), its other two corners 40
+    units above that plane. Whether O straddles R's plane is decided by c0's
+    signed distance, which is rounding noise in float32."""
+    pairs = []
+    for _ in range(n):
+        r = rng.uniform(-400.0, 400.0, 3) + rng.normal(scale=120.0, size=(3, 3))
+        normal = np.cross(r[1] - r[0], r[2] - r[1])
+        v = normal / np.linalg.norm(normal)
+        u = np.cross(v, rng.normal(size=3))
+        u /= np.linalg.norm(u)
+        w = rng.dirichlet(np.ones(3))
+        c0 = w @ r  # on R's plane, inside R
+        o = np.stack([c0, c0 + 40.0 * u + 40.0 * v, c0 - 40.0 * u + 40.0 * v])
+        pairs.append((r.astype(np.float32), o.astype(np.float32)))
+    return pairs
+
+
+def _straddles64(d, tol):
+    return (d >= tol).any() and (d <= -tol).any()
+
+
+def test_near_coplanar_contacts_set_bit2():
+    """Bit 2 wherever the float64 evaluation of the port's own float32
+    inputs (posed corners and planes) calls a pair live and the port does not
+    (its counter row's nrest is 0): then the row goes to the float64 oracle."""
+    tol = float(np.float32(1e-6))
+    one = np.array([[0, 1, 2]], np.int32)
+    zero = torch.zeros((1, 16))
+    zero[0, [0, 5, 10]] = 1.0  # the identity pose row: posing is exact
+    n_tie = 0
+    for r, o in _near_coplanar_pairs(np.random.default_rng(2024)):
+        prep = mk.MegaKernelPrep.build(Mesh(r, one), Mesh(o, one)).to("cpu")
+        packed = int(mk.check_poses_reference(zero, prep)[0])
+        port_live = int(mk.check_poses_stats_reference(zero, prep)[0, 6]) == 1
+        rc = prep.rob_base[:9, 0].numpy().reshape(3, 3)  # posed corners, exact
+        e1, e2 = rc[1] - rc[0], rc[2] - rc[1]  # the twin's float32 plane
+        rn = np.array([e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
+                       e1[0] * e2[1] - e1[1] * e2[0]], np.float32)
+        rd = -(rn[0] * rc[0, 0] + rn[1] * rc[0, 1] + rn[2] * rc[0, 2])
+        ob = prep.obs[0].numpy().astype(np.float64)
+        oc, on, od = ob[:9].reshape(3, 3), ob[9:12], ob[12]
+        live64 = (_straddles64(oc @ rn.astype(np.float64) + np.float64(rd), tol)
+                  and _straddles64(rc.astype(np.float64) @ on + od, tol))
+        if live64 and not port_live:
+            n_tie += 1
+            assert packed & 4, f"pair not flagged uncertain: byte {packed}"
+        if not packed & 1:
+            assert port_live  # a hit needs a live pair
+    assert n_tie >= 5  # the fixture reaches the rounding-decided case
+
+
+def test_far_and_separated_rows_never_set_bit2(cpu_checker, hard10k):
+    far = hard10k.confs[:64].copy()
+    far[:, 0] += 1.0e4
+    assert (cpu_checker.check_packed(far) == 1).all()
+    # Parallel triangles 1% of their size apart: boxes overlap, planes are
+    # separated by far more than the rounding bound.
+    rng = np.random.default_rng(7)
+    one = np.array([[0, 1, 2]], np.int32)
+    for _ in range(32):
+        r = rng.normal(scale=50.0, size=(3, 3)).astype(np.float32)
+        normal = np.cross(r[1] - r[0], r[2] - r[1])
+        o = (r + 0.01 * 50.0 * normal / np.linalg.norm(normal)).astype(np.float32)
+        ck = mk.MegaKernelChecker(Mesh(r, one), Mesh(o, one), device="cpu")
+        rows = ck.check_block(np.zeros((1, 6), np.float32)).numpy()
+        assert rows[0, 2] == 1  # the boxes overlap
+        assert ck.check_packed(np.zeros((1, 6), np.float32))[0] == 1
+
+
+def test_check_packed_bits_and_nonfinite_rows(sphere_checker):
+    _, _, confs = _sphere_scene()
+    confs = confs.copy()
+    confs[3, 1] = np.nan
+    packed = sphere_checker.check_packed(confs)
+    assert packed.dtype == np.uint8 and packed[3] == 0
+    valid, cop = sphere_checker.check_valid(confs)
+    np.testing.assert_array_equal(valid, (packed & 1).astype(bool))
+    np.testing.assert_array_equal(cop, ((packed >> 1) & 1).astype(bool))
+    assert not (packed >> 3).any()

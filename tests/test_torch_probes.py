@@ -191,3 +191,18 @@ def test_cpu_checker_never_reaches_the_counter_kernel():
     assert mk.check_poses_stats_cuda.launches == prep_launches
     with pytest.raises(ValueError, match="stage"):
         mk.check_poses_stage_cuda(mk.poses_from_confs(torch.zeros((1, 6))), ck.tables, "full")
+
+
+@pytest.mark.parametrize("stage", sorted(mk.STAGES))
+def test_stage_variants_refuse_cpu_tensors_and_unknown_stages(stage):
+    prep = mk.MegaKernelPrep.build(load_obj(assets.alpha_robot_path()),
+                                   load_obj(assets.alpha_obstacle_path())).to("cpu")
+    poses = mk.poses_from_confs(torch.zeros((4, 6)))
+    before = dict(mk.check_poses_stage_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mk.check_poses_stage_cuda(poses, prep, stage)
+    with pytest.raises(ValueError, match="stage"):
+        mk.check_poses_stage_cuda(poses, prep, stage.upper())
+    assert mk.check_poses_stage_cuda.launches == before
+    # The codes of `rc_megakernel_check_stage` in csrc/megakernel.cu.
+    assert mk.STAGES[stage] == {"nosweep": 1, "maskonly": 2, "planesonly": 3, "nodiv": 4}[stage]

@@ -25,7 +25,7 @@ from robocheck_tpu_torch.core.types import Mesh
 from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.obj import load_obj
 from robocheck_tpu_torch.kernels import megakernel as mk
-from robocheck_tpu_torch.profiling import counters
+from robocheck_tpu_torch.profiling import bounds, counters
 from robocheck_tpu_torch.profiling.timers import (StageTimer, benchmark,
                                                   device_intervals, trace)
 
@@ -243,7 +243,7 @@ def test_stats_twin_rows_on_alpha(key, alpha_checker, request):
     packed = mk.check_poses_reference(poses, alpha_checker.tables).numpy()
     assert rows.dtype == np.int32 and rows.shape == (64, mk.OUT_COLS)
     np.testing.assert_array_equal(rows[:, 0], packed & 1)
-    np.testing.assert_array_equal(rows[:, 1], packed >> 1)
+    np.testing.assert_array_equal(rows[:, 1], (packed >> 1) & 1)
     np.testing.assert_array_equal(rows[:, 0].astype(bool), ds.valid[:64])
     assert not rows[:, 7].any()
     broad = rows[:, 3] == 1
@@ -296,8 +296,7 @@ def test_coplanar_fixture_pinned_against_jax():
     multiply-adds) finds the pair live and flags it coplanar, and the float64
     oracle then says it collides. This test holds what rounding does not
     decide: JAX's row, the oracle's verdict and the port's box-overlap count.
-    The port's verdict on this row is held to the oracle's by the strict
-    xfail below, which records the port's row."""
+    The port's resolved verdict is held to the oracle's by the test below."""
     rt, ot, tris, confs = _jax_coplanar_fixture()
     jck = jmk.MegaKernelChecker(JMesh(rt, tris, "r"), JMesh(ot, tris, "o"), interpret=True)
     jax_row = np.asarray(jck.check_block(jnp.asarray(confs)))[0]
@@ -314,13 +313,16 @@ def test_coplanar_fixture_pinned_against_jax():
     assert jax_row[5] == 1 and port_row[5] == 0
 
 
-@pytest.mark.xfail(strict=True, reason="ROADMAP Queue 3, fault 1: the port, rounding "
-                   "each multiply and add on its own, finds the pair's signed distances "
-                   "inside the +-TOL band and reports the colliding pair valid")
 def test_coplanar_fixture_port_reports_collision():
+    """The port, rounding each multiply and add on its own, finds the pair's
+    signed distances inside the +-TOL band (not live, coplanar bit 0), but
+    within their rounding bounds of straddling it: the pair is uncertain
+    (bit 2), so the row goes to the float64 oracle, which says colliding."""
     rt, ot, tris, confs = _jax_coplanar_fixture()
     ck = mk.MegaKernelChecker(Mesh(rt, tris, "r"), Mesh(ot, tris, "o"), device="cpu")
     row = ck.check_block(confs[:1]).numpy()[0]
+    assert tuple(row[[0, 1, 2, 6]]) == (1, 0, 1, 0)  # the counter row is unchanged
+    assert ck.check_packed(confs[:1])[0] == 0b101
     valid = ck.check_valid_resolved(confs[:1])[0]
     assert not valid, (f"port row (valid, coplanar, num_pairs, nrest) = "
                        f"{tuple(int(v) for v in row[[0, 1, 2, 6]])}; resolved valid {valid}; "
@@ -372,3 +374,76 @@ def test_stage_timer_benchmark_and_trace(tmp_path):
     assert device_intervals(path) == []
     ops = device_intervals(path, ("cpu_op",))
     assert ops and all(lo <= hi for lo, hi in ops) and ops == sorted(ops)
+
+
+def _tile_counts_by_hand(prep, poses):
+    """Columns 4-6 of the counter rows in numpy, float32 in the twin's
+    operation order: gated tile pairs with and without a box-overlapping pair
+    (real robot triangle), and tile pairs with a live pair."""
+    rb, obs, groups, mesh = (np.asarray(x) for x in (prep.rob_base, prep.obs,
+                                                     prep.obs_groups, prep.obs_mesh))
+    real = rb[9] > 0
+    rows = []
+    for p in np.asarray(poses, np.float32):
+        c = np.stack([p[4 * k] * rb[3 * cc] + p[4 * k + 1] * rb[3 * cc + 1]
+                      + p[4 * k + 2] * rb[3 * cc + 2] + p[4 * k + 3]
+                      for cc in range(3) for k in range(3)])  # [9, Tr]
+        lo = np.stack([np.minimum(np.minimum(c[k], c[3 + k]), c[6 + k]) for k in range(3)], 1)
+        hi = np.stack([np.maximum(np.maximum(c[k], c[3 + k]), c[6 + k]) for k in range(3)], 1)
+        lo_r = np.where(real[:, None], lo, np.float32(3e38))
+        hi_r = np.where(real[:, None], hi, np.float32(-3e38))
+        if not ((lo_r.min(0) <= mesh[3:]).all() and (mesh[:3] <= hi_r.max(0)).all()):
+            rows.append((0, 0, 0))
+            continue
+        t_lo, t_hi = lo_r.reshape(-1, 32, 3).min(1), hi_r.reshape(-1, 32, 3).max(1)
+        gate = ((t_lo[:, None] <= groups[None, :, 3:]).all(-1)
+                & (groups[None, :, :3] <= t_hi[:, None]).all(-1))
+        ri, oi = np.nonzero(((lo[:, None] <= obs[None, :, 16:19]).all(-1)
+                             & (obs[None, :, 13:16] <= hi[:, None]).all(-1)) & real[:, None])
+        e1, e2 = c[3:6] - c[0:3], c[6:9] - c[3:6]
+        n = np.stack([e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
+                      e1[0] * e2[1] - e1[1] * e2[0]])
+        d = -(n[0] * c[0] + n[1] * c[1] + n[2] * c[2])
+        oc = obs[oi]
+        dist_o = np.stack([n[0, ri] * oc[:, 3 * k] + n[1, ri] * oc[:, 3 * k + 1]
+                           + n[2, ri] * oc[:, 3 * k + 2] + d[ri] for k in range(3)], 1)
+        dist_r = np.stack([oc[:, 9] * c[3 * k, ri] + oc[:, 10] * c[3 * k + 1, ri]
+                           + oc[:, 11] * c[3 * k + 2, ri] + oc[:, 12] for k in range(3)], 1)
+        tol = np.float32(1e-6)
+
+        def straddle(x):
+            return (x >= tol).any(1) & (x <= -tol).any(1)
+
+        live = straddle(dist_o) & straddle(dist_r)
+        cells = set(zip(ri // 32, oi // 128))
+        rows.append((len(cells), int(gate.sum()) - len(cells),
+                     len(set(zip(ri[live] // 32, oi[live] // 128)))))
+    return np.array(rows, np.int32)
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_stats_tile_columns_by_hand(scene):
+    robot, obstacle, confs = SCENES[scene]()
+    ck = mk.MegaKernelChecker(_mesh(robot), _mesh(obstacle), device="cpu")
+    rows = ck.check_block(confs).numpy()
+    poses = mk.poses_from_confs(torch.from_numpy(confs)).numpy()
+    np.testing.assert_array_equal(rows[:, 4:7], _tile_counts_by_hand(ck.tables, poses))
+    assert (rows[:, 6] <= rows[:, 4]).all() and (rows[rows[:, 3] == 1, 4:6].sum(1) > 0).all()
+
+
+def test_bounds_of_the_check_and_the_probes():
+    rob = np.zeros((10, 128), np.float32)
+    rob[9, :100] = 1.0
+    rows = np.array([[1, 0, 10, 1, 2, 1, 1, 0], [1, 0, 0, 0, 0, 0, 0, 0]])
+    n_bytes, n_ops = bounds.check_work(rob, 128, 1, rows)
+    assert n_bytes == 2 * 64 + 4 * (rob.size + 20 * 128 + 6 + 6) + 2
+    pose = 2 * 100 * bounds.POSE_OPS
+    assert n_ops == pose + 4 * 1 * 6 + 10 * (bounds.BOX_OPS + bounds.PLANE_OPS)
+    assert bounds.check_work(rob, 128, 1, rows, "nosweep")[1] == pose + 24
+    assert bounds.check_work(rob, 128, 1, rows, "maskonly")[1] == pose + 24 + 10 * bounds.BOX_OPS
+    assert bounds.bound_ms(3.35e9, 1.0) == (1.0, "bytes")
+    assert bounds.bound_ms(1.0, 33.5e9) == (1.0, "operations")
+    assert bounds.probe_work("pose_only", 10) == (10 * 576.0, 0.0)
+    assert bounds.probe_work("mini_level3", 1, tr=128)[1] == 128 * bounds.POSE_OPS
+    with pytest.raises(ValueError, match="probe piece"):
+        bounds.probe_work("all_inputs", 10)

@@ -18,7 +18,7 @@ from robocheck_tpu.ops import narrow as j_narrow
 from robocheck_tpu.ops import transform as j_transform
 from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.obj import load_obj
-from robocheck_tpu_torch.kernels.megakernel import poses_from_confs
+from robocheck_tpu_torch.kernels.megakernel import _pair_flags, poses_from_confs
 from robocheck_tpu_torch.ops import aabb, narrow, transform
 
 # Pose entries: rotation entries are products of sin/cos, which torch and XLA
@@ -151,6 +151,23 @@ def test_pair_intersects_matches_jax_verdicts(seed):
     n = len(a) - 448
     assert not got.collides[n : n + 64].any()
     assert not np.asarray(ref.collides)[n : n + 64].any()
+    # Where an identical pair's verdicts differ, the fused check's twin flags
+    # the pair coplanar or uncertain (packed bit 1 or 2), so its row goes to
+    # the float64 oracle (seeds 0-39: 2 such pairs, at seeds 1 and 32, both
+    # flagged). The shared-vertex ties are decided in the interval stage,
+    # which bit 2 does not cover (46 of 2,560 differ over seeds 0-39).
+    differ = ((got.collides.numpy() != np.asarray(ref.collides))
+              | (got.coplanar.numpy() != np.asarray(ref.coplanar)))[n : n + 64]
+    fields = []
+    for tri in (a[n : n + 64], b[n : n + 64]):
+        t = torch.from_numpy(np.ascontiguousarray(tri))
+        nrm, d = narrow.compute_plane(t)
+        f = {f"c{c}{ax}": t[:, c, k] for c in range(3) for k, ax in enumerate("xyz")}
+        f.update(nx=nrm[:, 0], ny=nrm[:, 1], nz=nrm[:, 2], d=d)
+        fields.append(f)
+    _, cop, _, unc = _pair_flags(*fields)
+    assert (cop | unc).numpy()[differ].all()
+    assert differ.any() == (seed == 1)
     # Both outcomes occur, and the mismatched-scale block is flagged.
     assert got.collides.any() and (~got.collides).any()
     assert got.coplanar[-64:].any()
