@@ -8,7 +8,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
   1. the card: name, and `nvidia-smi` name and power limit;
   2. build the CUDA sources `robocheck_tpu_torch/csrc/megakernel.cu` and
      `stage_probes.cu` (sm_90a, -fmad=false; one nvcc each, started
-     together) and print the ptxas register / shared-memory / spill lines of
+     together, beside `make -C native`, the float64 oracle) and print the ptxas register / shared-memory / spill lines of
      every kernel instance, and the fused kernel's shared memory per block
      and resident blocks per SM for the alpha-1.0 tables;
   3. the kernel against its plain PyTorch twin on the card, on the same pose
@@ -47,7 +47,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      beside the full kernel) and every probe piece of P1-P3 at its script's
      shape (`scripts/torch_bisect.py`; equal to its plain version, tolerance
      0), each launched once with the launch counters set to 0 just before,
-     then timed with its plain version by CUDA events.
+     then timed with its plain version by CUDA events;
+  7. the oversized-mesh path: `smem_bytes` against the compiled layout's
+     `rc_megakernel_smem_bytes` on 8 shapes (the chunk caps among them) and
+     the card's opt-in shared memory per block against `SMEM_LIMIT`; then
+     `make_checker(..., device="cuda")` on `scripts/bench_chunked.py`'s two
+     scenes (80 x 81,920 and 20,480 x 20,480 triangles, 8,192 rows, seed 7)
+     must be a `ChunkedMegaKernelChecker` whose `check_valid_resolved` equals
+     the float64 oracle (native, built here with make) on every row, whose
+     bytes are identical with `compact` on and off, and, on the first 512
+     rows, equal to one unchunked twin (`check_poses_reference`) on the card
+     (valid on every row, bits 1 and 2 on valid rows); chunk pairs, launches
+     and host-clock times printed;
+  8. the planners on the card, alpha-1.0 pair, `alpha.query`: RRT-Connect
+     (the demo's config: 16 iterations of 256 samples, step 0.35 x the
+     robot's smallest extent, 48 checks per edge, surface bias 0.6, seed 0)
+     and PRM (4,096 samples, 12 neighbours, 32 checks per edge), each with
+     its default checker (`make_checker` on the card); each must find a path
+     whose densification at 0.1 x extent is valid under
+     `check_valid_resolved`. The RRT path is compared with
+     `data/alpha_certified_path.npy` (the same planner and config on a TPU);
+     where they differ, the first planner batch whose verdicts differ from
+     the float64 oracle is printed (a difference fails no phase).
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -144,6 +165,164 @@ def compare_bits(name, got, want):
     return err, int(valid.sum()), flags["coplanar"][1], flags["uncertain"][1]
 
 
+def bench_chunked_scene(big: bool, n: int = 8192):
+    """`scripts/bench_chunked.py`'s meshes and rows (seed 7)."""
+    from robocheck_tpu_torch.models.shapes import icosphere
+
+    if big:
+        robot, obstacle = icosphere(5, radius=0.3), icosphere(5, radius=1.5)
+    else:
+        robot, obstacle = icosphere(1, radius=0.3), icosphere(6, radius=1.5)
+    rng = np.random.default_rng(7)
+    confs = np.zeros((n, 6), np.float32)
+    confs[:, 0:3] = rng.uniform(-4, 4, (n, 3))
+    confs[:, 3:6] = rng.uniform(-np.pi, np.pi, (n, 3))
+    return robot, obstacle, confs
+
+
+def phase7(lib, card: str, device) -> tuple[int, int]:
+    """The oversized-mesh path on the card; returns (kernel launches of its
+    main-path runs, max abs err of the chunked bytes against the twin)."""
+    from robocheck_tpu_torch.kernels import chunked
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.oracle import check_configs
+    from robocheck_tpu_torch.runtime import native
+
+    optin = lib.rc_smem_optin_bytes()
+    print(f"[7] oversized meshes; opt-in shared memory per block {optin} bytes "
+          f"(SMEM_LIMIT {mk.SMEM_LIMIT})")
+    require(optin == mk.SMEM_LIMIT, "the card's opt-in shared memory is not SMEM_LIMIT")
+    caps = (chunked.MAX_ROB_TRIS, chunked.MAX_OBS_TRIS // mk.GROUP)
+    for tr, g in ((1024, 8), (4096, 8), (96, 48), (96, 64), caps, (128, 46), (1024, 40),
+                  (32, 1)):
+        mine, compiled = mk.smem_bytes(tr, g), lib.rc_megakernel_smem_bytes(tr, g)
+        print(f"  smem_bytes({tr}, {g}) = {mine}, rc_megakernel_smem_bytes = {compiled}")
+        require(mine == compiled, f"smem_bytes({tr}, {g}) differs from the kernel's layout")
+    launches, max_err = 0, 0
+    for big in (False, True):
+        robot, obstacle, confs = bench_chunked_scene(big)
+        name = f"{robot.num_triangles} x {obstacle.num_triangles} triangles"
+        t0 = time.perf_counter()
+        ck = chunked.make_checker(robot, obstacle, device="cuda")
+        t_build = time.perf_counter() - t0
+        require(isinstance(ck, chunked.ChunkedMegaKernelChecker), f"{name}: not chunked")
+        mk.check_poses_cuda.launches = 0
+        t0 = time.perf_counter()
+        resolved = ck.check_valid_resolved(confs)
+        t_main = time.perf_counter() - t0
+        n_launch = mk.check_poses_cuda.launches
+        require(n_launch > 0, f"{name}: the chunked path launched no kernel")
+        launches += n_launch
+        t0 = time.perf_counter()
+        oracle = check_configs(robot, obstacle, confs)
+        t_oracle = time.perf_counter() - t0
+        mism = int((resolved != oracle).sum())
+        times = {}
+        packed = {}
+        for compact in (True, False):
+            packed[compact] = ck.check_packed(confs, compact=compact)
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ck.check_packed(confs, compact=compact)
+                runs.append(time.perf_counter() - t0)
+            times[compact] = min(runs)
+        print(f"  {name}: {ck.num_chunk_pairs} chunk pairs (built in {t_build} s), "
+              f"{int(resolved.sum())}/{len(confs)} valid, {mism} mismatches against the "
+              f"{'native' if native.available() else 'numpy'} float64 oracle "
+              f"({t_oracle} s); check_valid_resolved {t_main} s with {n_launch} kernel launches")
+        n_res = int((((packed[False] & 1) == 1) & ((packed[False] & 6) > 0)).sum())
+        print(f"  [{card}] {name}: check_packed best of 3, compact on {times[True]} s, "
+              f"off {times[False]} s; bytes identical: "
+              f"{bool(np.array_equal(packed[True], packed[False]))}; {n_res} rows to "
+              f"float64 resolution")
+        require(mism == 0, f"{name}: {mism} rows differ from the float64 oracle")
+        require(np.array_equal(packed[True], packed[False]), f"{name}: compact changes a byte")
+        prep = mk.MegaKernelPrep.build(robot, obstacle).to(device)
+        poses = mk.poses_from_confs(torch.from_numpy(confs[:512]).to(device))
+        err, *_ = compare_bits(f"{name}[:512], chunked kernel vs one unchunked twin",
+                               torch.from_numpy(packed[False][:512]),
+                               mk.check_poses_reference(poses, prep))
+        max_err = max(max_err, err)
+    return launches, max_err
+
+
+class RecordingChecker:
+    """A checker's ``check_valid_resolved`` that keeps every batch and its
+    verdicts."""
+
+    def __init__(self, checker):
+        self.checker = checker
+        self.batches = []
+
+    def check_valid_resolved(self, confs):
+        out = self.checker.check_valid_resolved(confs)
+        self.batches.append((np.array(confs, np.float32), out))
+        return out
+
+
+def phase8(robot, obstacle, card: str) -> int:
+    """The planners on the card; returns the kernel launches of the run."""
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.io.parasol import read_query
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.oracle import check_configs
+    from robocheck_tpu_torch.planner import (PRMConfig, PRMPlanner, RRTConfig,
+                                             RRTConnectPlanner, densify)
+
+    query = read_query(assets.find_asset("models/alpha1.0/alpha.query"))
+    ext = float((robot.aabb[3:] - robot.aabb[:3]).min())
+    print(f"[8] planners on the card, alpha-1.0 pair, alpha.query; robot extent {ext}")
+    mk.check_poses_cuda.launches = 0
+    rrt = RRTConnectPlanner(robot, obstacle,
+                            RRTConfig(max_iters=16, batch=256, step=0.35 * ext,
+                                      edge_resolution=48, surface_bias=0.6, seed=0))
+    prm = PRMPlanner(robot, obstacle,
+                     PRMConfig(num_samples=4096, k_neighbors=12, edge_resolution=32))
+    require(type(rrt.checker) is mk.MegaKernelChecker and rrt.checker.device.type == "cuda",
+            "the planner's default checker is not the card's")
+    rrt.checker = RecordingChecker(rrt.checker)
+    paths = {}
+    for name, planner in (("RRT-Connect", rrt), ("PRM", prm)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = planner.plan(query[0], query[1])
+        wall = time.perf_counter() - t0
+        size = (f"{res.num_nodes} nodes, {res.iters} iterations" if name == "RRT-Connect"
+                else f"{res.num_vertices} vertices, {res.num_edges_checked} edges")
+        print(f"  [{card}] {name}: {size}, {res.num_confs_checked} checks in {wall} s "
+              f"({res.num_confs_checked / wall} checks/s), path "
+              f"{'none' if res.path is None else f'of {len(res.path)} waypoints'}")
+        require(res.path is not None, f"{name} found no path")
+        dense, _ = densify(res.path, step=0.1 * ext)
+        ok = planner.checker.check_valid_resolved(dense)
+        print(f"  {name} path densified at 0.1x extent: {int(ok.sum())}/{len(ok)} valid")
+        require(bool(ok.all()), f"{name}: the densified path is not all valid")
+        paths[name] = res.path
+    launches = mk.check_poses_cuda.launches
+    require(launches > 0, "the planners launched no kernel")
+    tpu = np.load(assets.find_asset("data/alpha_certified_path.npy"))
+    path = paths["RRT-Connect"]
+    same = path.shape == tpu.shape
+    diff = float(np.abs(path - tpu).max()) if same else float("nan")
+    print(f"  RRT path {len(path)} waypoints; data/alpha_certified_path.npy {len(tpu)}; "
+          f"largest abs difference {diff if same else 'n/a (shapes differ)'}")
+    if not (same and diff == 0.0):
+        for k, (confs, got) in enumerate(rrt.checker.batches):
+            want = check_configs(robot, obstacle, confs)
+            if not np.array_equal(got, want):
+                row = int(np.flatnonzero(got != want)[0])
+                print(f"  first planner batch whose verdicts differ from the oracle: "
+                      f"batch {k} ({len(confs)} rows), {int((got != want).sum())} rows, "
+                      f"first row {row} conf {confs[row].tolist()}: card {bool(got[row])}, "
+                      f"oracle {bool(want[row])}")
+                break
+        else:
+            print("  every planner batch agrees with the float64 oracle")
+    print(f"  kernel launches in the planners' run: {launches}")
+    return launches
+
+
 def main() -> None:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -169,10 +348,13 @@ def main() -> None:
 
     # ---- 2. Build. ----
     t0 = time.perf_counter()
+    native_build = native.start_build()
     built = _build.build()
     for name in built:
         _build.library(name)
-    print(f"[2] built {', '.join(p.name for p, _ in built.values())} in "
+    native.finish_build(native_build)
+    require(native.available(), "the native float64 oracle did not load")
+    print(f"[2] built {', '.join(p.name for p, _ in built.values())} and the native oracle in "
           f"{time.perf_counter() - t0:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     for name, (_, log) in built.items():
         print(f"  {name}:")
@@ -289,7 +471,8 @@ def main() -> None:
         n_res = int((valid & ((packed & 6) > 0)).sum())
         n_valid = int(resolved[key].sum())
         msg = (f"  {key}: {len(ds.confs)} rows, {n_valid} valid, {n_res} rows to float64 "
-               f"resolution ({n_cop} by bit 1 coplanar, {n_unc} by bit 2 uncertain)")
+               f"resolution ({n_cop} by bit 1 coplanar, {n_unc} by bit 2 uncertain; bit 2 "
+               f"on {int(((packed & 4) > 0).sum())} rows in all)")
         if key == "samples10k":
             print(f"{msg}, header says {ds.header_valid} valid")
             require(n_valid == ds.header_valid, f"{key}: valid count off the header")
@@ -339,12 +522,17 @@ def main() -> None:
     presort_launches = mk.check_poses_cuda.launches
     require(stats_launches > 0, "the stats path launched no counter kernel")
     for (key, tp), (valid, cop, pairs, broad) in checks.items():
-        ref_valid, _ = checker.check_valid(data[key].confs)
+        packed = checker.check_packed(data[key].confs)
+        ref_valid, tie_free = (packed & 1) == 1, (packed & 4) == 0
         ref_broad = checker.broad_block(data[key].confs).cpu().numpy()
         print(f"  check({key}, two_phase={tp}): {int(valid.sum())} valid, "
               f"{int(broad.sum())} broad, {int(cop.sum())} coplanar, mean pairs on broad "
               f"rows {float(pairs[broad].mean())}")
-        require(np.array_equal(valid, ref_valid), f"check({key}, {tp}): valid != check_valid")
+        # The counter kernel counts an interval tie as the hit or miss it
+        # computes, the packed kernel sets bit 2 and no hit: equal verdicts
+        # on rows without bit 2, and never valid where the packed byte is not.
+        require(np.array_equal(valid[tie_free], ref_valid[tie_free])
+                and not (valid & ~ref_valid).any(), f"check({key}, {tp}): valid != check_valid")
         if tp:
             # check() returns broad_block's own mask here; hold the counter
             # kernel's broad column on the survivors to it instead.
@@ -440,6 +628,14 @@ def main() -> None:
                         "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                         "piece": timed})
+
+    # ---- 7-8. The oversized-mesh path and the planners. ----
+    launches7, chunk_err = phase7(lib, card, device)
+    launches8 = phase8(robot, obstacle, card)
+    entries[0]["launches"] = launches + launches7 + launches8
+    entries[0]["max_abs_err"] = max(max_err, chunk_err)
+    print(f"  megakernel launches by path: main {launches}, oversized meshes {launches7}, "
+          f"planners {launches8}")
 
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -5,9 +5,12 @@
 // what that kernel computes, in the same float32 operation order, and writes
 // one byte per configuration: bit 0 = valid (no intersecting triangle pair),
 // bit 1 = some live pair was flagged coplanar, bit 2 = some box-overlapping
-// pair is uncertain: not live, but float32 rounding could make it live (see
-// kErr below). The checker sends valid rows with bit 1 or bit 2 to the
-// float64 oracle. Its plain PyTorch twin is `check_poses_reference` in
+// pair is uncertain: not live, though each triangle may straddle the other's
+// plane once rounding is accounted for (see kErr below; the +-TOL band or
+// rounding decided it), or live with an interval test that rounding could
+// flip (a tie, see kErrI), which is neither a hit nor a miss. The checker
+// sends valid rows with bit 1 or bit 2 to the float64 oracle. Its plain
+// PyTorch twin is `check_poses_reference` in
 // robocheck_tpu_torch/kernels/megakernel.py.
 //
 // What bounds it on an H100: it moves almost no bytes (64 B of pose in, 1 B
@@ -71,8 +74,8 @@
 //     pairs with at least one live pair (both planes straddle the +-TOL
 //     band). Counts cover what was visited before the any-hit exit, as the
 //     JAX kernel's do; every count is a sum of ballot popcounts, so they are
-//     deterministic. This instance leaves out the uncertain test (column 7
-//     stays 0);
+//     deterministic. This instance leaves out both uncertain tests (column
+//     7 stays 0), so an interval tie counts as the hit or miss it computes;
 //   * <false, kNoSweep / kMaskOnly / kPlanesOnly / kNoDiv>: the
 //     stage-isolating variants of the JAX kernel's `sweep=False` and
 //     `stage_cap` 0 / 1 / 3 (`megakernel.py:625-643, 761-775`), which
@@ -128,12 +131,46 @@ constexpr unsigned kAll = 0xffffffffu;
 // kErr is that gamma_4 times a safety factor of 2 (2 * gamma_4 =
 // 4.7683727e-7, rounded up): the factor covers the float32 rounding of the
 // bound itself (relative <= gamma_4) and of the shifted comparisons
-// d +- e against +-TOL (one rounding each), with a margin of gamma_4 times
-// the sum left over, far above the error of a float64 evaluation of the same
-// inputs. Underflow adds at most 2^-149 per operation, far below that margin
-// wherever d is near +-TOL. An overflowing sum gives e = inf, which marks the
-// pair uncertain: conservative.
+// d +- e against 0 (one rounding each), with a margin of gamma_4 times the
+// sum left over, far above the error of a float64 evaluation of the same
+// inputs. Underflow adds at most 2^-149 per operation. An overflowing sum
+// gives e = inf, which marks the pair uncertain: conservative. The
+// comparison is against 0, not +-TOL: a pair that the +-TOL band alone keeps
+// from being live (a penetration shallower than TOL / |n| of small
+// triangles, whose unnormalised distances are small) is uncertain too, and
+// its row goes to the float64 oracle, which has no band.
 constexpr float kErr = 4.7684e-07f;
+
+// Rounding bound of an interval end (`endpoint`) of a live pair,
+//   t = pa + (pb - pa) * s,  s = da / (da - db),
+// pa = ((Dx*ax + Dy*ay) + Dz*az) the projection of corner a on the computed
+// line direction D, da its signed distance to the other plane (bound ga =
+// kErr * (...), above, which is twice the distance's own bound e_a), and
+// likewise for corner b. D's own rounding does not enter: the interval test
+// compares points of the two planes' line of intersection, and projecting
+// points of one line onto any direction not normal to it keeps their order;
+// so D is taken as exact. With u = 2^-24, s in [0, 1] (da and db have
+// opposite signs in the canonical permutation, and fl(da - db) >= |da|),
+// aa = |Dx*ax| + |Dy*ay| + |Dz*az| and w = |pb - pa|:
+//   * |pa - Pa| <= gamma_3 aa (a dot product of three terms), and the same
+//     for pb, so fl(pb - pa) is off by gamma_3 (aa + ab) + u w;
+//   * |s - S| <= (e_a + e_b) / (|dd| - e_a - e_b), dd = da - db: at most
+//     2 (e_a + e_b) / |dd| <= (ga + gb) / |dd| while e_a + e_b <= |dd| / 2;
+//     past that, (ga + gb) / |dd| >= 1 and w (ga + gb) / |dd| covers the
+//     whole edge, which holds both ends. The divide and the subtraction add
+//     gamma_2 s;
+//   * the multiply and the add round once each (u |w s| + u |t|, and
+//     |t| <= aa + w up to rounding).
+// Summed, |t - T| <= 10u aa + 6u ab + 5u w + w (ga + gb) / |dd| to first
+// order in u, where the cross term of a saturated |s - S| with the error of
+// pb - pa is counted in. kErrI = 32u = 1.9073486e-6 covers that sum twice
+// over, which leaves a margin for the float32 rounding of the bound itself
+// and of the shifted comparisons below (each t moves by E >= 32u |t|, so one
+// rounding of t + E is at most 1/32 of E). The bound of an interval's ends is
+// the larger of its two endpoints' (min and max move each end by at most
+// that), and the pair's interval test is uncertain when moving each end by
+// it could flip the test. An overflowing bound is inf: uncertain.
+constexpr float kErrI = 1.9073486e-06f;
 
 enum Stage : int { kFull = 0, kNoSweep = 1, kMaskOnly = 2, kPlanesOnly = 3, kNoDiv = 4 };
 
@@ -217,10 +254,13 @@ __device__ __forceinline__ bool straddles(const float d[3]) {
          (d[0] <= -kTol || d[1] <= -kTol || d[2] <= -kTol);
 }
 
-// As straddles, with each distance moved by its rounding bound e toward it.
+// Whether the triangle may straddle the plane itself (no +-TOL band) once
+// each distance moves by its rounding bound e: some d + e >= 0 and some
+// d - e <= 0. A pair that is not live but passes this for both triangles is
+// uncertain: rounding or the band decided it (see kErr).
 __device__ __forceinline__ bool may_straddle(const float d[3], const float e[3]) {
-  return (d[0] + e[0] >= kTol || d[1] + e[1] >= kTol || d[2] + e[2] >= kTol) &&
-         (d[0] - e[0] <= -kTol || d[1] - e[1] <= -kTol || d[2] - e[2] <= -kTol);
+  return (d[0] + e[0] >= 0.f || d[1] + e[1] >= 0.f || d[2] + e[2] >= 0.f) &&
+         (d[0] - e[0] <= 0.f || d[1] - e[1] <= 0.f || d[2] - e[2] <= 0.f);
 }
 
 // Signed distances of corners `c` to plane `pl` (nx, ny, nz, d), and (if
@@ -244,22 +284,47 @@ __device__ __forceinline__ float endpoint(float pa, float pb, float da, float db
   return pa + (pb - pa) * dv<kDiv>(da, dd);
 }
 
-// Canonical permutation and interval ends on the intersection line.
+// The rounding bound of endpoint(pa, pb, da, db) (kErrI above): ga, gb the
+// distances' bounds, aa, ab the projections' sums of absolute terms.
 template <bool kDiv>
-__device__ __forceinline__ void interval(const float p[3], const float d[3], float& lo,
-                                         float& hi) {
+__device__ __forceinline__ float endpoint_err(float pa, float pb, float da, float db,
+                                              float ga, float gb, float aa, float ab) {
+  float dd = da - db;
+  if (dd == 0.f) dd = 1.f;
+  const float w = fabsf(pb - pa);
+  return kErrI * ((aa + ab) + w) + w * dv<kDiv>(ga + gb, fabsf(dd));
+}
+
+// Canonical permutation of a corner field: x[0..2] -> the order of
+// `interval`'s ends (the lone corner in the middle).
+__device__ __forceinline__ void canon(bool c01, bool c02, const float x[3], float y[3]) {
+  y[0] = c01 ? x[0] : (c02 ? x[0] : x[1]);
+  y[1] = c01 ? x[2] : (c02 ? x[1] : x[0]);
+  y[2] = c01 ? x[1] : x[2];
+}
+
+// Canonical permutation and interval ends on the intersection line; with
+// kErr, also the bound `err` of the ends, from the distances' bounds g and
+// the projections' sums of absolute terms a.
+template <bool kDiv, bool kErr>
+__device__ __forceinline__ void interval(const float p[3], const float d[3], const float g[3],
+                                         const float a[3], float& lo, float& hi, float& err) {
   const bool c01 = (d[0] > 0.f && d[1] > 0.f) || (d[0] < 0.f && d[1] < 0.f);
   const bool c02 = (d[0] > 0.f && d[2] > 0.f) || (d[0] < 0.f && d[2] < 0.f);
-  const float q0 = c01 ? p[0] : (c02 ? p[0] : p[1]);
-  const float q1 = c01 ? p[2] : (c02 ? p[1] : p[0]);
-  const float q2 = c01 ? p[1] : p[2];
-  const float e0 = c01 ? d[0] : (c02 ? d[0] : d[1]);
-  const float e1 = c01 ? d[2] : (c02 ? d[1] : d[0]);
-  const float e2 = c01 ? d[1] : d[2];
-  const float t01 = endpoint<kDiv>(q0, q1, e0, e1);
-  const float t12 = endpoint<kDiv>(q1, q2, e1, e2);
+  float q[3], e[3];
+  canon(c01, c02, p, q);
+  canon(c01, c02, d, e);
+  const float t01 = endpoint<kDiv>(q[0], q[1], e[0], e[1]);
+  const float t12 = endpoint<kDiv>(q[1], q[2], e[1], e[2]);
   lo = min_nan(t01, t12);
   hi = max_nan(t01, t12);
+  if constexpr (kErr) {
+    float gg[3], aa[3];
+    canon(c01, c02, g, gg);
+    canon(c01, c02, a, aa);
+    err = max_nan(endpoint_err<kDiv>(q[0], q[1], e[0], e[1], gg[0], gg[1], aa[0], aa[1]),
+                  endpoint_err<kDiv>(q[1], q[2], e[1], e[2], gg[1], gg[2], aa[1], aa[2]));
+  }
 }
 
 template <bool kDiv>
@@ -292,30 +357,51 @@ __device__ __forceinline__ bool ratio_coplanar(const float r[4], const float o[4
   return ok;
 }
 
+// Projection of corners c[0..8] on D, and (kErr) each one's sum of
+// absolute terms.
+template <bool kErr>
+__device__ __forceinline__ void project(float Dx, float Dy, float Dz, const float c[9],
+                                        float p[3], float a[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float x = Dx * c[3 * k], y = Dy * c[3 * k + 1], z = Dz * c[3 * k + 2];
+    p[k] = (x + y) + z;
+    if constexpr (kErr) a[k] = (fabsf(x) + fabsf(y)) + fabsf(z);
+  }
+}
+
 // Interval stage and coplanar flag of one live pair: robot fields rf
-// (corners 0-8, plane 9-12), obstacle corners oc and plane op.
-template <bool kDiv>
+// (corners 0-8, plane 9-12), obstacle corners oc and plane op, the signed
+// distances and (kTie) their bounds e_o, e_r. With kTie, a pair whose
+// interval test could flip with each interval end moved by its bound
+// (kErrI) is a tie: neither hit nor miss. Coplanar pairs are flagged as
+// such, never as ties or hits.
+template <bool kDiv, bool kTie>
 __device__ __forceinline__ void interval_stage(const float rf[13], const float oc[9],
                                                const float op[4], const float dist_o[3],
-                                               const float dist_r[3], bool& hit,
-                                               bool& cop) {
+                                               const float dist_r[3], const float e_o[3],
+                                               const float e_r[3], bool& hit, bool& cop,
+                                               bool& tie) {
   const float nrx = rf[9], nry = rf[10], nrz = rf[11];
   const float nox = op[0], noy = op[1], noz = op[2];
   const float Dx = nry * noz - nrz * noy;
   const float Dy = nrz * nox - nrx * noz;
   const float Dz = nrx * noy - nry * nox;
-  float pr[3], po[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    pr[c] = Dx * rf[3 * c] + Dy * rf[3 * c + 1] + Dz * rf[3 * c + 2];
-    po[c] = Dx * oc[3 * c] + Dy * oc[3 * c + 1] + Dz * oc[3 * c + 2];
-  }
-  float min_r, max_r, min_o, max_o;
-  interval<kDiv>(pr, dist_r, min_r, max_r);
-  interval<kDiv>(po, dist_o, min_o, max_o);
+  float pr[3], po[3], ar[3], ao[3];
+  project<kTie>(Dx, Dy, Dz, rf, pr, ar);
+  project<kTie>(Dx, Dy, Dz, oc, po, ao);
+  float min_r, max_r, min_o, max_o, err_r = 0.f, err_o = 0.f;
+  interval<kDiv, kTie>(pr, dist_r, e_r, ar, min_r, max_r, err_r);
+  interval<kDiv, kTie>(po, dist_o, e_o, ao, min_o, max_o, err_o);
   const bool isect = !(min_r >= max_o || min_o >= max_r);
   const bool coplanar = ratio_coplanar<kDiv>(rf + 9, op);
-  hit = isect && !coplanar;
+  tie = false;
+  if constexpr (kTie) {
+    const float E = err_r + err_o;
+    tie = !coplanar && (min_r + E >= max_o || min_o + E >= max_r) &&
+          min_r < max_o + E && min_o < max_r + E;
+  }
+  hit = isect && !coplanar && !tie;
   cop = coplanar;
 }
 
@@ -344,7 +430,8 @@ struct Acc {
 };
 
 // The queued pairs 0..cnt-1, lane l taking pair l: plane stage, then the
-// interval stage of live pairs and the uncertain test of the others. Not
+// interval stage (with its tie test) of live pairs and the uncertain test of
+// the others. Not
 // inlined: its registers (the interval stage and IEEE divides) stay out of
 // the sweep's loops, which call it once per 32 queued pairs.
 template <bool kStats, int kStage>
@@ -368,27 +455,30 @@ __device__ __noinline__ Acc run_pairs(int cnt, const int* queue, const int* qseq
       const float4 a3 = __ldg(row + 3);
       const float oc[9] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x};
       const float op[4] = {a2.y, a2.z, a2.w, a3.x};
-      float dist_o[3], dist_r[3];
+      float dist_o[3], dist_r[3], e_o[3] = {}, e_r[3] = {};
       dists(rf + 9, oc, dist_o);  // obstacle corners to the robot plane
       dists(op, rf, dist_r);      // robot corners to the obstacle plane
+      if constexpr (!kStats) {
+        dist_errs(rf + 9, oc, e_o);
+        dist_errs(op, rf, e_r);
+      }
       live = straddles(dist_o) && straddles(dist_r);
       if (live) {
         if constexpr (kStage == kPlanesOnly) {
           ++a.keep;
         } else {
-          bool h, c;
-          interval_stage<kStage != kNoDiv>(rf, oc, op, dist_o, dist_r, h, c);
+          bool h, c, u;
+          interval_stage<kStage != kNoDiv, !kStats>(rf, oc, op, dist_o, dist_r, e_o, e_r, h,
+                                                    c, u);
           if constexpr (kStage == kNoDiv) {
-            a.keep += h || c;
+            a.keep += h || c || u;
           } else {
             a.hit = a.hit || h;
             a.cop = a.cop || c;
+            a.unc = a.unc || u;
           }
         }
       } else if constexpr (!kStats) {
-        float e_o[3], e_r[3];
-        dist_errs(rf + 9, oc, e_o);
-        dist_errs(op, rf, e_r);
         const bool u = may_straddle(dist_o, e_o) && may_straddle(dist_r, e_r);
         if constexpr (kStage == kFull) a.unc = a.unc || u;
         else a.keep += u;
@@ -782,6 +872,16 @@ int rc_megakernel_blocks_per_sm(int tr, int n_groups) {
   int per_sm = 0;
   err = cudaError_t(resident_blocks<false, kFull>(L, &per_sm));
   return err != cudaSuccess ? -int(err) : per_sm;
+}
+
+// The current device's opt-in dynamic shared memory per block
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), or a negative cudaError_t.
+int rc_smem_optin_bytes() {
+  int dev = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err != cudaSuccess ? -int(err) : bytes;
 }
 
 const char* rc_error_string(int err) {

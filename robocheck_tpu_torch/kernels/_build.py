@@ -92,6 +92,8 @@ def _bind_megakernel(lib: ctypes.CDLL) -> None:
     _bind(lib.rc_error_string, ctypes.c_char_p, [i32])
     if lib.takes_work:
         _bind(lib.rc_megakernel_blocks_per_sm, i32, [i32, i32])
+    if hasattr(lib, "rc_smem_optin_bytes"):
+        _bind(lib.rc_smem_optin_bytes, i32, [])
 
 
 @functools.cache

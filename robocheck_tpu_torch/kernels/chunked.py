@@ -1,0 +1,167 @@
+"""Oversized meshes: the fused check over Morton-ordered mesh chunks, and the
+dispatch between it and the plain checker.
+
+PyTorch port of `robocheck_tpu.kernels.chunked`. The kernel keeps the
+configuration-invariant tables in shared memory, once per block, so a mesh
+pair whose tables pass the block's budget (`megakernel.smem_bytes`) or the
+kernel's row limit cannot run as one launch. Here either mesh is cut into
+Morton-ordered triangle chunks, each (robot chunk x obstacle chunk) pair runs
+the ordinary kernel, and the verdicts combine exactly:
+
+    collision(robot, obstacle) == any over chunk pairs of collision(rc, oc)
+
+because the chunks partition the triangles and the triangle test is per
+pair. So the packed byte's bit 0 (valid) ANDs, bits 1 (coplanar) and 2
+(uncertain) OR (kept on valid rows), and so do the stats path's columns
+(``num_pairs`` sums).
+
+``make_checker`` is the entry point: a plain `MegaKernelChecker` where the
+pair fits, a `ChunkedMegaKernelChecker` otherwise.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.types import Mesh, validate_confs
+from ..utils.morton import morton_argsort
+from .megakernel import (MegaKernelChecker, SharedMemoryBudgetError, boxes_overlap,
+                         poses_from_confs, robot_bounds)
+
+# Chunk caps: any (robot chunk, obstacle chunk) pair fits one block of the
+# kernel. 1,024 robot rows (the alpha-1.0 robot's own table) and 6,144
+# obstacle rows (48 groups) take smem_bytes(1024, 48) = 227,120 bytes, under
+# the H100's 232,448 per block (49 groups: 230,728, 50: 234,336). The robot
+# chunk is posed once per row per obstacle chunk, so a small robot cap and a
+# large obstacle cap keep the pose passes few: an 81,920-triangle obstacle
+# takes 14 chunks against any robot of up to 1,024 triangles.
+MAX_ROB_TRIS = 1024
+MAX_OBS_TRIS = 6144
+
+
+def split_mesh(mesh: Mesh, max_tris: int) -> list[Mesh]:
+    """Split into Morton-ordered contiguous triangle chunks of at most
+    ``max_tris`` (spatially tight, which keeps each chunk's box, and so the
+    broad phase, effective); the JAX package's `split_mesh`."""
+    t = mesh.num_triangles
+    if t <= max_tris:
+        return [mesh]
+    order = morton_argsort(mesh.triangle_vertices.mean(axis=1))
+    n_chunks = -(-t // max_tris)
+    per = -(-t // n_chunks)
+    return [Mesh(mesh.vertices, mesh.triangles[order[k * per : (k + 1) * per]],
+                 name=f"{mesh.name}[{k}]") for k in range(n_chunks)]
+
+
+class ChunkedMegaKernelChecker:
+    """The fused check for mesh pairs past one kernel block's budget, with
+    `MegaKernelChecker`'s interface (``check_packed``, ``check_valid``,
+    ``check_valid_resolved``, ``check``), on the card by default.
+
+    Every chunk pair's launch runs its own broad phase, so rows that miss a
+    chunk's box end there. ``compact=True`` instead finds each chunk pair's
+    broad-phase hits first, from one robot box per row and robot chunk
+    (`megakernel.robot_bounds`, the kernel's stage 1 bit for bit) against
+    every obstacle chunk's box, and launches each chunk pair on its hits
+    only. Verdicts are identical either way: a row it skips is one that
+    chunk pair's kernel would have ended at its broad phase."""
+
+    def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
+                 morton: bool = True, max_rob_tris: int = MAX_ROB_TRIS,
+                 max_obs_tris: int = MAX_OBS_TRIS):
+        self.robot = robot
+        self.obstacle = obstacle
+        rob_chunks = split_mesh(robot, max_rob_tris)
+        obs_chunks = split_mesh(obstacle, max_obs_tris)
+        self._n_obs_chunks = len(obs_chunks)
+        # Robot-major: checker i holds robot chunk i // n_obs_chunks.
+        self.checkers = [MegaKernelChecker(r, o, device, morton)
+                         for r in rob_chunks for o in obs_chunks]
+        self.device = self.checkers[0].device
+
+    @property
+    def num_chunk_pairs(self) -> int:
+        return len(self.checkers)
+
+    def check_packed(self, confs: np.ndarray, chunk: int | None = None,
+                     compact: bool = False) -> np.ndarray:
+        """[N,6] configurations -> [N] uint8 verdict bytes of the whole mesh
+        pair: bit 0 (valid) ANDed over the chunk pairs, bits 1 (coplanar)
+        and 2 (uncertain) ORed and kept on valid rows only. (On a colliding
+        row they depend on which pairs each launch reached before its
+        any-hit exit, whose order the kernel's warps settle at run time;
+        nothing reads them there.) Non-finite rows get the byte 0."""
+        confs = validate_confs(confs)
+        finite = np.isfinite(confs).all(axis=1)
+        out = np.zeros((confs.shape[0],), dtype=np.uint8)
+        confs = confs[finite]
+        valid = np.ones((confs.shape[0],), dtype=np.uint8)
+        flags = np.zeros_like(valid)
+        hits = self._broad_multi(confs) if compact else None
+        for k, ck in enumerate(self.checkers):
+            idx = np.flatnonzero(hits[k]) if compact else slice(None)
+            if compact and not idx.size:
+                continue
+            packed = ck.check_packed(confs[idx], chunk=chunk)
+            valid[idx] &= packed & 1
+            flags[idx] |= packed & 6
+        out[finite] = valid | flags * valid
+        return out
+
+    def check_valid(self, confs: np.ndarray, chunk: int | None = None,
+                    compact: bool = False):
+        """[N,6] configurations -> (valid[N], coplanar[N]) numpy bools: bits 0
+        and 1 of ``check_packed``."""
+        packed = self.check_packed(confs, chunk=chunk, compact=compact)
+        return (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
+
+    def check_valid_resolved(self, confs: np.ndarray, chunk: int | None = None,
+                             compact: bool = False) -> np.ndarray:
+        """``check_packed`` + exact float64 re-check, against the whole
+        (unchunked) mesh pair, of the valid rows that some chunk pair flagged
+        coplanar (bit 1) or uncertain (bit 2). Returns valid[N] bool."""
+        from ..oracle import resolve_coplanar
+
+        packed = self.check_packed(confs, chunk=chunk, compact=compact)
+        return resolve_coplanar(self.robot, self.obstacle, confs,
+                                (packed & 1).astype(bool), (packed & 6).astype(bool))
+
+    def _broad_multi(self, confs: np.ndarray) -> np.ndarray:
+        """[num_chunk_pairs, N] bool: each chunk pair's broad phase, bit for
+        bit its kernel's stage 1. The robot box of every row is computed on
+        the device once per robot chunk and tested there against each of
+        its obstacle chunks' boxes; one fetch per robot chunk."""
+        out = np.empty((self.num_chunk_pairs, confs.shape[0]), dtype=bool)
+        if not confs.shape[0]:
+            return out
+        poses = poses_from_confs(torch.from_numpy(confs).to(self.device))
+        for lo in range(0, self.num_chunk_pairs, self._n_obs_chunks):
+            group = self.checkers[lo : lo + self._n_obs_chunks]
+            bounds = robot_bounds(poses, group[0].tables.rob_base)
+            boxes = torch.stack([ck.tables.obs_mesh for ck in group])
+            out[lo : lo + len(group)] = boxes_overlap(bounds, boxes).cpu().numpy()
+        return out
+
+    def check(self, confs: np.ndarray, two_phase: bool = True):
+        """[N,6] configurations -> (valid, coplanar, num_pairs, broad), each
+        combined over the chunk pairs: valid ANDs, coplanar and broad OR,
+        num_pairs sums (`MegaKernelChecker.check`'s columns)."""
+        valid, coplanar, num_pairs, broad = self.checkers[0].check(confs, two_phase)
+        for ck in self.checkers[1:]:
+            v, c, p, b = ck.check(confs, two_phase)
+            valid &= v
+            coplanar |= c
+            num_pairs += p
+            broad |= b
+        return valid, coplanar, num_pairs, broad
+
+
+def make_checker(robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
+                 morton: bool = True):
+    """One checker for any mesh sizes, on the card by default: the fused
+    `MegaKernelChecker` where the pair fits one kernel block, the
+    Morton-chunked one otherwise."""
+    try:
+        return MegaKernelChecker(robot, obstacle, device, morton)
+    except SharedMemoryBudgetError:
+        return ChunkedMegaKernelChecker(robot, obstacle, device, morton)

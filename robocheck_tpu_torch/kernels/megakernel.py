@@ -7,9 +7,12 @@ boxes, the mesh-box broad phase, the (robot tile x obstacle group) gate, and
 the Moller interval test on every pair whose triangle boxes overlap, with an
 any-hit exit. Each configuration yields one byte: bit 0 = valid (no
 intersecting pair), bit 1 = some live pair was flagged coplanar, bit 2 = some
-box-overlapping pair is uncertain: not live as computed, but live once each
-signed distance moves by its float32 rounding bound toward straddling the
-+-TOL band. Valid rows with bit 1 or bit 2 are resolved in float64 by
+box-overlapping pair is uncertain: not live as computed (the +-TOL band),
+but each triangle may straddle the other's plane itself once each signed
+distance moves by its float32 rounding bound; or live, with an interval test
+that moving each interval end by its rounding bound could flip (a tie, which
+is neither a hit nor a miss).
+Valid rows with bit 1 or bit 2 are resolved in float64 by
 `oracle.resolve_coplanar` (``check_valid_resolved``).
 
 Two implementations share the tables and the arithmetic order of the Pallas
@@ -42,11 +45,12 @@ Host tables (``MegaKernelPrep``), Morton-ordered like the JAX package's:
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..core.constants import LANE, TOL, round_up
+from ..core.constants import LANE, round_up
 from ..core.types import Mesh, validate_confs
 from ..ops.narrow import is_coplanar, no_overlap
 from ..ops.transform import rotation_matrices
@@ -80,9 +84,11 @@ OUT_COLS = 8
 # every divide of the interval stage and the coplanar test replaced by a
 # multiply (`stage_cap=3`, `_probe_div`, `megakernel.py:94-97, 775`).
 STAGES = {"nosweep": 1, "maskonly": 2, "planesonly": 3, "nodiv": 4}
-# Rounding-bound factor of a signed distance: 2 * gamma_4 (u = 2**-24), as
-# `kErr` in `csrc/megakernel.cu`, which derives it.
+# Rounding-bound factors of a signed distance (2 * gamma_4, u = 2**-24) and
+# of an interval end (32u), as `kErr` and `kErrI` in `csrc/megakernel.cu`,
+# which derives them.
 _ERR = 4.7684e-07
+_ERR_I = 1.9073486e-06
 # Pair elements the twin materialises per step (bounds its memory).
 _PAIR_BUDGET = 1 << 24
 
@@ -216,26 +222,32 @@ def _obstacle_fields(obs: torch.Tensor) -> dict:
     return f
 
 
-def _interval(p, d3):
-    """Canonical permutation and interval ends (`megakernel.py:194-213`)."""
+def _interval(p, d3, g3, a3):
+    """Canonical permutation, interval ends (`megakernel.py:194-213`) and
+    the ends' rounding bound from the distances' bounds ``g3`` and the
+    projections' sums of absolute terms ``a3`` (`kErrI` in
+    `csrc/megakernel.cu`, which derives it)."""
     d0, d1, d2 = d3
     c01 = ((d0 > 0) & (d1 > 0)) | ((d0 < 0) & (d1 < 0))
     c02 = ((d0 > 0) & (d2 > 0)) | ((d0 < 0) & (d2 < 0))
-    q0 = torch.where(c01, p[0], torch.where(c02, p[0], p[1]))
-    q1 = torch.where(c01, p[2], torch.where(c02, p[1], p[0]))
-    q2 = torch.where(c01, p[1], torch.where(c02, p[2], p[2]))
-    e0 = torch.where(c01, d0, torch.where(c02, d0, d1))
-    e1 = torch.where(c01, d2, torch.where(c02, d1, d0))
-    e2 = torch.where(c01, d1, torch.where(c02, d2, d2))
 
-    def endpoint(pa, pb, da, db):
-        dd = da - db
+    def canon(x):
+        return (torch.where(c01, x[0], torch.where(c02, x[0], x[1])),
+                torch.where(c01, x[2], torch.where(c02, x[1], x[0])),
+                torch.where(c01, x[1], x[2]))
+
+    q, e, g, a = canon(p), canon(d3), canon(g3), canon(a3)
+
+    def endpoint(i, j):
+        dd = e[i] - e[j]
         dd = torch.where(dd == 0.0, 1.0, dd)
-        return pa + (pb - pa) * (da / dd)
+        w = (q[j] - q[i]).abs()
+        err = _ERR_I * ((a[i] + a[j]) + w) + w * ((g[i] + g[j]) / dd.abs())
+        return q[i] + (q[j] - q[i]) * (e[i] / dd), err
 
-    t01 = endpoint(q0, q1, e0, e1)
-    t12 = endpoint(q1, q2, e1, e2)
-    return torch.minimum(t01, t12), torch.maximum(t01, t12)
+    t01, err01 = endpoint(0, 1)
+    t12, err12 = endpoint(1, 2)
+    return torch.minimum(t01, t12), torch.maximum(t01, t12), torch.maximum(err01, err12)
 
 
 def _dist_err(n: dict, s: dict) -> list[torch.Tensor]:
@@ -246,29 +258,42 @@ def _dist_err(n: dict, s: dict) -> list[torch.Tensor]:
 
 
 def _may_straddle(d3: list, e3: list) -> torch.Tensor:
-    """Some d_i + e_i >= TOL and some d_j - e_j <= -TOL."""
-    up = (d3[0] + e3[0] >= TOL) | (d3[1] + e3[1] >= TOL) | (d3[2] + e3[2] >= TOL)
-    down = (d3[0] - e3[0] <= -TOL) | (d3[1] - e3[1] <= -TOL) | (d3[2] - e3[2] <= -TOL)
+    """Some d_i + e_i >= 0 and some d_j - e_j <= 0: the triangle may
+    straddle the plane itself (no +-TOL band) within rounding."""
+    up = (d3[0] + e3[0] >= 0.0) | (d3[1] + e3[1] >= 0.0) | (d3[2] + e3[2] >= 0.0)
+    down = (d3[0] - e3[0] <= 0.0) | (d3[1] - e3[1] <= 0.0) | (d3[2] - e3[2] <= 0.0)
     return up & down
 
 
-def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, ...]:
-    """(hit, coplanar, live, uncertain) of each pair, fields given as 1-D
-    tensors: plane stage, interval stage and the exact ratio test
-    (`megakernel.py:133-217, 281-303`; the separation band and the ratio
-    test are `ops.narrow`'s, whose arithmetic there is the kernel's). The
-    kernel's conservative coplanarity precheck only skips the exact test
-    where it cannot fire, so it is left out here. ``uncertain``: not live,
-    but live once each signed distance moves by its rounding bound toward
-    straddling (packed bit 2)."""
+class PairFlags(NamedTuple):
+    """Per-pair flags of the twin (``_pair_flags``)."""
+
+    hit: torch.Tensor  # live, intervals overlap, not coplanar, not a tie
+    coplanar: torch.Tensor  # live and the ratio test says coplanar
+    live: torch.Tensor  # both triangles straddle the other's +-TOL band
+    uncertain: torch.Tensor  # packed bit 2: a plane-stage or interval tie
+    counted_hit: torch.Tensor  # the counter instance's hit: ties as computed
+
+
+def _pair_flags(r: dict, o: dict) -> PairFlags:
+    """Flags of each pair, fields given as 1-D tensors: plane stage,
+    interval stage and the exact ratio test (`megakernel.py:133-217,
+    281-303`; the separation band and the ratio test are `ops.narrow`'s,
+    whose arithmetic there is the kernel's). The kernel's conservative
+    coplanarity precheck only skips the exact test where it cannot fire, so
+    it is left out here. ``uncertain`` (packed bit 2): not live, but each
+    triangle may straddle the other's plane itself (no +-TOL band) once each
+    signed distance moves by its rounding bound; or live and not coplanar,
+    with an interval test that moving each interval end by its rounding
+    bound could flip (a tie: not a hit)."""
     dist_o = [r["nx"] * o[f"c{c}x"] + r["ny"] * o[f"c{c}y"]
               + r["nz"] * o[f"c{c}z"] + r["d"] for c in range(3)]
     dist_r = [o["nx"] * r[f"c{c}x"] + o["ny"] * r[f"c{c}y"]
               + o["nz"] * r[f"c{c}z"] + o["d"] for c in range(3)]
+    err_o, err_r = _dist_err(r, o), _dist_err(o, r)
     live = (~no_overlap(torch.stack(dist_o, dim=-1))
             & ~no_overlap(torch.stack(dist_r, dim=-1)))
-    uncertain = (~live & _may_straddle(dist_o, _dist_err(r, o))
-                 & _may_straddle(dist_r, _dist_err(o, r)))
+    plane_tie = (~live & _may_straddle(dist_o, err_o) & _may_straddle(dist_r, err_r))
 
     axx, bxx = r["ny"] * o["nz"], r["nz"] * o["ny"]
     axy, bxy = r["nz"] * o["nx"], r["nx"] * o["nz"]
@@ -276,27 +301,32 @@ def _pair_flags(r: dict, o: dict) -> tuple[torch.Tensor, ...]:
     Dx, Dy, Dz = axx - bxx, axy - bxy, axz - bxz
 
     def proj(s):
-        return [Dx * s[f"c{c}x"] + Dy * s[f"c{c}y"] + Dz * s[f"c{c}z"]
-                for c in range(3)]
+        terms = [(Dx * s[f"c{c}x"], Dy * s[f"c{c}y"], Dz * s[f"c{c}z"]) for c in range(3)]
+        return ([(x + y) + z for x, y, z in terms],
+                [(x.abs() + y.abs()) + z.abs() for x, y, z in terms])
 
-    min_r, max_r = _interval(proj(r), dist_r)
-    min_o, max_o = _interval(proj(o), dist_o)
+    (p_r, a_r), (p_o, a_o) = proj(r), proj(o)
+    min_r, max_r, end_r = _interval(p_r, dist_r, err_r, a_r)
+    min_o, max_o, end_o = _interval(p_o, dist_o, err_o, a_o)
     isect = ~((min_r >= max_o) | (min_o >= max_r)) & live
     coplanar = is_coplanar(torch.stack([r["nx"], r["ny"], r["nz"]], dim=-1), r["d"],
                            torch.stack([o["nx"], o["ny"], o["nz"]], dim=-1),
                            o["d"]) & live
-    return isect & ~coplanar, coplanar, live, uncertain
+    E = end_r + end_o
+    tie = (live & ~coplanar & ((min_r + E >= max_o) | (min_o + E >= max_r))
+           & (min_r < max_o + E) & (min_o < max_r + E))
+    return PairFlags(isect & ~coplanar & ~tie, coplanar, live, plane_tie | tie,
+                     isect & ~coplanar)
 
 
-def mesh_broad(poses: torch.Tensor, rob_base: torch.Tensor,
-               obs_mesh: torch.Tensor) -> torch.Tensor:
-    """[B,16] pose rows -> [B] bool: the posed robot's mesh box (real
-    triangles only) overlaps the obstacle's on closed intervals. The JAX
-    package's `_broad_overlap` (`megakernel.py:1232-1248`) in its operation
-    order, which is the kernel's stage 1: each corner posed as
-    r0*x + r1*y + r2*z + t, masked min / max."""
+def robot_bounds(poses: torch.Tensor, rob_base: torch.Tensor) -> torch.Tensor:
+    """[B,16] pose rows -> [B,6] box (lo x,y,z, hi x,y,z) of the posed robot's
+    real triangles: the JAX package's `_robot_bounds`
+    (`megakernel.py:1209-1228`), in the operation order of the kernel's stage
+    1: each corner posed as r0*x + r1*y + r2*z + t, masked min / max. Any
+    number of obstacle boxes can be tested against it (``mesh_broad``)."""
     real = rob_base[9] > 0.0
-    broad = torch.ones(poses.shape[0], dtype=torch.bool, device=poses.device)
+    lo_hi = [], []
     for k in range(3):
         r0, r1, r2, t = (poses[:, 4 * k + j : 4 * k + j + 1] for j in range(4))
         lo = hi = None
@@ -304,10 +334,25 @@ def mesh_broad(poses: torch.Tensor, rob_base: torch.Tensor,
             v = r0 * rob_base[3 * c] + r1 * rob_base[3 * c + 1] + r2 * rob_base[3 * c + 2] + t
             lo = v if lo is None else torch.minimum(lo, v)
             hi = v if hi is None else torch.maximum(hi, v)
-        mesh_lo = torch.where(real, lo, _BIG).amin(dim=1)
-        mesh_hi = torch.where(real, hi, -_BIG).amax(dim=1)
-        broad &= (mesh_lo <= obs_mesh[3 + k]) & (obs_mesh[k] <= mesh_hi)
-    return broad
+        lo_hi[0].append(torch.where(real, lo, _BIG).amin(dim=1))
+        lo_hi[1].append(torch.where(real, hi, -_BIG).amax(dim=1))
+    return torch.stack(lo_hi[0] + lo_hi[1], dim=1)
+
+
+def boxes_overlap(bounds: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """[B,6] robot boxes x [K,6] obstacle boxes -> [K,B] bool overlap on
+    closed intervals (the kernel's mesh-box test)."""
+    return ((bounds[None, :, :3] <= boxes[:, None, 3:])
+            & (boxes[:, None, :3] <= bounds[None, :, 3:])).all(-1)
+
+
+def mesh_broad(poses: torch.Tensor, rob_base: torch.Tensor,
+               obs_mesh: torch.Tensor) -> torch.Tensor:
+    """[B,16] pose rows -> [B] bool: the posed robot's mesh box (real
+    triangles only) overlaps the obstacle's on closed intervals. The JAX
+    package's `_broad_overlap` (`megakernel.py:1232-1248`), which is the
+    kernel's stage 1 bit for bit."""
+    return boxes_overlap(robot_bounds(poses, rob_base), obs_mesh[None])[0]
 
 
 def _box_pairs(fb: dict, o: dict, real: torch.Tensor):
@@ -345,8 +390,9 @@ def check_poses_reference(poses: torch.Tensor,
     for rows in broad.nonzero()[:, 0].split(step):
         fb = {key: v[rows] for key, v in f.items()}
         bi, ri, oi = _box_pairs(fb, o, real)
-        hit, cop, _, unc = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
-                                       {key: v[oi] for key, v in o.items()})
+        pf = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
+                         {key: v[oi] for key, v in o.items()})
+        hit, cop, unc = pf.hit, pf.coplanar, pf.uncertain
         any_hit = torch.zeros(len(rows), dtype=torch.bool, device=poses.device)
         any_cop = torch.zeros_like(any_hit)
         any_unc = torch.zeros_like(any_hit)
@@ -396,8 +442,9 @@ def check_poses_stats_reference(poses: torch.Tensor,
         n_gated = gate.sum((1, 2))
 
         bi, ri, oi = _box_pairs(fb, o, real)
-        hit, cop, live, _ = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
-                                        {key: v[oi] for key, v in o.items()})
+        pf = _pair_flags({key: v[bi, ri] for key, v in fb.items()},
+                         {key: v[oi] for key, v in o.items()})
+        hit, cop, live = pf.counted_hit, pf.coplanar, pf.live
         cell = bi * n_pairs_t + (ri // ROB_TILE) * n_groups + oi // GROUP
         full = torch.zeros(b * n_pairs_t, dtype=torch.bool, device=poses.device)
         rest = torch.zeros_like(full)
@@ -515,10 +562,46 @@ check_poses_stats_cuda.launches = 0
 check_poses_stage_cuda.launches = dict.fromkeys(STAGES, 0)
 
 
+# --------------------------------------------------------------------------
+# The kernel's shared-memory budget (the port's counterpart of the JAX
+# package's VMEM budget, `megakernel.py:81, 999-1028`).
+# --------------------------------------------------------------------------
+
+# Opt-in dynamic shared memory of one block on an H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin; `chip_smoke.py` reads it).
+SMEM_LIMIT = 232448
+# The launcher's bound on either table's rows: a queued pair packs both
+# indices into 16 bits each (`launch` in `csrc/megakernel.cu`).
+ROW_LIMIT = 65536
+
+
+class SharedMemoryBudgetError(ValueError):
+    """The mesh pair's tables do not fit one block of the kernel (or exceed
+    its row limit); `kernels.chunked.make_checker` splits such pairs."""
+
+
+def smem_bytes(tr: int, n_groups: int) -> int:
+    """Dynamic shared memory of one block of the kernel for ``tr`` robot rows
+    and ``n_groups`` obstacle groups: `Layout::bytes()` of
+    `csrc/megakernel.cu` (`rc_megakernel_smem_bytes`), in Python. The tables
+    (rest-frame robot corners in 32 x 33-float tile blocks, obstacle boxes,
+    group boxes, real bits) once per block; per team of warps, its control
+    words, pose, tile boxes, gated tile pairs and scratch."""
+    warps, teams, queue, tile_block = 4, 4, 64, ROB_TILE * 33
+    n_tiles = tr // ROB_TILE
+    fs = -(-n_tiles // 32) * tile_block
+    tables = 9 * fs + 6 * n_groups * GROUP + 6 * n_groups + n_tiles
+    per_team = ((7 + warps) + 16 + 6 * n_tiles + n_tiles * n_groups
+                + max(warps * 6 * 32, warps * 2 * queue))
+    return 4 * (tables + teams * per_team)
+
+
 class MegaKernelChecker:
     """Batched collision verdicts for one robot/obstacle mesh pair on one
-    device: the CUDA kernels on a CUDA device, their PyTorch twins on the CPU.
-    There is no automatic choice and no fallback between the two.
+    device: the CUDA kernels on a CUDA device (the default), their PyTorch
+    twins on the CPU. There is no automatic choice and no fallback between
+    the two. A pair whose tables do not fit the kernel raises
+    SharedMemoryBudgetError (`kernels.chunked.make_checker` splits it).
 
     ``check_packed`` / ``check_valid`` / ``check_valid_resolved`` are the
     throughput path (one verdict byte per configuration); ``check`` (over ``broad_block`` and
@@ -527,7 +610,7 @@ class MegaKernelChecker:
     # Configurations per kernel launch in ``check_valid``.
     STREAM_CHUNK = 16384
 
-    def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str,
+    def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
                  morton: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -543,6 +626,14 @@ class MegaKernelChecker:
         self.robot = robot
         self.obstacle = obstacle
         self.prep = MegaKernelPrep.build(robot, obstacle, morton=morton)
+        # The kernel's limits, checked on every device alike.
+        tr, to = self.prep.rob_base.shape[1], self.prep.obs.shape[0]
+        need = smem_bytes(tr, to // GROUP)
+        if need > SMEM_LIMIT or tr >= ROW_LIMIT or to >= ROW_LIMIT:
+            raise SharedMemoryBudgetError(
+                f"tables of {tr} robot / {to} obstacle rows need {need} bytes of shared "
+                f"memory per block (limit {SMEM_LIMIT}) and rows below {ROW_LIMIT}; "
+                f"use kernels.chunked.make_checker")
         self.tables = self.prep.to(self.device)
 
     def check_packed(self, confs: np.ndarray, chunk: int | None = None,

@@ -1,8 +1,9 @@
 """ctypes binding to the native float64 oracle (`native/robocheck_native.cpp`,
 the same shared library the JAX package binds).
 
-Build with ``make -C native``. The library is an accelerator, not a
-dependency: `oracle.check_configs` falls back to the NumPy oracle when
+Build with ``make -C native`` (or ``start_build`` / ``finish_build``). The
+library is an accelerator, not a dependency: `oracle.check_configs` falls
+back to the NumPy oracle when
 ``available()`` is false. Only the oracle entry point is bound here; the
 library's parsers and distance query are not used by this package.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +53,23 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def start_build() -> subprocess.Popen:
+    """Start ``make -C native`` (g++; the in-repo library) in the background;
+    ``finish_build`` waits for it."""
+    return subprocess.Popen(["make", "-C", str(_REPO_ROOT / "native")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build(proc: subprocess.Popen) -> None:
+    """Wait for ``start_build``'s make; raise if it failed, else bind the
+    library anew."""
+    global _lib, _tried
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"make -C native failed with exit code {proc.returncode}:\n{log}")
+    _lib, _tried = None, False
 
 
 def _ptr(a: np.ndarray):

@@ -11,9 +11,12 @@ For the alpha-1.0 pair, at the main path's shape (10,000 pose rows in one
 launch), on hard10k, easy10k, allmiss (x = 1e9: every row ends at the broad
 phase) and allhit (identity translation, rotations from default_rng(0):
 2,590 rows collide), it
-  * checks that both designs give the same `valid` on every row and the same
-    coplanar bit on every valid row (bit 2 exists in the package's design
-    only, and is counted);
+  * checks that both designs give the same `valid` on every row without
+    bit 2 in the package's design, that no row valid in the other design is
+    colliding in the package's, and the same coplanar bit where both are
+    valid (an older design may lack bit 2 or the interval-tie test, which
+    turns a row whose only hits are ties valid with bit 2; such rows are
+    counted);
   * times them by CUDA events (mean of REPS launches each) in the order old,
     new, new, old, and prints one JSON line per set with the four times, the
     new design's speed-up (old mean / new mean) and each design's share of
@@ -103,9 +106,14 @@ def main() -> int:
         poses = mk.poses_from_confs(torch.from_numpy(confs[:n]).to(device))
         old = launch(old_lib, poses, tables).cpu().numpy()
         new = launch(new_lib, poses, tables).cpu().numpy()
-        valid = (old & 1) == 1
-        same = bool(np.array_equal(old & 1, new & 1)
-                    and np.array_equal((old[valid] >> 1) & 1, (new[valid] >> 1) & 1))
+        valid, new_valid = (old & 1) == 1, (new & 1) == 1
+        # A row whose only hits the new design finds to be interval ties
+        # turns valid with bit 2; every other row keeps its verdict.
+        tie_free = (new & 4) == 0
+        both = valid & new_valid
+        same = bool(np.array_equal(valid[tie_free], new_valid[tie_free])
+                    and not (valid & ~new_valid).any()
+                    and np.array_equal((old[both] >> 1) & 1, (new[both] >> 1) & 1))
         if not same:
             raise SystemExit(f"torch_k1_compare: the designs disagree on {name}")
         times = []
@@ -116,7 +124,8 @@ def main() -> int:
         b_ms, b_by = bounds.bound_ms(*bounds.check_work(
             rob_np, tables.obs.shape[0], tables.obs_groups.shape[0], rows))
         emit(measure=f"k1_{name}", shape=list(poses.shape), valid=int(valid.sum()),
-             uncertain_valid=int(((new[valid] >> 2) & 1).sum()),
+             uncertain_valid=int(((new[new_valid] >> 2) & 1).sum()),
+             turned_valid=int((new_valid & ~valid).sum()),
              ms_old_new_new_old=times, old_ms=old_ms, new_ms=new_ms, speedup=old_ms / new_ms,
              bound_ms=b_ms, bound_by=b_by, old_share_of_bound=b_ms / old_ms,
              new_share_of_bound=b_ms / new_ms)

@@ -9,13 +9,16 @@ import numpy as np
 import pytest
 
 from robocheck_tpu.io import assets as j_assets
+from robocheck_tpu.io import byu as j_byu
+from robocheck_tpu.io import datagen as j_datagen
+from robocheck_tpu.io import parasol as j_parasol
 from robocheck_tpu.io.conf import read_conf_file as j_read_conf
 from robocheck_tpu.io.obj import load_obj as j_load_obj
 from robocheck_tpu.models import shapes as j_shapes
 from robocheck_tpu.oracle import cpu_oracle as j_oracle
 from robocheck_tpu.utils.morton import morton_argsort as j_morton
 from robocheck_tpu_torch.core.types import Mesh, validate_confs
-from robocheck_tpu_torch.io import assets
+from robocheck_tpu_torch.io import assets, byu, datagen, parasol
 from robocheck_tpu_torch.io.conf import read_conf_file, write_conf_file
 from robocheck_tpu_torch.io.obj import load_obj, save_obj
 from robocheck_tpu_torch.models import shapes
@@ -26,8 +29,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    # A fresh interpreter: the package, its kernel and profiling modules and
-    # the entry-point scripts (their imports, not main()) load torch and
+    # A fresh interpreter: the package, its kernel, chunked, planner, io and
+    # profiling modules and the entry-point scripts (their imports, not main()) load torch and
     # numpy only, never jax or the JAX package.
     code = ("import sys, runpy; import robocheck_tpu_torch; "
             "import robocheck_tpu_torch.kernels.megakernel; "
@@ -37,9 +40,15 @@ def test_port_imports_no_jax():
             "import robocheck_tpu_torch.profiling.counters; "
             "import robocheck_tpu_torch.profiling.timers; "
             "import robocheck_tpu_torch.profiling.probes; "
+            "import robocheck_tpu_torch.kernels.chunked; "
+            "import robocheck_tpu_torch.planner; "
+            "import robocheck_tpu_torch.planner.knn; "
+            "import robocheck_tpu_torch.io.datagen, robocheck_tpu_torch.io.parasol; "
+            "import robocheck_tpu_torch.io.byu; "
             "[runpy.run_path(f'scripts/{n}.py', run_name='imported') for n in "
             "('torch_run_integration', 'torch_roofline', 'torch_bisect', 'torch_profile', "
-            "'torch_k1_compare', 'torch_gate_study')]; "
+            "'torch_k1_compare', 'torch_gate_study', 'torch_demo_planner', "
+            "'torch_bench_chunked')]; "
             "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "
@@ -143,3 +152,41 @@ def test_mesh_and_conf_validation():
     with pytest.raises(ValueError):
         validate_confs(np.zeros((3, 5)))
     assert validate_confs(np.zeros((3, 6), np.float64)).dtype == np.float32
+
+
+@pytest.mark.parametrize("hard", [True, False])
+def test_datagen_identical(hard):
+    robot = load_obj(assets.alpha_robot_path())
+    mine = datagen.alpha_bot_configurations(robot, 257, hard=hard, seed=11)
+    ref = j_datagen.alpha_bot_configurations(j_load_obj(assets.alpha_robot_path()), 257,
+                                             hard=hard, seed=11)
+    assert mine.dtype == np.float32 and mine.shape == (257, 6)
+    np.testing.assert_array_equal(mine, ref)
+    box = ((-1.0, 2.0), (0.0, 5.0), (-3.0, -1.0))
+    np.testing.assert_array_equal(datagen.generate_confs(np.random.default_rng(3), 64, *box),
+                                  j_datagen.generate_confs(np.random.default_rng(3), 64, *box))
+
+
+def test_parasol_identical():
+    query = assets.find_asset("models/alpha1.0/alpha.query")
+    mine = parasol.read_query(query)
+    assert mine.shape == (2, 6)
+    np.testing.assert_array_equal(mine, j_parasol.read_query(query))
+    env = assets.find_asset("models/alpha1.0/alpha.env")
+    mine_env, ref_env = parasol.read_env(env), j_parasol.read_env(env)
+    np.testing.assert_array_equal(mine_env.boundary, ref_env.boundary)
+    assert (mine_env.active_meshes, mine_env.passive_meshes) == (
+        ref_env.active_meshes, ref_env.passive_meshes) == (("robot.obj",), ("obstacle.obj",))
+
+
+def test_byu_identical(tmp_path):
+    # One quad (a fan of two triangles) and one triangle, two parts.
+    g = tmp_path / "m.g"
+    g.write_text("2 5 2 7\n1 1\n2 2\n0 0 0\n1 0 0\n1 1 0\n0 1 0\n0.5 0.5 1\n"
+                 "1 2 3 -4\n1 2 -5\n")
+    mine, ref = byu.load_byu(g), j_byu.load_byu(g)
+    np.testing.assert_array_equal(mine.vertices, ref.vertices)
+    np.testing.assert_array_equal(mine.triangles, ref.triangles)
+    assert mine.num_triangles == 3 and mine.name == ref.name == "m"
+    byu.byu_to_obj(g, tmp_path / "m.obj")
+    np.testing.assert_array_equal(j_load_obj(tmp_path / "m.obj").triangles, ref.triangles)

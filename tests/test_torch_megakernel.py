@@ -378,6 +378,80 @@ def test_near_coplanar_contacts_set_bit2():
     assert n_tie >= 5  # the fixture reaches the rounding-decided case
 
 
+def _touching_interval_pairs(rng, n=128):
+    """Robot triangles R at ~300-unit coordinates, and obstacle triangles O
+    whose segment on R's plane starts at a point X of R's edge r0-r1, moved
+    by delta (10^-6 to 10^-2 units, either sign) along R's plane away from
+    R: O's corners are X + delta w, and 40 units along w on either side of
+    R's plane (w the in-plane normal of the edge, pointing out of R). The
+    two triangles' intervals on the line of their planes then touch, overlap
+    or part by |delta|, which float32 rounding decides for the smallest
+    deltas."""
+    pairs = []
+    for _ in range(n):
+        r = rng.uniform(-400.0, 400.0, 3) + rng.normal(scale=120.0, size=(3, 3))
+        v = np.cross(r[1] - r[0], r[2] - r[1])
+        v /= np.linalg.norm(v)
+        w = np.cross(r[1] - r[0], v)
+        w /= np.linalg.norm(w)
+        x = r[0] + rng.uniform(0.2, 0.8) * (r[1] - r[0])
+        if w @ (r[2] - x) > 0:
+            w = -w
+        c0 = x + rng.choice([-1.0, 1.0]) * 10.0 ** rng.uniform(-6.0, -2.0) * w
+        o = np.stack([c0, c0 + 40.0 * (v + w), c0 + 40.0 * (w - v)])
+        pairs.append((r.astype(np.float32), o.astype(np.float32)))
+    return pairs
+
+
+def _interval64(p, d):
+    """The kernel's canonical permutation and interval ends, in float64."""
+    c01, c02 = d[0] * d[1] > 0, d[0] * d[2] > 0
+    order = (0, 2, 1) if c01 else (0, 1, 2) if c02 else (1, 0, 2)
+    q, e = p[list(order)], d[list(order)]
+
+    def end(i, j):
+        dd = e[i] - e[j]
+        return q[i] + (q[j] - q[i]) * (e[i] / (dd if dd != 0 else 1.0))
+
+    return sorted((end(0, 1), end(1, 2)))
+
+
+def test_near_touching_intervals_set_bit2():
+    """Bit 2 wherever a float64 evaluation of the interval test on the
+    port's own float32 inputs (posed corners and planes) disagrees with the
+    port's float32 verdict (the counter row, which counts a tie as the hit or
+    miss it computes); and a flagged tie is never a hit."""
+    one = np.array([[0, 1, 2]], np.int32)
+    zero = torch.zeros((1, 16))
+    zero[0, [0, 5, 10]] = 1.0  # the identity pose row: posing is exact
+    n_differ = n_flagged = 0
+    for r, o in _touching_interval_pairs(np.random.default_rng(2025)):
+        prep = mk.MegaKernelPrep.build(Mesh(r, one), Mesh(o, one)).to("cpu")
+        packed = int(mk.check_poses_reference(zero, prep)[0])
+        row = mk.check_poses_stats_reference(zero, prep)[0].numpy()
+        assert row[6] == 1 and row[1] == 0  # live, not coplanar: an interval test
+        rc = prep.rob_base[:9, 0].numpy().reshape(3, 3)
+        e1, e2 = rc[1] - rc[0], rc[2] - rc[1]  # the twin's float32 plane
+        rn = np.array([e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
+                       e1[0] * e2[1] - e1[1] * e2[0]], np.float32)
+        rd = -(rn[0] * rc[0, 0] + rn[1] * rc[0, 1] + rn[2] * rc[0, 2])
+        ob = prep.obs[0].numpy().astype(np.float64)
+        oc, on, od = ob[:9].reshape(3, 3), ob[9:12], ob[12]
+        rn64, rc64 = rn.astype(np.float64), rc.astype(np.float64)
+        D = np.cross(rn64, on)
+        lo_r, hi_r = _interval64(rc64 @ D, rc64 @ on + od)
+        lo_o, hi_o = _interval64(oc @ D, oc @ rn64 + np.float64(rd))
+        hit64 = not (lo_r >= hi_o or lo_o >= hi_r)
+        if hit64 != (row[0] == 0):
+            n_differ += 1
+            assert packed & 4, f"tie not flagged uncertain: byte {packed}"
+        if packed & 4:
+            n_flagged += 1
+            assert packed & 1  # a tie is not a hit
+    assert n_differ >= 5  # the fixture reaches the rounding-decided case
+    assert n_flagged < 128  # and the bound does not flag every pair
+
+
 def test_far_and_separated_rows_never_set_bit2(cpu_checker, hard10k):
     far = hard10k.confs[:64].copy()
     far[:, 0] += 1.0e4

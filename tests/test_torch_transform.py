@@ -151,23 +151,26 @@ def test_pair_intersects_matches_jax_verdicts(seed):
     n = len(a) - 448
     assert not got.collides[n : n + 64].any()
     assert not np.asarray(ref.collides)[n : n + 64].any()
-    # Where an identical pair's verdicts differ, the fused check's twin flags
-    # the pair coplanar or uncertain (packed bit 1 or 2), so its row goes to
-    # the float64 oracle (seeds 0-39: 2 such pairs, at seeds 1 and 32, both
-    # flagged). The shared-vertex ties are decided in the interval stage,
-    # which bit 2 does not cover (46 of 2,560 differ over seeds 0-39).
+    # Where a tie pair's verdicts differ, the fused check's twin flags the
+    # pair coplanar or uncertain (packed bit 1 or 2), so its row goes to the
+    # float64 oracle. Over seeds 0-39: 2 identical pairs differ (seeds 1 and
+    # 32; a plane-stage tie) and 46 of 2,560 shared-vertex pairs (intervals
+    # touching at the vertex: an interval-stage tie); all are flagged.
     differ = ((got.collides.numpy() != np.asarray(ref.collides))
-              | (got.coplanar.numpy() != np.asarray(ref.coplanar)))[n : n + 64]
+              | (got.coplanar.numpy() != np.asarray(ref.coplanar)))
     fields = []
-    for tri in (a[n : n + 64], b[n : n + 64]):
+    for tri in (a, b):
         t = torch.from_numpy(np.ascontiguousarray(tri))
         nrm, d = narrow.compute_plane(t)
         f = {f"c{c}{ax}": t[:, c, k] for c in range(3) for k, ax in enumerate("xyz")}
         f.update(nx=nrm[:, 0], ny=nrm[:, 1], nz=nrm[:, 2], d=d)
         fields.append(f)
-    _, cop, _, unc = _pair_flags(*fields)
-    assert (cop | unc).numpy()[differ].all()
-    assert differ.any() == (seed == 1)
+    flags = _pair_flags(*fields)
+    flagged = (flags.coplanar | flags.uncertain).numpy()
+    assert flagged[differ].all()
+    assert not (flags.hit & flags.uncertain).any()  # a tie is never a hit
+    assert differ[n : n + 64].any() == (seed == 1)
+    assert differ[n + 192 : n + 256].any() == (seed != 1)  # 2 and 4 pairs at seeds 0, 2
     # Both outcomes occur, and the mismatched-scale block is flagged.
     assert got.collides.any() and (~got.collides).any()
     assert got.coplanar[-64:].any()
