@@ -6,9 +6,10 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. the card: name, and `nvidia-smi` name and power limit;
-  2. build the CUDA sources `robocheck_tpu_torch/csrc/megakernel.cu` and
-     `stage_probes.cu` (sm_90a, -fmad=false; one nvcc each, started
-     together, beside `make -C native`, the float64 oracle) and print the ptxas register / shared-memory / spill lines of
+  2. build the CUDA sources `robocheck_tpu_torch/csrc/megakernel.cu`,
+     `stage_probes.cu` and `clearance.cu` (sm_90a, -fmad=false; one nvcc
+     each, started together, beside `make -C native`, the float64 oracle)
+     and print the ptxas register / shared-memory / spill lines of
      every kernel instance, and the fused kernel's shared memory per block
      and resident blocks per SM for the alpha-1.0 tables;
   3. the kernel against its plain PyTorch twin on the card, on the same pose
@@ -68,7 +69,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `check_valid_resolved`. The RRT path is compared with
      `data/alpha_certified_path.npy` (the same planner and config on a TPU);
      where they differ, the first planner batch whose verdicts differ from
-     the float64 oracle is printed (a difference fails no phase).
+     the float64 oracle is printed (a difference fails no phase);
+  9. the continuous certifier: (a) the clearance scan kernel
+     (`robocheck_tpu_torch/csrc/clearance.cu`) against its twin on the card
+     on bench.py's clearance scene (refine-4 alpha robot, 133,902 vertices,
+     131 blocks; 256 near-contact queries, seed 5): every (configuration,
+     block) pair of the first 16 queries and the same pairs of 1-vertex
+     representative blocks, within err_bound / 8; (b) `min_distances` on the
+     256 queries at or below the native float64 BVH's answer on the first 32
+     and within 2 x err_bound of it, with the worst float32 deviation in ulp
+     x scale beside the 128 of `err_bound`; (c) configurations/s of
+     `min_distances` (warm, best of 3), pairs, bounds_s / exact_s, the native
+     BVH's time on the 32 queries, and one 1,024-pair dispatch of the kernel
+     and its twin (CUDA events) beside its bound (from the region each of
+     the dispatch's distances ends in); (d) both alpha legs of
+     `scripts/torch_certify_alpha.py` through `certify_multires` with
+     `make_checker` on the card: certified, no collision, 0 uncertified
+     steps, their check counts beside the JAX package's 1,196 / 1,390
+     (a difference fails nothing), K1 and the scan kernel launched; (e) the
+     tunneling path through `tests/test_clearance.py`'s wall refuted.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -78,15 +97,21 @@ from __future__ import annotations
 
 import json
 import os
+import runpy
 import sys
 import time
 
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 REPLACES = "robocheck_tpu/kernels/megakernel.py:358"
 SOURCE = "robocheck_tpu_torch/csrc/megakernel.cu"
 PROBE_SOURCE = "robocheck_tpu_torch/csrc/stage_probes.cu"
+CLEARANCE_SOURCE = "robocheck_tpu_torch/csrc/clearance.cu"
+CLEARANCE_REPLACES = "robocheck_tpu/planner/clearance.py:312"
+# Phase 9's alpha legs (`scripts/torch_certify_alpha.py`).
+CERTIFY_LEGS = ("smoothed", "raw")
 # The JAX knob each stage variant replaces (robocheck_tpu/kernels/megakernel.py).
 STAGE_REPLACES = {"nosweep": "robocheck_tpu/kernels/megakernel.py:625",
                   "maskonly": "robocheck_tpu/kernels/megakernel.py:761",
@@ -323,9 +348,153 @@ def phase8(robot, obstacle, card: str) -> int:
     return launches
 
 
+def clearance_queries(obstacle, n: int = 256, seed: int = 5) -> np.ndarray:
+    """bench.py's clearance leg queries (`bench.py:186-190`): random
+    rotations, translations within 0.6x the obstacle's extent of its
+    center."""
+    rng = np.random.default_rng(seed)
+    confs = rng.uniform(-np.pi, np.pi, (n, 6)).astype(np.float32)
+    center = 0.5 * (obstacle.aabb[:3] + obstacle.aabb[3:])
+    ext = obstacle.aabb[3:] - obstacle.aabb[:3]
+    confs[:, 0:3] = center + rng.uniform(-0.6, 0.6, (n, 3)) * ext
+    return confs
+
+
+def native_min_distances(robot_verts, obstacle, confs) -> np.ndarray:
+    """float64 truth: the native BVH's min distance over each configuration's
+    posed vertices (R from the float32 rotation, posed in float64)."""
+    from robocheck_tpu_torch.ops.transform import rotation_matrices
+    from robocheck_tpu_torch.runtime import native
+
+    R = rotation_matrices(torch.from_numpy(confs)).double().numpy()
+    v = np.asarray(robot_verts, np.float64)
+    return np.array([native.point_mesh_dist(obstacle.vertices, obstacle.triangles,
+                                            v @ R[i].T + confs[i, 0:3].astype(np.float64)).min()
+                     for i in range(len(confs))])
+
+
+def phase9_engine(robot, obstacle, card: str, device) -> dict:
+    """Phase 9 (a)-(c): the scan kernel against its twin, soundness against
+    the float64 oracle, and times, on bench.py's clearance scene. Returns the
+    kernel-table entry (launches filled in by the caller)."""
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
+    from robocheck_tpu_torch.planner.clearance import PAIR_CHUNK, ClearanceEngine
+    from robocheck_tpu_torch.profiling import bounds
+    from robocheck_tpu_torch.profiling.timers import benchmark, event_ms
+
+    rob4 = subdivide_mesh(robot, 4)
+    eng = ClearanceEngine(rob4.vertices, obstacle, device="cuda")
+    print(f"[9] clearance engine on bench.py's scene: refine-4 alpha robot, "
+          f"{eng.num_vertices} vertices, {eng.num_blocks} blocks, {eng.num_triangles} "
+          f"obstacle triangles in {eng.num_groups} groups; engine built in "
+          f"{eng.stats['construct_s']} s")
+    require((eng.num_vertices, eng.num_blocks) == (133902, 131), "not bench.py's robot")
+    confs = clearance_queries(obstacle)
+    err = eng.err_bound(confs)
+    eps = float(np.finfo(np.float32).eps)
+    scale = err / (128.0 * eps)
+
+    # (a) Every (configuration, block) pair of the first 16 queries, and the
+    # representatives as 1-vertex blocks, against the twin on the card.
+    nb = eng.num_blocks
+    rows = kc.pose_rows(torch.from_numpy(confs[:16]).to(device)).repeat_interleave(nb, 0)
+    ids = torch.arange(nb, dtype=torch.int32, device=device).repeat(16)
+    diffs = {}
+    for name, table in (("blocks", eng._blocks), ("representatives", eng._reps)):
+        got = kc.pair_min_cuda(rows, ids, table, eng._tris)
+        want = kc.pair_min_reference(rows, ids, table, eng._tris)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"(a) {name}: a non-finite kernel distance")
+        diffs[name] = float((got.double() - want.double()).abs().max())
+        n_equal = int((got == want).sum())
+        print(f"  (a) {name}: {len(got)} pairs, kernel vs twin max abs diff {diffs[name]} "
+              f"({diffs[name] / (eps * scale)} ulp x scale), {n_equal} bit-equal; "
+              f"tolerance err_bound / 8 = {err / 8}")
+        require(diffs[name] <= err / 8, f"(a) {name}: kernel differs from its twin")
+
+    # (b) Soundness against the float64 oracle on the first 32 queries.
+    d = eng.min_distances(confs)
+    t0 = time.perf_counter()
+    truth = native_min_distances(rob4.vertices, obstacle, confs[:32])
+    native_s = time.perf_counter() - t0
+    dev_ulp = float(np.abs(d[:32] + err - truth).max() / (eps * scale))
+    print(f"  (b) min_distances on {len(confs)} queries; against the native BVH on the first "
+          f"32: min(truth - answer) {float((truth - d[:32]).min())}, max {float((truth - d[:32]).max())}"
+          f" (2 x err_bound {2 * err}); worst float32 deviation {dev_ulp} ulp x scale "
+          f"(scale {scale}; err_bound is 128, half of it 64)")
+    require(bool((d[:32] <= truth).all()), "(b) an answer is above the float64 truth")
+    require(bool((truth - d[:32] <= 2 * err).all()), "(b) an answer is below truth - 2 err")
+
+    # (c) Times.
+    for k in eng.stats:
+        eng.stats[k] = 0 if isinstance(eng.stats[k], int) else 0.0
+    best = benchmark(eng.min_distances, confs, runs=3)
+    calls = eng.stats["calls"]
+    per = {k: eng.stats[k] / calls for k in ("pairs", "bounds_s", "exact_s")}
+    print(f"  (c) [{card}] min_distances: {len(confs) / best} configurations/s (best of 3, "
+          f"warm, host clock after synchronize; {best} s), {per['pairs']} pairs, bounds_s "
+          f"{per['bounds_s']}, exact_s {per['exact_s']} per call")
+    print(f"  (c) native BVH on the first 32 queries: {native_s} s, {32 / native_s} "
+          f"configurations/s; clearance_vs_native {(len(confs) / best) / (32 / native_s)}")
+    sl = slice(0, PAIR_CHUNK)
+    k_ms = event_ms(lambda: kc.pair_min_cuda(rows[sl], ids[sl], eng._blocks, eng._tris), 10)
+    p_ms = event_ms(lambda: kc.pair_min_reference(rows[sl], ids[sl], eng._blocks, eng._tris), 1)
+    # The bound of the timed dispatch: its distances counted by the region
+    # each ends in (the work the kernel's early exits leave).
+    regions = kc.region_counts(rows[sl], ids[sl], eng._blocks, eng._tris).cpu().numpy()
+    b_ms, b_by = bounds.bound_ms(*bounds.clearance_work(
+        PAIR_CHUNK, 1024, eng.num_triangles, len(set(ids[sl].tolist())), regions))
+    share = ", ".join(f"{r} {n / regions.sum()}" for r, n in zip(kc.REGIONS, regions))
+    print(f"  (c) timed dispatch's distances by region ({int(regions.sum())}): {share}")
+    print(f"  (c) [{card}] scan kernel, one {PAIR_CHUNK}-pair dispatch of 1,024-vertex blocks: "
+          f"{k_ms} ms (bound {b_ms} ms by {b_by}, {100 * b_ms / k_ms}%); twin {p_ms} ms")
+    return {"name": "clearance_pair_min", "route": "cuda", "source": CLEARANCE_SOURCE,
+            "replaces": CLEARANCE_REPLACES, "launches": 0, "max_abs_err": max(diffs.values()),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
+    """Phase 9 (d)-(e): both alpha legs through `certify_multires` on the
+    card, and a tunneling path refuted. Returns the launches of K1 and of
+    the scan kernel in the legs' run."""
+    from robocheck_tpu_torch import make_checker
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.models.shapes import box
+    from robocheck_tpu_torch.planner.ccd import certify_multires
+
+    cert_alpha = runpy.run_path(os.path.join(ROOT, "scripts", "torch_certify_alpha.py"),
+                                run_name="imported")
+    checker = make_checker(robot, obstacle, device="cuda")
+    mk.check_poses_cuda.launches = 0
+    kc.pair_min_cuda.launches = 0
+    records = [cert_alpha["certify_leg"](leg, robot, obstacle, checker) for leg in CERTIFY_LEGS]
+    torch.cuda.synchronize()
+    k1, scans = mk.check_poses_cuda.launches, kc.pair_min_cuda.launches
+    for rec in records:
+        print(f"  (d) [{card}] {json.dumps(rec)}")
+        require(rec["certified"] and not rec["collision"] and rec["uncertified_steps"] == 0,
+                f"(d) the {rec['leg']} leg is not certified with 0 uncertified steps")
+        print(f"  (d) {rec['leg']} leg: {rec['num_checks']} checks (JAX package: "
+              f"{rec['reference_num_checks']}), {rec['wall_s']} s")
+    print(f"  (d) launches in the legs' run: K1 {k1}, scan kernel {scans}")
+    require(k1 > 0 and scans > 0, "(d) the legs did not launch both kernels")
+
+    robot_box, wall = box(extent=(0.1, 0.1, 0.1), name="r"), box(extent=(0.4, 4.0, 4.0))
+    tun = np.zeros((2, 6), np.float32)
+    tun[0, 0], tun[1, 0] = -2.0, 2.0
+    res = certify_multires(robot_box, wall, tun,
+                           make_checker(robot_box, wall, device="cuda"), levels=((0, 6), (2, 8)))
+    print(f"  (e) tunneling path through tests/test_clearance.py's wall: collision "
+          f"{res.collision}, certified {res.certified}, {res.num_checks} checks")
+    require(res.collision and not res.certified, "(e) the tunneling path is not refuted")
+    return k1, scans
+
+
 def main() -> None:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from robocheck_tpu_torch import MegaKernelChecker, load_obj, read_conf_file
     from robocheck_tpu_torch.core.types import Mesh
     from robocheck_tpu_torch.io import assets
@@ -629,13 +798,16 @@ def main() -> None:
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                         "piece": timed})
 
-    # ---- 7-8. The oversized-mesh path and the planners. ----
+    # ---- 7-9. The oversized-mesh path, the planners, the certifier. ----
     launches7, chunk_err = phase7(lib, card, device)
     launches8 = phase8(robot, obstacle, card)
-    entries[0]["launches"] = launches + launches7 + launches8
+    clearance_entry = phase9_engine(robot, obstacle, card, device)
+    launches9, clearance_entry["launches"] = phase9_certify(robot, obstacle, card)
+    entries.append(clearance_entry)
+    entries[0]["launches"] = launches + launches7 + launches8 + launches9
     entries[0]["max_abs_err"] = max(max_err, chunk_err)
     print(f"  megakernel launches by path: main {launches}, oversized meshes {launches7}, "
-          f"planners {launches8}")
+          f"planners {launches8}, certifier {launches9}")
 
     print(card)
     print(json.dumps({"kernels": entries}))

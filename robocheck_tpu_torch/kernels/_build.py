@@ -1,8 +1,9 @@
 """Build the CUDA sources of `csrc/` with nvcc and bind them with ctypes.
 
 Each source (`megakernel.cu`, the fused check; `stage_probes.cu`, its probe
-kernels) is compiled at first use into ``build/robocheck_tpu_torch/`` at the
-repository root, all nvcc processes started together, under names keyed by
+kernels; `clearance.cu`, the clearance engine's exact scan) is compiled
+at first use into ``build/robocheck_tpu_torch/`` at the repository root,
+all nvcc processes started together, under names keyed by
 every source and the flags, so an edited source is never served from a stale
 build. Plain ``extern "C"`` interfaces keep each build to seconds (no PyTorch
 headers). ``copy_library`` builds another copy of `megakernel.cu` (an older
@@ -19,9 +20,11 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"megakernel": _CSRC / "megakernel.cu",
-           "stage_probes": _CSRC / "stage_probes.cu"}
+           "stage_probes": _CSRC / "stage_probes.cu",
+           "clearance": _CSRC / "clearance.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "robocheck_tpu_torch"
-# -fmad=false: the TOL-band math rounds every multiply and add on its own.
+# -fmad=false: the TOL-band math and the clearance scan round every multiply
+# and add on its own, as their PyTorch twins do.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,6 +114,11 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
         _bind(lib.rc_empty_probe, i32,
               [ptr, i64, ptr, i32, ptr, i32, ptr, i32, i32, i32, ptr, ptr])
         _bind(lib.rc_invariant_probe, i32, [ptr, i64, ptr, i32, i32, ptr, i64, ptr])
+    elif name == "clearance":
+        # rows, ids, k, blocks, nb, block, tris, nt, out, stream
+        _bind(lib.rc_clearance_pair_min, i32,
+              [ptr, ptr, i64, ptr, i32, i32, ptr, i32, ptr, ptr])
+        _bind(lib.rc_clearance_error_string, ctypes.c_char_p, [i32])
     return lib
 
 

@@ -54,6 +54,7 @@ from ..core.constants import LANE, round_up
 from ..core.types import Mesh, validate_confs
 from ..ops.narrow import is_coplanar, no_overlap
 from ..ops.transform import rotation_matrices
+from ..runtime.device import resolve as resolve_device
 from ..utils.morton import morton_argsort
 
 # Obstacle table columns (the JAX obs_t's first 19 columns, same indices).
@@ -612,12 +613,7 @@ class MegaKernelChecker:
 
     def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
                  morton: bool = True):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' was asked for, but no CUDA "
-                               "device is available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = resolve_device(device)
         # The kernels launch or raise; the twins run only on the CPU.
         on_card = self.device.type == "cuda"
         self._check_poses = check_poses_cuda if on_card else check_poses_reference

@@ -1,0 +1,260 @@
+"""Batched point-to-mesh clearance queries on the card (PyTorch port of
+`robocheck_tpu.planner.clearance`; ``ClearanceEngine`` is the counterpart of
+its `TpuClearanceEngine`).
+
+The continuous certifier (`planner/ccd.py`) needs, per configuration, the
+minimum distance from any posed robot vertex to the obstacle surface. The
+engine answers it to a documented, conservatively subtracted float32 error
+bound, with the culling a BVH does per point done per (configuration, vertex
+block) pair:
+
+  * Robot vertices are Morton-sorted and cut into blocks of BLOCK = 1024,
+    each with a body-frame box, converted to float32 conservatively. Posing
+    a block's box under (R, t) is exact-conservative: center -> R c + t,
+    half-extent -> |R| h.
+  * Obstacle triangles are Morton-sorted and grouped (32 a group) with
+    static boxes. A posed-block / group box distance lower-bounds every
+    vertex-triangle distance of the pair, so LB[config, block] = min over
+    groups of the box distance lower-bounds the block's contribution.
+  * Upper bound U[config]: each block's representative vertex (its first
+    Morton-ordered vertex) is measured exactly against every obstacle
+    triangle (the scan kernel with 1-vertex blocks); U = min over them.
+  * Survivors (LB - err <= best + err) run in ascending-LB waves through the
+    scan kernel (`kernels/clearance.py`, `csrc/clearance.cu`), 1,024 pairs a
+    launch; after each wave the tightened per-configuration best re-filters
+    the rest before they run. The scatter-min into ``best`` is float64 on
+    the host, as in the reference.
+  * The reported distance subtracts ``err_bound`` (128 float32 ulp of the
+    posed scene's scale), so it is a sound lower bound; the same slack
+    guards the cull, so no pair that could hold the true minimum is dropped.
+
+Two faults of the reference are not carried over: the obstacle triangles
+are not padded with a far-away sentinel (the kernel loops to nt, the twin
+slices), and an empty vertex or triangle array raises ValueError instead of
+an IndexError. There is no ``mesh=`` (sharding is not ported).
+"""
+from __future__ import annotations
+
+import math
+import time as _time
+
+import numpy as np
+import torch
+
+from ..core.types import Mesh
+from ..kernels.clearance import pair_min_cuda, pair_min_reference, pose_rows
+from ..ops.transform import apply_pose, rotation_matrices
+from ..runtime.device import resolve as resolve_device
+from ..utils.morton import morton_argsort, morton_codes
+
+BLOCK = 1024  # robot vertices per block
+TRI_CHUNK = 128  # the reference's scan step: its chunk rule for the bounds phase
+PAIR_CHUNK = 1024  # (configuration, block) pairs per kernel launch
+REP_PAIRS = 1 << 18  # representative pairs per launch (12 MB of pose rows)
+_F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _pad_to(x: np.ndarray, n: int, fill) -> np.ndarray:
+    if len(x) >= n:
+        return x[:n]
+    pad = np.broadcast_to(fill, (n - len(x),) + x.shape[1:])
+    return np.concatenate([x, pad], axis=0)
+
+
+class ClearanceEngine:
+    """Batched min-distance queries from a posed robot vertex set to a
+    static obstacle mesh: the counterpart of `TpuClearanceEngine`.
+
+    Args:
+      robot_vertices: [V,3] body-frame vertex positions (any dtype), V > 0.
+      obstacle: obstacle :class:`Mesh` with at least one triangle.
+      device: "cuda" (the default: the scan kernel) or "cpu" (its twin).
+      obs_group: obstacle triangles per box group.
+    """
+
+    def __init__(self, robot_vertices: np.ndarray, obstacle: Mesh,
+                 device: torch.device | str = "cuda", obs_group: int = 32):
+        t0 = _time.perf_counter()
+        self.device = resolve_device(device)
+        # The kernel launches or raises; the twin runs only on the CPU.
+        self._pair_min = pair_min_cuda if self.device.type == "cuda" else pair_min_reference
+        self._events = []  # (start, end) CUDA events of launches not yet read
+        v = np.asarray(robot_vertices, dtype=np.float64).reshape(-1, 3)
+        tri = np.asarray(obstacle.triangle_vertices, dtype=np.float64)
+        if len(v) == 0:
+            raise ValueError("the robot has no vertices: no clearance to measure")
+        if len(tri) == 0:
+            raise ValueError("the obstacle has no triangles: no clearance to measure")
+
+        def put(a):  # float64 host array -> float32 tensor on the device
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
+
+        # Non-stable argsort, as the reference (ties in Morton code carry no
+        # meaning for blocking).
+        v = v[np.argsort(morton_codes(v))]
+        self.num_vertices = len(v)
+        nb = math.ceil(len(v) / BLOCK)
+        vp = _pad_to(v, nb * BLOCK, v[-1]).reshape(nb, BLOCK, 3)
+        self.num_blocks = nb
+        lo, hi = vp.min(axis=1), vp.max(axis=1)
+        cent, half = (lo + hi) / 2.0, (hi - lo) / 2.0
+        # The float32 box must stay conservative: inflate the half-extent by
+        # what the center / half conversions can lose.
+        infl = np.maximum(np.abs(cent), half) * (4 * _F32_EPS) + 1e-12
+        self._bcent = put(cent)
+        self._bhalf = put(half + infl)
+        self._blocks = put(vp)
+        self._reps = self._blocks[:, 0:1, :].contiguous()  # [nb, 1, 3]
+
+        tri = tri[morton_argsort(tri.mean(axis=1))]
+        nt = len(tri)
+        ng = math.ceil(nt / obs_group)
+        trig = _pad_to(tri, ng * obs_group, tri[-1]).reshape(ng, -1, 3)
+        glo, ghi = trig.min(axis=1), trig.max(axis=1)
+        ginfl = np.maximum(np.abs(glo), np.abs(ghi)) * (4 * _F32_EPS) + 1e-12
+        self._glo = put(glo - ginfl)
+        self._ghi = put(ghi + ginfl)
+        self.num_groups = ng
+        self._tris = put(tri.reshape(nt, 9))
+        self.num_triangles = nt
+
+        self._obs_scale = float(np.abs(tri).max())
+        # The max vertex 2-norm, not the max coordinate: a rotation can align
+        # a vertex's norm with one axis, so the posed coordinate bound is
+        # ||v||_2 + |t|.
+        self._r_max_abs = float(np.sqrt((v * v).sum(axis=1).max()))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the tables are on the card
+        # Accounting (certify_multires' verbose report, phase 9 of
+        # chip_smoke.py, scripts/torch_certify_alpha.py): host-clock seconds
+        # of construction and of each phase, and kernel_s, the device
+        # seconds of the scan kernel's launches (CUDA events around each;
+        # 0.0 on the CPU, where the twin runs).
+        self.stats = {"construct_s": _time.perf_counter() - t0,
+                      "bounds_s": 0.0, "exact_s": 0.0, "kernel_s": 0.0, "pairs": 0,
+                      "configs": 0, "calls": 0}
+
+    # -- error model --------------------------------------------------------
+    def err_bound(self, confs: np.ndarray) -> float:
+        """Conservative absolute float32 error on any distance this engine
+        computes for ``confs`` (`clearance.py:237-249`): 128 ulp of the
+        largest coordinate magnitude in the posed scene. The constant is
+        empirical; `chip_smoke.py` phase 9 measures the worst deviation from
+        the float64 BVH on the card."""
+        c = np.asarray(confs, dtype=np.float64)
+        scale = max(1.0, self._obs_scale,
+                    float(np.abs(c[:, 0:3]).max(initial=0.0)) + self._r_max_abs)
+        return 128.0 * _F32_EPS * scale
+
+    # -- device phases ------------------------------------------------------
+    def _scan(self, rows: torch.Tensor, ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        """One launch of the scan over ``table``'s blocks (the twin on the
+        CPU); on the card it is timed by CUDA events, read by ``_fetch``."""
+        if self.device.type != "cuda":
+            return self._pair_min(rows, ids, table, self._tris)
+        stream = torch.cuda.current_stream(self.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        out = self._pair_min(rows, ids, table, self._tris)
+        end.record(stream)
+        self._events.append((start, end))
+        return out
+
+    def _fetch(self, outs: list) -> np.ndarray:
+        """The launches' outputs, concatenated, as float64 on the host; adds
+        their device time to ``stats["kernel_s"]`` (the fetch waits for
+        them)."""
+        d = torch.cat(outs).cpu().numpy().astype(np.float64)
+        self.stats["kernel_s"] += sum(s.elapsed_time(e) for s, e in self._events) / 1e3
+        self._events.clear()
+        return d
+
+    def _bounds(self, confs: torch.Tensor, rows: torch.Tensor):
+        """(LB, Drep) [b, nb] float64 on the host: the posed-block / group
+        box lower bound of every pair and each representative vertex's exact
+        distance, in configuration chunks that keep the [cc, nb, max(ng,
+        TRI_CHUNK)] temporaries of the reference's rule near 8 MB."""
+        b, nb = confs.shape[0], self.num_blocks
+        cc = max(1, (1 << 21) // max(nb * max(self.num_groups, TRI_CHUNK), 1))
+        lbs = []
+        for lo in range(0, b, cc):
+            part = confs[lo : lo + cc]
+            Rc, tc = rotation_matrices(part), part[:, 0:3]
+            c = apply_pose(Rc, tc, self._bcent)  # [cc, nb, 3]
+            h = apply_pose(Rc.abs(), torch.zeros_like(tc), self._bhalf)
+            blo = (c - h)[:, :, None, :]  # [cc, nb, 1, 3]
+            bhi = (c + h)[:, :, None, :]
+            gap = (torch.clamp(self._glo[None, None] - bhi, min=0.0)
+                   + torch.clamp(blo - self._ghi[None, None], min=0.0))
+            d = torch.sqrt((gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1])
+                           + gap[..., 2] * gap[..., 2])
+            lbs.append(d.amin(dim=-1))
+        # The representatives as 1-vertex blocks, one pair per (configuration,
+        # block), up to REP_PAIRS pairs (their pose rows) a launch.
+        block_ids = torch.arange(nb, dtype=torch.int32, device=self.device)
+        cr = max(1, REP_PAIRS // nb)
+        reps = [self._scan(rows[lo : lo + cr].repeat_interleave(nb, dim=0),
+                           block_ids.repeat(min(cr, b - lo)), self._reps)
+                for lo in range(0, b, cr)]
+        return (torch.cat(lbs).cpu().numpy().astype(np.float64),
+                self._fetch(reps).reshape(b, nb))
+
+    def _run_pairs(self, rows: torch.Tensor, cfg_ids: np.ndarray, blk_ids: np.ndarray,
+                   best: np.ndarray) -> None:
+        """Exact distances of (configuration, block) pairs, PAIR_CHUNK a
+        launch, all launched before one fetch; scatter-min into ``best``
+        (float64, in place, on the host)."""
+        if len(cfg_ids) == 0:
+            return
+        t0 = _time.perf_counter()
+        ci = torch.as_tensor(cfg_ids).to(self.device)
+        bi = torch.as_tensor(blk_ids.astype(np.int32)).to(self.device)
+        outs = [self._scan(rows[ci[lo : lo + PAIR_CHUNK]], bi[lo : lo + PAIR_CHUNK], self._blocks)
+                for lo in range(0, len(cfg_ids), PAIR_CHUNK)]
+        d = self._fetch(outs)
+        np.minimum.at(best, cfg_ids, d)
+        self.stats["exact_s"] += _time.perf_counter() - t0
+        self.stats["pairs"] += len(cfg_ids)
+
+    def min_distances(self, confs: np.ndarray) -> np.ndarray:
+        """Per-configuration min distance from any posed robot vertex to the
+        obstacle surface, minus :meth:`err_bound` (a sound lower bound),
+        float64 [b].
+
+        A pair is dropped only while ``LB - err > best + err``; the true LB
+        is >= LB - err, the true answer <= best + err, and best only
+        decreases, so no dropped pair can hold the minimum."""
+        confs = np.asarray(confs, dtype=np.float32).reshape(-1, 6)
+        b = len(confs)
+        if b == 0:
+            return np.zeros(0, dtype=np.float64)
+        self.stats["calls"] += 1
+        self.stats["configs"] += b
+        err = self.err_bound(confs)
+        best = np.full(b, np.inf, dtype=np.float64)
+        dev_confs = torch.as_tensor(confs).to(self.device)
+        rows = pose_rows(dev_confs)
+        if self.num_blocks == 1:
+            self._run_pairs(rows, np.arange(b), np.zeros(b, np.int64), best)
+            return best - err
+
+        # Phase 1: box lower bounds and representative-vertex distances;
+        # best starts at U (attained distances).
+        t0 = _time.perf_counter()
+        lb, drep = self._bounds(dev_confs, rows)
+        np.minimum(best, drep.min(axis=1), out=best)
+        self.stats["bounds_s"] += _time.perf_counter() - t0
+
+        # Phase 2: surviving pairs in ascending-LB waves.
+        surv_c, surv_b = np.nonzero(lb - err <= best[:, None] + err)
+        order = np.argsort(lb[surv_c, surv_b], kind="stable")
+        surv_c, surv_b = surv_c[order], surv_b[order]
+        slb = lb[surv_c, surv_b]
+        wave = max(2048, 4 * b)
+        while len(surv_c):
+            self._run_pairs(rows, surv_c[:wave], surv_b[:wave], best)
+            surv_c, surv_b, slb = surv_c[wave:], surv_b[wave:], slb[wave:]
+            if len(surv_c):
+                keep = slb - err <= best[surv_c] + err
+                surv_c, surv_b, slb = surv_c[keep], surv_b[keep], slb[keep]
+        return best - err

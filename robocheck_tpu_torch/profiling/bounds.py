@@ -1,24 +1,27 @@
-"""The least time an H100 could take for the fused check's work (its bound).
+"""The least time an H100 could take for a kernel's work (its bound): the
+fused check's and the clearance scan's.
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate, and
 the operations it must do over the card's peak rate for them. Rates, from
-NVIDIA's data sheet for the H100 SXM: 3.35 TB/s of HBM3 and 67
-TFLOP/s of float32 outside the tensor cores, which counts a fused
-multiply-add as two operations, so 33.5 T single-lane operations per second
-(a multiply, an add, a compare or a min each count one; the check is built
-with -fmad=false, so it fuses none). Both assume the card's full power limit
-of 700 W.
+NVIDIA's data sheet for the H100 SXM: 3.35 TB/s of HBM3 and 67 TFLOP/s of
+float32 outside the tensor cores. That peak counts a fused multiply-add as
+two operations; every operation counted here (a multiply, an add, a
+compare, a min, a divide) is charged as one of those 67 T a second, so the
+bound holds even where every multiply could fuse with an add. Both rates
+assume the card's full power limit of 700 W.
 
-The check's work depends on its data, so the count is taken from the
-counter rows (`OUT_COLS`) of the same pose rows: what these inputs need.
+The work of both kernels depends on their data, so it is counted from the
+inputs of the run being timed: the check's from the counter rows
+(`OUT_COLS`) of the same pose rows, the clearance scan's from the region
+each of its distances ends in (`kernels/clearance.region_counts`).
 """
 from __future__ import annotations
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 33.5e12
+FP32_OPS_PER_S = 67e12
 # Operations per real robot triangle of a row: 9 posed coordinates at 3
 # multiplies and 3 adds each, the triangle's box (12 min / max) and its
 # share of the mesh box (6).
@@ -29,6 +32,28 @@ POSE_OPS = 9 * 6 + 12 + 6
 # counted (a few percent of the pairs).
 BOX_OPS = 6
 PLANE_OPS = 21 + 6 * 6 + 12
+# Operations of one vertex-triangle distance of the clearance scan by the
+# region its closest point lies in (`kernels/clearance.REGIONS`): what
+# Ericson's early-exit order (Real-Time Collision Detection 5.1.5, the
+# kernel's) needs there. A difference of two points costs 3, a dot product 5
+# (3 multiplies, 2 adds), a region test its compares where it holds and 1
+# where it fails; each distance ends with |p - q|^2 (5, plus 3 for p - q
+# where q is not a corner) and the running min (1). The triangle's edges are
+# the triangle's work, not the pair's.
+_REACH_B = 3 + 5 + 5 + 1 + 3 + 5 + 5  # ap, d1, d2, test a fails, bp, d3, d4
+_REACH_C = _REACH_B + 1 + 3 + 5 + 5  # test b fails, cp, d5, d6
+_REACH_EDGES = _REACH_C + 1  # test c fails
+REGION_OPS = (
+    3 + 5 + 5 + 2 + 5 + 1,  # vertex a: |ap|^2
+    _REACH_B + 2 + 5 + 1,  # vertex b: |bp|^2
+    _REACH_C + 2 + 5 + 1,  # vertex c: |cp|^2
+    _REACH_EDGES + 3 + 3 + 2 + 6 + 3 + 5 + 1,  # edge ab: vc, its test, v, q
+    _REACH_EDGES + 3 + 1 + 3 + 3 + 2 + 6 + 3 + 5 + 1,  # edge ac: vb
+    _REACH_EDGES + 3 + 1 + 3 + 1 + 3 + 5 + 2 + 6 + 3 + 5 + 1,  # edge bc: va, w
+    _REACH_EDGES + 3 + 1 + 3 + 1 + 3 + 1 + 2 + 2 + 12 + 3 + 5 + 1,  # face: v, w, q
+)
+# Posing one vertex: 9 multiplies and 6 adds, and the translation (3).
+POSE_VERTEX_OPS = 18
 # Stage of the fused check -> whether it includes (gate, box tests, planes).
 STAGE_WORK = {"nosweep": (True, False, False), "maskonly": (True, True, False),
               "planesonly": (True, True, True), "nodiv": (True, True, True),
@@ -86,3 +111,19 @@ def probe_work(piece: str, n: int, tr: int = 1024) -> tuple[float, float]:
     if piece == "auto_invariant_vmem":
         return float(io + 4 * 128), float(n * 128)
     raise ValueError(f"no work model for probe piece {piece!r}")
+
+
+def clearance_work(k: int, block: int, nt: int, blocks_read: int,
+                   regions) -> tuple[float, float]:
+    """(bytes, operations) of the clearance scan over ``k`` pairs of
+    ``block``-vertex blocks against ``nt`` obstacle triangles, reading
+    ``blocks_read`` distinct blocks, whose distances end in each region as
+    ``regions`` ([len(REGION_OPS)] counts, `kernels/clearance.region_counts`
+    of the same inputs) says. Bytes: pose rows (48 B), block ids and outputs
+    (4 B each) per pair, the blocks read (12 B a vertex) and the triangles
+    (36 B each). Operations: POSE_VERTEX_OPS a vertex and REGION_OPS a
+    distance by its region."""
+    n_bytes = k * (48 + 4 + 4) + blocks_read * block * 12 + nt * 36
+    regions = np.asarray(regions, dtype=np.int64)
+    n_ops = k * block * POSE_VERTEX_OPS + int((regions * np.asarray(REGION_OPS)).sum())
+    return float(n_bytes), float(n_ops)

@@ -4,8 +4,10 @@ the same shared library the JAX package binds).
 Build with ``make -C native`` (or ``start_build`` / ``finish_build``). The
 library is an accelerator, not a dependency: `oracle.check_configs` falls
 back to the NumPy oracle when
-``available()`` is false. Only the oracle entry point is bound here; the
-library's parsers and distance query are not used by this package.
+``available()`` is false. Bound here: the oracle and the point-to-mesh
+distance query (`rc_point_mesh_dist`, the float64 BVH that the clearance
+engine is held against and the certifier's ``native`` backend); the
+library's parsers are not used by this package.
 """
 from __future__ import annotations
 
@@ -46,6 +48,15 @@ def _load():
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_void_p,
             ]
+            try:
+                lib.rc_point_mesh_dist.restype = ctypes.c_int64
+                lib.rc_point_mesh_dist.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_void_p,
+                ]
+            except AttributeError:
+                pass  # a stale build without the distance query
             _lib = lib
             break
     return _lib
@@ -53,6 +64,12 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def has_point_mesh_dist() -> bool:
+    """False for a stale build of the library without the distance query."""
+    lib = _load()
+    return lib is not None and hasattr(lib, "rc_point_mesh_dist")
 
 
 def start_build() -> subprocess.Popen:
@@ -98,3 +115,21 @@ def oracle_check(rob_verts: np.ndarray, rob_tris: np.ndarray,
     if got != n:
         raise RuntimeError(f"native oracle checked {got} of {n} configurations")
     return out.astype(bool)
+
+
+def point_mesh_dist(verts: np.ndarray, tris: np.ndarray,
+                    points: np.ndarray) -> np.ndarray:
+    """Exact unsigned min distance from each point to the mesh surface
+    (native BVH, best-first, float64). Returns dist[N] f64."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "rc_point_mesh_dist"):
+        raise RuntimeError("native library not built (make -C native)")
+    v = np.ascontiguousarray(verts, dtype=np.float64)
+    t = np.ascontiguousarray(tris, dtype=np.int32)
+    p = np.ascontiguousarray(points, dtype=np.float64).reshape(-1, 3)
+    out = np.empty((p.shape[0],), dtype=np.float64)
+    got = lib.rc_point_mesh_dist(_ptr(v), _ptr(t), v.shape[0], t.shape[0],
+                                 _ptr(p), p.shape[0], _ptr(out))
+    if got != p.shape[0]:
+        raise RuntimeError(f"native distance query answered {got} of {p.shape[0]} points")
+    return out

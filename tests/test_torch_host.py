@@ -29,8 +29,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    # A fresh interpreter: the package, its kernel, chunked, planner, io and
-    # profiling modules and the entry-point scripts (their imports, not main()) load torch and
+    # A fresh interpreter: the package, its kernels, chunked, planner (with the
+    # distance grid, clearance engine and certifier), io and profiling modules
+    # and the entry-point scripts (their imports, not main()) load torch and
     # numpy only, never jax or the JAX package.
     code = ("import sys, runpy; import robocheck_tpu_torch; "
             "import robocheck_tpu_torch.kernels.megakernel; "
@@ -43,12 +44,14 @@ def test_port_imports_no_jax():
             "import robocheck_tpu_torch.kernels.chunked; "
             "import robocheck_tpu_torch.planner; "
             "import robocheck_tpu_torch.planner.knn; "
+            "import robocheck_tpu_torch.planner.sdf, robocheck_tpu_torch.planner.clearance; "
+            "import robocheck_tpu_torch.planner.ccd, robocheck_tpu_torch.kernels.clearance; "
             "import robocheck_tpu_torch.io.datagen, robocheck_tpu_torch.io.parasol; "
             "import robocheck_tpu_torch.io.byu; "
             "[runpy.run_path(f'scripts/{n}.py', run_name='imported') for n in "
             "('torch_run_integration', 'torch_roofline', 'torch_bisect', 'torch_profile', "
             "'torch_k1_compare', 'torch_gate_study', 'torch_demo_planner', "
-            "'torch_bench_chunked')]; "
+            "'torch_bench_chunked', 'torch_certify_alpha')]; "
             "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "

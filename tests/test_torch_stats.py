@@ -442,7 +442,7 @@ def test_bounds_of_the_check_and_the_probes():
     assert bounds.check_work(rob, 128, 1, rows, "nosweep")[1] == pose + 24
     assert bounds.check_work(rob, 128, 1, rows, "maskonly")[1] == pose + 24 + 10 * bounds.BOX_OPS
     assert bounds.bound_ms(3.35e9, 1.0) == (1.0, "bytes")
-    assert bounds.bound_ms(1.0, 33.5e9) == (1.0, "operations")
+    assert bounds.bound_ms(1.0, 67e9) == (1.0, "operations")
     assert bounds.probe_work("pose_only", 10) == (10 * 576.0, 0.0)
     assert bounds.probe_work("mini_level3", 1, tr=128)[1] == 128 * bounds.POSE_OPS
     with pytest.raises(ValueError, match="probe piece"):
