@@ -70,24 +70,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `data/alpha_certified_path.npy` (the same planner and config on a TPU);
      where they differ, the first planner batch whose verdicts differ from
      the float64 oracle is printed (a difference fails no phase);
-  9. the continuous certifier: (a) the clearance scan kernel
-     (`robocheck_tpu_torch/csrc/clearance.cu`) against its twin on the card
-     on bench.py's clearance scene (refine-4 alpha robot, 133,902 vertices,
-     131 blocks; 256 near-contact queries, seed 5): every (configuration,
+  9. the continuous certifier, on bench.py's clearance scene (refine-4 alpha
+     robot, 133,902 vertices, 131 blocks; 256 near-contact queries, seed 5)
+     and its obstacle subdivided twice (16x: 16,128 triangles): (a) the
+     clearance scan (`robocheck_tpu_torch/csrc/clearance.cu`), culled and
+     nocull, bit-equal to its twin (max abs err 0, NaN for NaN) on small
+     random scenes that reach every path of the kernel, every (configuration,
      block) pair of the first 16 queries and the same pairs of 1-vertex
-     representative blocks, within err_bound / 8; (b) `min_distances` on the
-     256 queries at or below the native float64 BVH's answer on the first 32
-     and within 2 x err_bound of it, with the worst float32 deviation in ulp
-     x scale beside the 128 of `err_bound`; (c) configurations/s of
-     `min_distances` (warm, best of 3), pairs, bounds_s / exact_s, the native
-     BVH's time on the 32 queries, and one 1,024-pair dispatch of the kernel
-     and its twin (CUDA events) beside its bound (from the region each of
-     the dispatch's distances ends in); (d) both alpha legs of
-     `scripts/torch_certify_alpha.py` through `certify_multires` with
-     `make_checker` on the card: certified, no collision, 0 uncertified
-     steps, their check counts beside the JAX package's 1,196 / 1,390
-     (a difference fails nothing), K1 and the scan kernel launched; (e) the
-     tunneling path through `tests/test_clearance.py`'s wall refuted.
+     representative blocks, the first 1,024 pairs the engine's exact phase
+     launches (the survivor dispatch) and the first 128 of the 16x scene;
+     the culled kernel's count of (unit, group) scans equal to `cull_plan`'s
+     on every pair; (b) `min_distances` at or below the native float64 BVH
+     (and within 2 x err_bound) on the first 32 queries, on 8 near-contact
+     waypoints of the certified path at refine 6, on the scene moved 10^3
+     obstacle extents from the origin and on the 16x scene, the worst
+     float32 deviation in ulp x scale beside the 128 of `err_bound`; (c)
+     the old dispatch (the first 1,024 of (a)'s pairs) and the survivor
+     dispatch, culled, nocull and the twin by CUDA events, beside the
+     culled-work bound (`cull_plan`'s distances by region, and the culling)
+     and the full-scan bound (every distance by region); the
+     representatives culled per thread and nocull; configurations/s of
+     `min_distances` (warm, best of 3), its per-call stats and
+     `clearance_vs_native` (the native BVH on 32 queries); (d) both alpha
+     legs of `scripts/torch_certify_alpha.py` through `certify_multires`
+     with `make_checker` on the card: certified, no collision, 0
+     uncertified steps, exactly 1,196 and 1,309 checks, with their
+     `exact_kernel_s` and `rep_kernel_s`, K1 and the scan kernel launched;
+     (e) the tunneling path through `tests/test_clearance.py`'s wall
+     refuted; (f) `min_distances` on the 1x and the 16x obstacle, culled and
+     nocull: configurations/s, exact_s and the 16x / 1x ratio.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -110,8 +121,13 @@ SOURCE = "robocheck_tpu_torch/csrc/megakernel.cu"
 PROBE_SOURCE = "robocheck_tpu_torch/csrc/stage_probes.cu"
 CLEARANCE_SOURCE = "robocheck_tpu_torch/csrc/clearance.cu"
 CLEARANCE_REPLACES = "robocheck_tpu/planner/clearance.py:312"
-# Phase 9's alpha legs (`scripts/torch_certify_alpha.py`).
+# Phase 9's alpha legs (`scripts/torch_certify_alpha.py`) and the checks
+# each must take: the port's counts since its certifier was ported (the raw
+# leg's is the JAX package's too; its smoothed count is of another
+# trajectory, ROADMAP Queue 3). The scan's distances are bit-equal to the
+# full scan's, so the counts cannot move.
 CERTIFY_LEGS = ("smoothed", "raw")
+CERTIFY_CHECKS = {"raw": 1196, "smoothed": 1309}
 # The JAX knob each stage variant replaces (robocheck_tpu/kernels/megakernel.py).
 STAGE_REPLACES = {"nosweep": "robocheck_tpu/kernels/megakernel.py:625",
                   "maskonly": "robocheck_tpu/kernels/megakernel.py:761",
@@ -373,85 +389,311 @@ def native_min_distances(robot_verts, obstacle, confs) -> np.ndarray:
                      for i in range(len(confs))])
 
 
-def phase9_engine(robot, obstacle, card: str, device) -> dict:
-    """Phase 9 (a)-(c): the scan kernel against its twin, soundness against
-    the float64 oracle, and times, on bench.py's clearance scene. Returns the
-    kernel-table entry (launches filled in by the caller)."""
+def survivor_dispatch(eng, confs, n: int, device):
+    """The first ``n`` (configuration, block) pairs that `min_distances`
+    launches on ``confs`` (its ascending-LB order), as the exact phase
+    gives them to the kernel: (pose rows, block ids, slack 2 x err_bound)."""
     from robocheck_tpu_torch.kernels import clearance as kc
-    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
-    from robocheck_tpu_torch.planner.clearance import PAIR_CHUNK, ClearanceEngine
-    from robocheck_tpu_torch.profiling import bounds
-    from robocheck_tpu_torch.profiling.timers import benchmark, event_ms
 
-    rob4 = subdivide_mesh(robot, 4)
-    eng = ClearanceEngine(rob4.vertices, obstacle, device="cuda")
-    print(f"[9] clearance engine on bench.py's scene: refine-4 alpha robot, "
-          f"{eng.num_vertices} vertices, {eng.num_blocks} blocks, {eng.num_triangles} "
-          f"obstacle triangles in {eng.num_groups} groups; engine built in "
-          f"{eng.stats['construct_s']} s")
-    require((eng.num_vertices, eng.num_blocks) == (133902, 131), "not bench.py's robot")
-    confs = clearance_queries(obstacle)
     err = eng.err_bound(confs)
-    eps = float(np.finfo(np.float32).eps)
-    scale = err / (128.0 * eps)
+    dev_confs = torch.from_numpy(confs).to(device)
+    rows = kc.pose_rows(dev_confs)
+    surv_c, surv_b, _ = eng._survivors(dev_confs, rows, np.full(len(confs), np.inf), err)
+    ci = torch.as_tensor(surv_c[:n]).to(device)
+    return rows[ci].contiguous(), torch.as_tensor(surv_b[:n].astype(np.int32)).to(device), 2 * err
 
-    # (a) Every (configuration, block) pair of the first 16 queries, and the
-    # representatives as 1-vertex blocks, against the twin on the card.
+
+def same_bits(got, want) -> bool:
+    """Equal on every pair, a NaN matching a NaN (the kernel's rule)."""
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def hold_scan(name, rows, ids, table, tris, groups, slack, device, finite: bool = True):
+    """Phase 9 (a) for one dispatch over ``tris`` [nt, 9] in ``groups``: the
+    culled and the nocull kernel against the twin, bit for bit, and the
+    culled kernel's scan count against `cull_plan`'s on every pair. Returns
+    (max abs err over the finite distances, plan)."""
+    from robocheck_tpu_torch.kernels import clearance as kc
+
+    tab = kc.tri_table(tris)
+    want = kc.pair_min_reference(rows, ids, table, tris)
+    nocull = kc.pair_min_cuda(rows, ids, table, tab)
+    visits = torch.zeros(len(rows), dtype=torch.int32, device=device)
+    culled = kc.pair_min_cuda(rows, ids, table, tab, groups, slack, visits)
+    plan = kc.cull_plan(rows, ids, table, tris, groups, slack)
+    torch.cuda.synchronize()
+    require(not finite or bool(torch.isfinite(want).all()), f"(a) {name}: a non-finite twin "
+            "distance")
+    ok = torch.isfinite(want)
+    err = max(float((got[ok].double() - want[ok].double()).abs().max())
+              if ok.any() else 0.0 for got in (nocull, culled))
+    planned = plan.sum(dim=(1, 2)).int()
+    print(f"  (a) {name}: {len(rows)} pairs ({int((~ok).sum())} not finite), culled and nocull "
+          f"vs twin max abs err {err}; scans kernel {int(visits.sum())} / cull_plan "
+          f"{int(planned.sum())} of {plan.numel()} ({float(plan.float().mean())} visited)")
+    require(same_bits(culled, want) and same_bits(nocull, want),
+            f"(a) {name}: a kernel differs from its twin")
+    require(torch.equal(visits, planned), f"(a) {name}: the kernel's scans differ from cull_plan's")
+    return err, plan
+
+
+def edge_dispatches(device) -> float:
+    """Phase 9 (a) on small random scenes that reach every path of the
+    kernel: 1-, 37-, 100- and 1,100-vertex blocks (lanes 1, 16, 32, 256 with
+    two passes), triangle counts that are no multiple of 32, a zero-area and
+    a non-finite triangle (their groups always scanned), ids outside the
+    table."""
+    from robocheck_tpu_torch.kernels import clearance as kc
+
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    for block, nt, odd in ((1, 45, "zero-area"), (37, 70, "zero-area"), (100, 33, "none"),
+                           (1100, 97, "non-finite")):
+        tris = (rng.normal(size=(nt, 9)) * 2.0).astype(np.float32)
+        if odd == "zero-area":
+            tris[nt // 2, 3:6] = tris[nt // 2, 0:3]  # b = a: NaN at many points
+        elif odd == "non-finite":
+            tris[nt - 1, 0] = np.inf
+        tris = torch.from_numpy(tris).to(device)
+        groups = kc.make_groups(tris, 32)
+        blocks = torch.from_numpy((rng.normal(size=(5, block, 3)) * 0.5).astype(np.float32))
+        confs = rng.uniform(-np.pi, np.pi, (64, 6)).astype(np.float32)
+        confs[:, 0:3] = rng.uniform(-4.0, 4.0, (64, 3))
+        rows = kc.pose_rows(torch.from_numpy(confs).to(device))
+        ids = torch.from_numpy(rng.integers(-1, 6, 64).astype(np.int32)).to(device)
+        err, _ = hold_scan(f"edge scene, block {block}, {nt} triangles ({odd}; "
+                           f"{int(groups.always.sum())} groups always scanned)", rows, ids,
+                           blocks.to(device), tris, groups, 1e-3, device, finite=False)
+        worst = max(worst, err)
+    return worst
+
+
+def phase9_kernel(eng, eng16, confs, device) -> float:
+    """Phase 9 (a) on bench.py's scene and on its 16x obstacle; returns the
+    max abs err over every dispatch (0: bit-equal)."""
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.planner.clearance import PAIR_CHUNK
+
     nb = eng.num_blocks
     rows = kc.pose_rows(torch.from_numpy(confs[:16]).to(device)).repeat_interleave(nb, 0)
     ids = torch.arange(nb, dtype=torch.int32, device=device).repeat(16)
-    diffs = {}
-    for name, table in (("blocks", eng._blocks), ("representatives", eng._reps)):
-        got = kc.pair_min_cuda(rows, ids, table, eng._tris)
-        want = kc.pair_min_reference(rows, ids, table, eng._tris)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(got).all()), f"(a) {name}: a non-finite kernel distance")
-        diffs[name] = float((got.double() - want.double()).abs().max())
-        n_equal = int((got == want).sum())
-        print(f"  (a) {name}: {len(got)} pairs, kernel vs twin max abs diff {diffs[name]} "
-              f"({diffs[name] / (eps * scale)} ulp x scale), {n_equal} bit-equal; "
-              f"tolerance err_bound / 8 = {err / 8}")
-        require(diffs[name] <= err / 8, f"(a) {name}: kernel differs from its twin")
+    slack = 2 * eng.err_bound(confs)
+    errs = [edge_dispatches(device)]
+    for name, table in (("old dispatch, blocks", eng._blocks),
+                        ("old dispatch, representatives", eng._reps)):
+        errs.append(hold_scan(name, rows, ids, table, eng._tris, eng._groups, slack, device)[0])
+    for name, e, n in (("survivor dispatch", eng, PAIR_CHUNK),
+                       ("16x obstacle, survivors", eng16, 128)):
+        s_rows, s_ids, s_slack = survivor_dispatch(e, confs, n, device)
+        errs.append(hold_scan(name, s_rows, s_ids, e._blocks, e._tris, e._groups, s_slack,
+                              device)[0])
+    return max(errs)
 
-    # (b) Soundness against the float64 oracle on the first 32 queries.
+
+def sweep_soundness(name, eng, robot_verts, obstacle, confs) -> float:
+    """`min_distances` against the native float64 BVH on ``confs``: every
+    answer at or below the truth (and above truth - 2 err); returns the
+    worst float32 deviation in ulp x scale."""
+    eps = float(np.finfo(np.float32).eps)
+    err = eng.err_bound(confs)
+    scale = err / (128.0 * eps)
     d = eng.min_distances(confs)
-    t0 = time.perf_counter()
-    truth = native_min_distances(rob4.vertices, obstacle, confs[:32])
-    native_s = time.perf_counter() - t0
-    dev_ulp = float(np.abs(d[:32] + err - truth).max() / (eps * scale))
-    print(f"  (b) min_distances on {len(confs)} queries; against the native BVH on the first "
-          f"32: min(truth - answer) {float((truth - d[:32]).min())}, max {float((truth - d[:32]).max())}"
-          f" (2 x err_bound {2 * err}); worst float32 deviation {dev_ulp} ulp x scale "
-          f"(scale {scale}; err_bound is 128, half of it 64)")
-    require(bool((d[:32] <= truth).all()), "(b) an answer is above the float64 truth")
-    require(bool((truth - d[:32] <= 2 * err).all()), "(b) an answer is below truth - 2 err")
+    truth = native_min_distances(robot_verts, obstacle, confs)
+    dev_ulp = float(np.abs(d + err - truth).max() / (eps * scale))
+    print(f"  (b) {name}: {len(confs)} queries, truth - answer in [{float((truth - d).min())}, "
+          f"{float((truth - d).max())}] (2 x err_bound {2 * err}); worst float32 deviation "
+          f"{dev_ulp} ulp x scale (scale {scale}; err_bound is 128)")
+    require(bool((d <= truth).all()), f"(b) {name}: an answer is above the float64 truth")
+    require(bool((truth - d <= 2 * err).all()), f"(b) {name}: an answer is below truth - 2 err")
+    return dev_ulp
 
-    # (c) Times.
-    for k in eng.stats:
-        eng.stats[k] = 0 if isinstance(eng.stats[k], int) else 0.0
+
+def phase9_soundness(robot, obstacle, rob4, eng, eng16, obstacle16, confs, device) -> None:
+    """Phase 9 (b): soundness against the native BVH on the 32 first
+    queries, 8 near-contact waypoints of the certified path at refine 6,
+    the scene moved 10^3 obstacle extents from the origin and the 16x
+    obstacle."""
+    from robocheck_tpu_torch.core.types import Mesh
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.planner.ccd import subdivide_vertices
+    from robocheck_tpu_torch.planner.clearance import ClearanceEngine
+
+    sweep_soundness("bench scene, first 32", eng, rob4.vertices, obstacle, confs[:32])
+    verts6 = subdivide_vertices(robot, 6)
+    eng6 = ClearanceEngine(verts6, obstacle, device=device)
+    path = np.load(assets.find_asset("data/alpha_certified_path.npy")).astype(np.float32)
+    near = np.argsort(eng6.min_distances(path), kind="stable")[:8]
+    sweep_soundness(f"refine 6 ({len(verts6)} vertices), certified path waypoints "
+                    f"{sorted(near.tolist())}", eng6, verts6, obstacle, path[near])
+    off = (1e3 * (obstacle.aabb[3:] - obstacle.aabb[:3])).astype(np.float32)
+    far = Mesh(obstacle.vertices + off, obstacle.triangles, "obstacle+1e3ext")
+    far_confs = confs[:32].copy()
+    far_confs[:, 0:3] += off
+    sweep_soundness(f"moved by {off.tolist()}", ClearanceEngine(rob4.vertices, far, device=device),
+                    rob4.vertices, far, far_confs)
+    sweep_soundness("16x obstacle, first 32", eng16, rob4.vertices, obstacle16, confs[:32])
+
+
+def time_dispatch(name, eng, rows, ids, slack, plan, card) -> dict:
+    """Phase 9 (c) for one 1,024-vertex-block dispatch: the culled and the
+    nocull kernel and the twin by CUDA events, beside the full-scan bound
+    (every distance, by region) and the culled-work bound (`cull_plan`'s
+    distances and culling work)."""
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.planner.clearance import BLOCK
+    from robocheck_tpu_torch.profiling import bounds
+    from robocheck_tpu_torch.profiling.timers import event_ms
+
+    k = len(rows)
+    ms = event_ms(lambda: kc.pair_min_cuda(rows, ids, eng._blocks, eng._tab, eng._groups, slack),
+                  10)
+    ms_nocull = event_ms(lambda: kc.pair_min_cuda(rows, ids, eng._blocks, eng._tab), 10)
+    plain = event_ms(lambda: kc.pair_min_reference(rows, ids, eng._blocks, eng._tris), 1)
+    read = len(set(ids.tolist()))
+    full = kc.region_counts(rows, ids, eng._blocks, eng._tris).cpu().numpy()
+    part = kc.region_counts(rows, ids, eng._blocks, eng._tris, plan, eng._groups.size)
+    part = part.cpu().numpy()
+    b_full, by_full = bounds.bound_ms(*bounds.clearance_work(
+        k, BLOCK, eng.num_triangles, read, full))
+    b_cull, by_cull = bounds.bound_ms(*bounds.clearance_work(
+        k, BLOCK, eng.num_triangles, read, part, plan.cpu().numpy()))
+    share = ", ".join(f"{r} {n / full.sum()}" for r, n in zip(kc.REGIONS, full))
+    print(f"  (c) {name}: {int(full.sum())} distances in full ({share}); the culled kernel "
+          f"takes {int(part.sum())} ({part.sum() / full.sum()})")
+    print(f"  (c) [{card}] {name}, {k} pairs: culled {ms} ms, nocull {ms_nocull} ms "
+          f"({ms_nocull / ms}x), twin {plain} ms; culled-work bound {b_cull} ms by {by_cull} "
+          f"({100 * b_cull / ms}% of culled); full-scan bound {b_full} ms by {by_full} "
+          f"({100 * b_full / ms}% of culled, {100 * b_full / ms_nocull}% of nocull)")
+    return {"ms": ms, "ms_nocull": ms_nocull, "plain_ms": plain, "bound_ms": b_cull,
+            "bound_by": by_cull, "bound_full_ms": b_full}
+
+
+def phase9_times(obstacle, rob4, eng, confs, card, device) -> dict:
+    """Phase 9 (c): the old and the survivor dispatch, the representatives'
+    dispatch culled and nocull, and `min_distances` end to end. Returns the
+    kernel-table entry (survivor dispatch; launches filled in by the
+    caller)."""
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.planner.clearance import PAIR_CHUNK
+    from robocheck_tpu_torch.profiling.timers import benchmark, event_ms
+
+    nb = eng.num_blocks
+    rows = kc.pose_rows(torch.from_numpy(confs[:16]).to(device)).repeat_interleave(nb, 0)
+    ids = torch.arange(nb, dtype=torch.int32, device=device).repeat(16)
+    slack = 2 * eng.err_bound(confs)
+    sl = slice(0, PAIR_CHUNK)
+    plan = kc.cull_plan(rows[sl], ids[sl], eng._blocks, eng._tris, eng._groups, slack)
+    time_dispatch("old dispatch (16 queries x 131 blocks, first 1,024)", eng, rows[sl], ids[sl],
+                  slack, plan, card)
+    s_rows, s_ids, s_slack = survivor_dispatch(eng, confs, PAIR_CHUNK, device)
+    plan = kc.cull_plan(s_rows, s_ids, eng._blocks, eng._tris, eng._groups, s_slack)
+    entry = time_dispatch("survivor dispatch (min_distances' first launch)", eng, s_rows, s_ids,
+                          s_slack, plan, card)
+    # The representatives as the engine launches them: per-thread culling
+    # against the nocull instance it runs.
+    all_rows = kc.pose_rows(torch.from_numpy(confs).to(device)).repeat_interleave(nb, 0)
+    all_ids = torch.arange(nb, dtype=torch.int32, device=device).repeat(len(confs))
+    r_cull = event_ms(lambda: kc.pair_min_cuda(all_rows, all_ids, eng._reps, eng._tab,
+                                               eng._groups, slack), 10)
+    r_nocull = event_ms(lambda: kc.pair_min_cuda(all_rows, all_ids, eng._reps, eng._tab), 10)
+    print(f"  (c) [{card}] representatives, {len(all_rows)} 1-vertex pairs: nocull {r_nocull} "
+          f"ms (the engine's), per-thread culled {r_cull} ms")
+    for key in eng.stats:
+        eng.stats[key] = 0 if isinstance(eng.stats[key], int) else 0.0
     best = benchmark(eng.min_distances, confs, runs=3)
-    calls = eng.stats["calls"]
-    per = {k: eng.stats[k] / calls for k in ("pairs", "bounds_s", "exact_s")}
+    per = {key: eng.stats[key] / eng.stats["calls"]
+           for key in ("pairs", "bounds_s", "exact_s", "exact_kernel_s", "rep_kernel_s")}
+    t0 = time.perf_counter()
+    native_min_distances(rob4.vertices, obstacle, confs[:32])
+    native_s = time.perf_counter() - t0
     print(f"  (c) [{card}] min_distances: {len(confs) / best} configurations/s (best of 3, "
-          f"warm, host clock after synchronize; {best} s), {per['pairs']} pairs, bounds_s "
-          f"{per['bounds_s']}, exact_s {per['exact_s']} per call")
+          f"warm, host clock after synchronize; {best} s); per call {per}")
     print(f"  (c) native BVH on the first 32 queries: {native_s} s, {32 / native_s} "
           f"configurations/s; clearance_vs_native {(len(confs) / best) / (32 / native_s)}")
-    sl = slice(0, PAIR_CHUNK)
-    k_ms = event_ms(lambda: kc.pair_min_cuda(rows[sl], ids[sl], eng._blocks, eng._tris), 10)
-    p_ms = event_ms(lambda: kc.pair_min_reference(rows[sl], ids[sl], eng._blocks, eng._tris), 1)
-    # The bound of the timed dispatch: its distances counted by the region
-    # each ends in (the work the kernel's early exits leave).
-    regions = kc.region_counts(rows[sl], ids[sl], eng._blocks, eng._tris).cpu().numpy()
-    b_ms, b_by = bounds.bound_ms(*bounds.clearance_work(
-        PAIR_CHUNK, 1024, eng.num_triangles, len(set(ids[sl].tolist())), regions))
-    share = ", ".join(f"{r} {n / regions.sum()}" for r, n in zip(kc.REGIONS, regions))
-    print(f"  (c) timed dispatch's distances by region ({int(regions.sum())}): {share}")
-    print(f"  (c) [{card}] scan kernel, one {PAIR_CHUNK}-pair dispatch of 1,024-vertex blocks: "
-          f"{k_ms} ms (bound {b_ms} ms by {b_by}, {100 * b_ms / k_ms}%); twin {p_ms} ms")
     return {"name": "clearance_pair_min", "route": "cuda", "source": CLEARANCE_SOURCE,
-            "replaces": CLEARANCE_REPLACES, "launches": 0, "max_abs_err": max(diffs.values()),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "replaces": CLEARANCE_REPLACES, "launches": 0, "max_abs_err": 0.0,
+            **entry, "library_ms": None, "dispatch": "survivors"}
+
+
+def nocull_engine(eng):
+    """``eng`` with its exact phase on the nocull instance: the scan before
+    culling, timed end to end beside the engine."""
+    from robocheck_tpu_torch.planner.clearance import ClearanceEngine
+
+    class NocullEngine(ClearanceEngine):
+        def _scan(self, phase, rows, ids, table, slack=None):
+            return super()._scan(phase, rows, ids, table)
+
+    out = NocullEngine.__new__(NocullEngine)
+    out.__dict__.update(eng.__dict__, stats=dict(eng.stats), _events=[])
+    return out
+
+
+def phase9_scaling(eng, eng16, confs, card) -> None:
+    """Phase 9 (f): `min_distances` on the 1x and the 16x obstacle, culled
+    and nocull, best of 3 calls on the 256 queries; the exact phase's 16x /
+    1x ratio beside the JAX package's 14x on a TPU (DESIGN.md:455-462) and
+    the 3x target (VERDICT.md, next #1)."""
+    from robocheck_tpu_torch.profiling.timers import benchmark
+
+    res = {}
+    for name, culled in (("1x", eng), ("16x", eng16)):
+        for cull in (True, False):
+            e = culled if cull else nocull_engine(culled)
+            for key in e.stats:
+                e.stats[key] = 0 if isinstance(e.stats[key], int) else 0.0
+            best = benchmark(e.min_distances, confs, runs=3)
+            calls = e.stats["calls"]
+            res[name, cull] = {"configs_per_s": len(confs) / best,
+                               "exact_s": e.stats["exact_s"] / calls,
+                               "exact_kernel_s": e.stats["exact_kernel_s"] / calls,
+                               "pairs": e.stats["pairs"] / calls}
+            print(f"  (f) [{card}] {name} obstacle ({e.num_triangles} triangles), "
+                  f"{'culled' if cull else 'nocull'}: {json.dumps(res[name, cull])}")
+    for cull in (True, False):
+        a, b = res["1x", cull], res["16x", cull]
+        print(f"  (f) {'culled' if cull else 'nocull'}: 16x / 1x exact_s "
+              f"{b['exact_s'] / a['exact_s']}, exact_kernel_s "
+              f"{b['exact_kernel_s'] / a['exact_kernel_s']}, configurations/s "
+              f"{a['configs_per_s'] / b['configs_per_s']}x fewer (JAX on a TPU: 14x; target "
+              f"<= 3x)")
+
+
+def phase9_engine(robot, obstacle, card: str, device) -> dict:
+    """Phase 9 (a)-(c) and (f) on bench.py's clearance scene and its 16x
+    obstacle. Returns the scan kernel's table entry (launches filled in by
+    the caller)."""
+    from robocheck_tpu_torch.kernels import _build
+    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
+    from robocheck_tpu_torch.planner.clearance import ClearanceEngine
+
+    rob4 = subdivide_mesh(robot, 4)
+    eng = ClearanceEngine(rob4.vertices, obstacle, device="cuda")
+    obstacle16 = subdivide_mesh(obstacle, 2)
+    eng16 = ClearanceEngine(rob4.vertices, obstacle16, device="cuda")
+    print(f"[9] clearance engine on bench.py's scene: refine-4 alpha robot, "
+          f"{eng.num_vertices} vertices, {eng.num_blocks} blocks, {eng.num_triangles} "
+          f"obstacle triangles in {eng.num_groups} groups ({int(eng._groups.always.sum())} "
+          f"always scanned); engine built in {eng.stats['construct_s']} s; 16x obstacle "
+          f"{eng16.num_triangles} triangles in {eng16.num_groups} groups "
+          f"({int(eng16._groups.always.sum())} always scanned)")
+    require((eng.num_vertices, eng.num_blocks) == (133902, 131), "not bench.py's robot")
+    require(eng16.num_triangles == 16 * eng.num_triangles, "not the 16x obstacle")
+    spills = [ln.strip() for ln in _build.build()["clearance"][1].splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    require(not spills, f"the scan kernel spills registers: {spills}")
+    lib = _build.library("clearance")
+    for name, e in (("1x", eng), ("16x", eng16)):
+        smem = lib.rc_clearance_smem_bytes(e.num_triangles)
+        print(f"  {name} obstacle: the table {'staged in' if smem else 'read through the L2 by'} "
+              f"the scanning blocks ({smem} bytes of dynamic shared memory)")
+    confs = clearance_queries(obstacle)
+    err = phase9_kernel(eng, eng16, confs, device)
+    phase9_soundness(robot, obstacle, rob4, eng, eng16, obstacle16, confs, device)
+    entry = phase9_times(obstacle, rob4, eng, confs, card, device)
+    phase9_scaling(eng, eng16, confs, card)
+    entry["max_abs_err"] = err
+    return entry
 
 
 def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
@@ -476,8 +718,13 @@ def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
         print(f"  (d) [{card}] {json.dumps(rec)}")
         require(rec["certified"] and not rec["collision"] and rec["uncertified_steps"] == 0,
                 f"(d) the {rec['leg']} leg is not certified with 0 uncertified steps")
-        print(f"  (d) {rec['leg']} leg: {rec['num_checks']} checks (JAX package: "
-              f"{rec['reference_num_checks']}), {rec['wall_s']} s")
+        stats = rec["engine_stats"]
+        print(f"  (d) {rec['leg']} leg: {rec['num_checks']} checks (must be "
+              f"{CERTIFY_CHECKS[rec['leg']]}; JAX package: {rec['reference_num_checks']}), "
+              f"{rec['wall_s']} s; exact_kernel_s {stats['exact_kernel_s']}, rep_kernel_s "
+              f"{stats['rep_kernel_s']}, exact_s {stats['exact_s']}, pairs {stats['pairs']}")
+        require(rec["num_checks"] == CERTIFY_CHECKS[rec["leg"]],
+                f"(d) the {rec['leg']} leg took {rec['num_checks']} checks")
     print(f"  (d) launches in the legs' run: K1 {k1}, scan kernel {scans}")
     require(k1 > 0 and scans > 0, "(d) the legs did not launch both kernels")
 

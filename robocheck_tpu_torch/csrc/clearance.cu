@@ -18,20 +18,65 @@
 //   ids    [k] int32 block of each pair; an id outside [0, nb) gives NaN
 //   blocks [nb, block, 3] body-frame vertices (a short last block is padded
 //                     with copies of a real vertex by the caller)
-//   tris   [nt, 9]   obstacle triangles, corners a, b, c; no padding
+//   tab    [nt, 18]  obstacle triangles: corners a, b, c, then the edges
+//                     b - a, c - a, c - b (`kernels/clearance.tri_table`, the
+//                     twin's float32 differences); no padding
 //   out    [k]
+// and, for the culled instance (`gbox` not null):
+//   gbox   [ng, 6]   conservative boxes (lo xyz, hi xyz) of the triangle
+//                     groups [g * gsize, (g + 1) * gsize)
+//   always [ng] uint8 groups that are scanned whatever their box says (a
+//                     thin or non-finite triangle can give NaN)
+//   slack  the engine's 2 x err_bound
+//   visits [k] int32 or null: each pair's count of (vertex unit, group)
+//                     scans is added to it
+//   tasks  room for k x units x ng int2, and `scratch`: work space
 //
-// Bound: operations. A 1,024-pair dispatch on the alpha-1.0 obstacle is
-// ~1.06e9 vertex-triangle distances of 21 to 79 operations each, by the
-// region the closest point lies in (`profiling/bounds.py`), against ~12 KB
-// of block vertices per pair. The design keeps the arithmetic fed: each thread holds
-// kVpt posed vertices in registers, the block stages kTile obstacle
-// triangles at a time in shared memory (corners and edges, computed once per
-// triangle) that every warp reads as broadcasts, the running min stays in
-// registers, and a warp shuffle plus one shared-memory step reduce it per
-// pair. A pair takes
-// `lanes` threads (a power of two, up to kThreads), so a 1,024-vertex block
-// fills a thread block and 1-vertex blocks run kThreads pairs per block.
+// Bound: operations. A 1,024-pair dispatch of the alpha-1.0 scene is ~1.06e9
+// vertex-triangle distances of 21 to 79 operations (`profiling/bounds.py`),
+// 91% of them ending in a vertex region: most obstacle groups are far from
+// most of a block. The culled instance does less of that work instead of
+// doing it faster:
+//
+//   * Exact culling inside a pair. The block's vertices are cut into units
+//     of `unit = s * kVpt` Morton-contiguous vertices, one unit per team (the
+//     pair's lanes inside one warp, s = min(lanes, 32)); each team builds the
+//     box of its own posed vertices with shuffles (no inflation: the
+//     distances are taken from the same floats). Pass 1: g0, the group
+//     nearest the pair's box (ties to the lowest index), is scanned by every
+//     vertex, and m0 is the pair's squared minimum over it. Pass 2: each unit
+//     scans every other group that is `always` or whose box distance to the
+//     unit's box is not above sqrt(m0) + slack (a NaN means scan). A skipped
+//     triangle's distance exceeds sqrt(m0) by more than the rounding that
+//     `err_bound` covers, so the min, an exact operation, is the full
+//     scan's, bit for bit. The rule reads the inputs only, so
+//     `kernels/clearance.cull_plan` reproduces every (pair, unit, group)
+//     scan on the host.
+//   * Pass 2 spread over the whole card. A pair near the obstacle keeps most
+//     of its 8 x 32 (unit, group) scans, a far one a few: run by the pair's
+//     own block, the near pairs alone would set a dispatch's time. So the
+//     culled instance is three launches: `plan_kernel` (a block per pair:
+//     box, g0, pass 1, the cull tests) appends each kept (pair, unit, group)
+//     scan to a task list; `task_kernel` (persistent, a warp per task from a
+//     counter) runs them, meeting in each pair's minimum by an atomic min on
+//     the float's bits (exact for non-negative floats; a NaN sets the pair's
+//     flag); `finish_kernel` takes the sqrt.
+//   * The obstacle table staged once per resident block of `task_kernel` and
+//     of the nocull instance (which scans every triangle per pair): a
+//     persistent grid copies it into dynamic shared memory with cp.async
+//     before its first item. Where it would leave fewer than two resident
+//     blocks per SM (above ~1,600 triangles) it is read through the L2
+//     (__ldg) instead.
+//   * Lazy arithmetic: d1 and d2 decide vertex a before bp, d3 and d4 are
+//     formed, and so on in the twin's priority (a, b, c, ab, ac, bc, face).
+//     A warp's vertices are Morton neighbours, so its lanes mostly end in
+//     the same region of a far triangle and the early returns seldom
+//     diverge.
+//
+// A pair takes `lanes` threads of a block (a power of two, up to kThreads,
+// kVpt vertices each), so a 1,024-vertex block fills a thread block (eight
+// units of 128) and 1-vertex blocks (the representatives) run kThreads
+// pairs a block, each thread its own team.
 //
 // Arithmetic: built with -fmad=false and no fast math, so every multiply
 // and add rounds on its own, divides and the sqrt are IEEE, as in the twin.
@@ -45,12 +90,15 @@
 namespace {
 
 constexpr int kThreads = 256;  // threads per block
+constexpr int kWarps = kThreads / 32;
 constexpr int kVpt = 4;        // vertices a thread holds at once
-constexpr int kTile = 128;     // obstacle triangles staged per step
+constexpr int kTabFloats = 18;
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float f32_nan() { return __int_as_float(0x7fc00000); }
 
+// One row of the table, in its column order.
 struct Tri {
   float ax, ay, az, bx, by, bz, cx, cy, cz;
   float abx, aby, abz, acx, acy, acz, bcx, bcy, bcz;
@@ -66,134 +114,429 @@ __device__ __forceinline__ float min_nan(float x, float m) {
   return (x < m || x != x) ? x : m;
 }
 
+// The twin's cascade of selects, earliest first: vertex a, b, c, then edge
+// ab, ac, bc, then the face; each value is formed only once the tests
+// before it have failed. Where the closest point is a corner the twin's
+// p - q is the same difference as ap, bp or cp.
 __device__ __forceinline__ float point_tri_d2(float px, float py, float pz,
                                               const Tri& t) {
   const float apx = px - t.ax, apy = py - t.ay, apz = pz - t.az;
   const float d1 = dot3(t.abx, t.aby, t.abz, apx, apy, apz);
   const float d2 = dot3(t.acx, t.acy, t.acz, apx, apy, apz);
+  if (d1 <= 0.f && d2 <= 0.f) return dot3(apx, apy, apz, apx, apy, apz);
   const float bpx = px - t.bx, bpy = py - t.by, bpz = pz - t.bz;
   const float d3 = dot3(t.abx, t.aby, t.abz, bpx, bpy, bpz);
   const float d4 = dot3(t.acx, t.acy, t.acz, bpx, bpy, bpz);
+  if (d3 >= 0.f && d4 <= d3) return dot3(bpx, bpy, bpz, bpx, bpy, bpz);
   const float cpx = px - t.cx, cpy = py - t.cy, cpz = pz - t.cz;
   const float d5 = dot3(t.abx, t.aby, t.abz, cpx, cpy, cpz);
   const float d6 = dot3(t.acx, t.acy, t.acz, cpx, cpy, cpz);
+  if (d6 >= 0.f && d5 <= d6) return dot3(cpx, cpy, cpz, cpx, cpy, cpz);
   float qx, qy, qz;
-  // The twin's cascade of selects, latest first: vertex a, b, c, then edge
-  // ab, ac, bc, then the face.
-  if (d1 <= 0.f && d2 <= 0.f) {
-    qx = t.ax; qy = t.ay; qz = t.az;
-  } else if (d3 >= 0.f && d4 <= d3) {
-    qx = t.bx; qy = t.by; qz = t.bz;
-  } else if (d6 >= 0.f && d5 <= d6) {
-    qx = t.cx; qy = t.cy; qz = t.cz;
+  const float vc = d1 * d4 - d3 * d2;
+  if (vc <= 0.f && d1 >= 0.f && d3 <= 0.f) {
+    const float v = d1 / (d1 - d3);
+    qx = t.ax + v * t.abx; qy = t.ay + v * t.aby; qz = t.az + v * t.abz;
   } else {
-    const float vc = d1 * d4 - d3 * d2;
     const float vb = d5 * d2 - d1 * d6;
-    const float va = d3 * d6 - d5 * d4;
-    if (vc <= 0.f && d1 >= 0.f && d3 <= 0.f) {
-      const float v = d1 / (d1 - d3);
-      qx = t.ax + v * t.abx; qy = t.ay + v * t.aby; qz = t.az + v * t.abz;
-    } else if (vb <= 0.f && d2 >= 0.f && d6 <= 0.f) {
+    if (vb <= 0.f && d2 >= 0.f && d6 <= 0.f) {
       const float v = d2 / (d2 - d6);
       qx = t.ax + v * t.acx; qy = t.ay + v * t.acy; qz = t.az + v * t.acz;
-    } else if (va <= 0.f && d4 - d3 >= 0.f && d5 - d6 >= 0.f) {
-      const float w = (d4 - d3) / ((d4 - d3) + (d5 - d6));
-      qx = t.bx + w * t.bcx; qy = t.by + w * t.bcy; qz = t.bz + w * t.bcz;
     } else {
-      const float denom = (va + vb) + vc;
-      const float v = vb / denom, w = vc / denom;
-      qx = (t.ax + v * t.abx) + w * t.acx;
-      qy = (t.ay + v * t.aby) + w * t.acy;
-      qz = (t.az + v * t.abz) + w * t.acz;
+      const float va = d3 * d6 - d5 * d4;
+      if (va <= 0.f && d4 - d3 >= 0.f && d5 - d6 >= 0.f) {
+        const float w = (d4 - d3) / ((d4 - d3) + (d5 - d6));
+        qx = t.bx + w * t.bcx; qy = t.by + w * t.bcy; qz = t.bz + w * t.bcz;
+      } else {
+        const float denom = (va + vb) + vc;
+        const float v = vb / denom, w = vc / denom;
+        qx = (t.ax + v * t.abx) + w * t.acx;
+        qy = (t.ay + v * t.aby) + w * t.acy;
+        qz = (t.az + v * t.abz) + w * t.acz;
+      }
     }
   }
   const float dx = px - qx, dy = py - qy, dz = pz - qz;
   return dot3(dx, dy, dz, dx, dy, dz);
 }
 
-__global__ void __launch_bounds__(kThreads)
-pair_min_kernel(const float* __restrict__ rows, const int32_t* __restrict__ ids,
-                int64_t k, const float* __restrict__ blocks, int nb, int block,
-                const float* __restrict__ tris, int nt, int lanes,
-                float* __restrict__ out) {
-  __shared__ Tri tile[kTile];
-  __shared__ float warp_min[kThreads / 32];
-  const int tid = threadIdx.x;
-  const int lane = tid % lanes;
-  const int64_t pair = (int64_t)blockIdx.x * (kThreads / lanes) + tid / lanes;
-  const bool active = pair < k;
+// Row t of the table, from shared memory (kSmem) or through the read-only
+// cache; rows are 72 bytes, so 8-byte loads.
+template <bool kSmem>
+__device__ __forceinline__ Tri load_tri(const float* tab, int t) {
+  const float2* s = reinterpret_cast<const float2*>(tab + size_t(t) * kTabFloats);
+  float2 v[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) v[i] = kSmem ? s[i] : __ldg(s + i);
+  Tri r;
+  r.ax = v[0].x; r.ay = v[0].y; r.az = v[1].x; r.bx = v[1].y; r.by = v[2].x; r.bz = v[2].y;
+  r.cx = v[3].x; r.cy = v[3].y; r.cz = v[4].x; r.abx = v[4].y; r.aby = v[5].x;
+  r.abz = v[5].y; r.acx = v[6].x; r.acy = v[6].y; r.acz = v[7].x; r.bcx = v[7].y;
+  r.bcy = v[8].x; r.bcz = v[8].y;
+  return r;
+}
+
+// The distance's gap term: x where x > 0, else 0 (a NaN gives 0).
+__device__ __forceinline__ float gap(float x) { return x > 0.f ? x : 0.f; }
+
+// Squared distance between the box [lo, hi] and group box g (lo xyz, hi
+// xyz), as `kernels/clearance._box_d2` computes it; never NaN.
+__device__ __forceinline__ float box_d2(const float lo[3], const float hi[3],
+                                        const float* g) {
+  const float gx = gap(g[0] - hi[0]) + gap(lo[0] - g[3]);
+  const float gy = gap(g[1] - hi[1]) + gap(lo[1] - g[4]);
+  const float gz = gap(g[2] - hi[2]) + gap(lo[2] - g[5]);
+  return (gx * gx + gy * gy) + gz * gz;
+}
+
+// Reductions over a team of s lanes (a power of two, aligned in the warp);
+// every lane of the warp calls them.
+__device__ __forceinline__ float team_min_nan(float x, int s) {
+  for (int o = s / 2; o > 0; o >>= 1) x = min_nan(__shfl_xor_sync(kAll, x, o), x);
+  return x;
+}
+
+__device__ __forceinline__ void team_box(float lo[3], float hi[3], int s) {
+  for (int o = s / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = fminf(lo[c], __shfl_xor_sync(kAll, lo[c], o));
+      hi[c] = fmaxf(hi[c], __shfl_xor_sync(kAll, hi[c], o));
+    }
+  }
+}
+
+struct Args {
+  const float* rows;
+  const int32_t* ids;
+  int k;
+  const float* blocks;
+  int nb, block;
+  const float* tab;
+  int nt;
+  float* out;
+  int lanes;
+  int items;  // work items of kThreads / lanes pairs each
+  // scratch: [0] the item counter, and for the culled instance [1] the
+  // tasks appended, [2] the task counter, then from [4] each pair's minimum
+  // (float bits) [k] and NaN flag [k].
+  int* scratch;
+  // The culled instance's.
+  const float* gbox;
+  const uint8_t* always;
+  int ng, gsize;
+  float slack;
+  int32_t* visits;
+  int2* tasks;  // {pair, unit << 16 | group}
+};
+
+__device__ __forceinline__ unsigned* pair_min_bits(const Args& a) {
+  return reinterpret_cast<unsigned*>(a.scratch + 4);
+}
+__device__ __forceinline__ int* pair_nan(const Args& a) { return a.scratch + 4 + a.k; }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// Copy the table (nt rows of 72 bytes, 16-byte aligned) into shared `dst`
+// with cp.async and wait for this thread's copies; the caller's
+// __syncthreads publishes them.
+__device__ __forceinline__ void stage_table(float* dst, const float* src, int nt, int tid) {
+  char* d = reinterpret_cast<char*>(dst);
+  const char* s = reinterpret_cast<const char*>(src);
+  const size_t bytes = size_t(nt) * 72, n16 = bytes / 16;
+  for (size_t i = tid; i < n16; i += kThreads) cp_async16(d + 16 * i, s + 16 * i);
+  for (size_t i = 4 * n16 + tid; i < bytes / 4; i += kThreads) cp_async4(d + 4 * i, s + 4 * i);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// R v + t in the twin's order.
+__device__ __forceinline__ void pose(const float r[12], const float* v, float& x, float& y,
+                                     float& z) {
+  const float vx = v[0], vy = v[1], vz = v[2];
+  x = ((r[0] * vx + r[1] * vy) + r[2] * vz) + r[9];
+  y = ((r[3] * vx + r[4] * vy) + r[5] * vz) + r[10];
+  z = ((r[6] * vx + r[7] * vy) + r[8] * vz) + r[11];
+}
+
+// This thread's kVpt posed vertices of the run starting at vertex u0, the
+// thread being lane tl of s: vertices u0 + j * s + tl below `end`; `on`
+// where a vertex is posed.
+__device__ __forceinline__ void pose_run(const float r[12], const float* verts, int u0, int s,
+                                         int tl, int end, bool live, float px[kVpt],
+                                         float py[kVpt], float pz[kVpt], bool on[kVpt]) {
+#pragma unroll
+  for (int j = 0; j < kVpt; ++j) {
+    const int v = u0 + j * s + tl;
+    on[j] = live && v < end;
+    px[j] = py[j] = pz[j] = 0.f;
+    if (on[j]) pose(r, verts + 3 * v, px[j], py[j], pz[j]);
+  }
+}
+
+// The running minimum `m` over this thread's vertices and triangles [t0, t1).
+template <bool kSmem>
+__device__ __forceinline__ void scan(const float* tab, int t0, int t1, const float px[kVpt],
+                                     const float py[kVpt], const float pz[kVpt],
+                                     const bool on[kVpt], float& m) {
+  for (int t = t0; t < t1; ++t) {
+    const Tri T = load_tri<kSmem>(tab, t);
+#pragma unroll
+    for (int j = 0; j < kVpt; ++j)
+      if (on[j]) m = min_nan(point_tri_d2(px[j], py[j], pz[j], T), m);
+  }
+}
+
+// The pair that this thread serves in work item `item`, its pose row and
+// vertices: whether it is a pair of the launch (`active`) with a block
+// (`live`).
+struct Pair {
+  int index;
+  bool active, live;
   float r[12];
+  const float* verts;
+};
+
+__device__ __forceinline__ Pair load_pair(const Args& a, int item, int tid) {
+  Pair p;
+  p.index = item * (kThreads / a.lanes) + tid / a.lanes;
+  p.active = p.index < a.k;
   bool bad = true;
   int64_t base = 0;
 #pragma unroll
-  for (int j = 0; j < 12; ++j) r[j] = 0.f;
-  if (active) {
+  for (int j = 0; j < 12; ++j) p.r[j] = 0.f;
+  if (p.active) {
 #pragma unroll
-    for (int j = 0; j < 12; ++j) r[j] = rows[pair * 12 + j];
-    const int32_t b = ids[pair];
-    bad = b < 0 || b >= nb;
-    base = bad ? 0 : (int64_t)b * block * 3;
+    for (int j = 0; j < 12; ++j) p.r[j] = __ldg(a.rows + int64_t(p.index) * 12 + j);
+    const int32_t b = __ldg(a.ids + p.index);
+    bad = b < 0 || b >= a.nb;
+    base = bad ? 0 : int64_t(b) * a.block * 3;
   }
-  float m = f32_inf();
-  // The trip counts depend on `block` and `nt` only, the same for every
-  // thread of the block, so every thread reaches each __syncthreads.
-  for (int v0 = 0; v0 < block; v0 += lanes * kVpt) {
-    float px[kVpt], py[kVpt], pz[kVpt], mv[kVpt];
+  p.live = p.active && !bad;
+  p.verts = a.blocks + base;
+  return p;
+}
+
+// The next work item of the block from the launch's counter, double-buffered
+// in `slot` so that a fast thread 0 cannot overwrite the item a slow thread
+// has yet to read. Every thread of the block calls it.
+__device__ __forceinline__ int next_item(int* counter, int slot[2], int it, int tid) {
+  if (tid == 0) slot[it & 1] = atomicAdd(counter, 1);
+  __syncthreads();
+  return slot[it & 1];
+}
+
+// The min over a pair's lanes of `m`, on every one of them: its team's
+// shuffles, then (lanes > 32) its warps through `part`. Every thread of the
+// block calls it.
+__device__ __forceinline__ float pair_min(float m, int lanes, int s, int warp, int lane,
+                                          int team, float* part) {
+  m = team_min_nan(m, s);
+  if (lanes > 32) {
+    if (lane == 0) part[warp] = m;
+    __syncthreads();
+    for (int w = warp - team; w < warp - team + lanes / 32; ++w) m = min_nan(part[w], m);
+  }
+  return m;
+}
+
+// ---- The nocull instance: a block takes kThreads / lanes pairs at a time
+// and scans every triangle for each. ----
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads, 3) nocull_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  __shared__ int s_item[2];
+  __shared__ float s_min[kWarps];
+  const float* tab = kStaged ? reinterpret_cast<const float*>(smem4) : a.tab;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lanes = a.lanes, s = lanes < 32 ? lanes : 32;
+  const int plane = tid % lanes, tl = lane % s, team = plane / s;
+  if (kStaged) stage_table(reinterpret_cast<float*>(smem4), a.tab, a.nt, tid);
+  for (int it = 0;; ++it) {
+    const int item = next_item(a.scratch, s_item, it, tid);  // publishes the table too
+    if (item >= a.items) break;
+    const Pair p = load_pair(a, item, tid);
+    float m = f32_inf(), px[kVpt], py[kVpt], pz[kVpt];
     bool on[kVpt];
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j) {
-      const int v = v0 + lane + j * lanes;
-      on[j] = active && !bad && v < block;
-      px[j] = py[j] = pz[j] = 0.f;
-      mv[j] = f32_inf();
-      if (on[j]) {
-        const float* p = blocks + base + (int64_t)v * 3;
-        const float x = p[0], y = p[1], z = p[2];
-        px[j] = ((r[0] * x + r[1] * y) + r[2] * z) + r[9];
-        py[j] = ((r[3] * x + r[4] * y) + r[5] * z) + r[10];
-        pz[j] = ((r[6] * x + r[7] * y) + r[8] * z) + r[11];
-      }
+    for (int v0 = team * s * kVpt; v0 < a.block; v0 += lanes * kVpt) {
+      pose_run(p.r, p.verts, v0, s, tl, a.block, p.live, px, py, pz, on);
+      scan<kStaged>(tab, 0, a.nt, px, py, pz, on, m);
     }
-    for (int t0 = 0; t0 < nt; t0 += kTile) {
-      const int n = min(kTile, nt - t0);
-      __syncthreads();
-      for (int i = tid; i < n; i += kThreads) {
-        const float* s = tris + (int64_t)(t0 + i) * 9;
-        Tri t;
-        t.ax = s[0]; t.ay = s[1]; t.az = s[2];
-        t.bx = s[3]; t.by = s[4]; t.bz = s[5];
-        t.cx = s[6]; t.cy = s[7]; t.cz = s[8];
-        t.abx = t.bx - t.ax; t.aby = t.by - t.ay; t.abz = t.bz - t.az;
-        t.acx = t.cx - t.ax; t.acy = t.cy - t.ay; t.acz = t.cz - t.az;
-        t.bcx = t.cx - t.bx; t.bcy = t.cy - t.by; t.bcz = t.cz - t.bz;
-        tile[i] = t;
-      }
-      __syncthreads();
-      for (int i = 0; i < n; ++i) {
+    m = pair_min(m, lanes, s, warp, lane, team, s_min);
+    if (p.active && plane == 0) a.out[p.index] = p.live ? sqrtf(m) : f32_nan();
+  }
+}
+
+// ---- Culled, launch 1 of 3: per pair its box, g0, pass 1 and the cull
+// tests; each kept (pair, unit, group) scan is appended to `tasks`, and m0
+// starts the pair's minimum. Group boxes and flags in dynamic shared
+// memory; g0's triangles read through the L2. ----
+__global__ void __launch_bounds__(kThreads, 3) plan_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  __shared__ int s_item[2];
+  __shared__ float s_box[kWarps][6], s_m0[kWarps];
+  float* gbox = reinterpret_cast<float*>(smem4);
+  uint8_t* always = reinterpret_cast<uint8_t*>(gbox + 6 * a.ng);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lanes = a.lanes, s = lanes < 32 ? lanes : 32;
+  const int plane = tid % lanes, tl = lane % s, team = plane / s, unit = s * kVpt;
+  const unsigned below = (1u << lane) - 1u;  // the warp's lanes before this one
+  for (int i = tid; i < 6 * a.ng; i += kThreads) gbox[i] = a.gbox[i];
+  for (int i = tid; i < a.ng; i += kThreads) always[i] = a.always[i];
+
+  for (int it = 0;; ++it) {
+    const int item = next_item(a.scratch, s_item, it, tid);  // publishes the groups too
+    if (item >= a.items) break;
+    const Pair p = load_pair(a, item, tid);
+    float px[kVpt], py[kVpt], pz[kVpt];
+    bool on[kVpt];
+
+    // The pair's box and g0.
+    float lo[3] = {f32_inf(), f32_inf(), f32_inf()};
+    float hi[3] = {-f32_inf(), -f32_inf(), -f32_inf()};
+    for (int v0 = team * unit; v0 < a.block; v0 += lanes * kVpt) {
+      pose_run(p.r, p.verts, v0, s, tl, a.block, p.live, px, py, pz, on);
 #pragma unroll
-        for (int j = 0; j < kVpt; ++j) {
-          if (on[j]) mv[j] = min_nan(point_tri_d2(px[j], py[j], pz[j], tile[i]), mv[j]);
+      for (int j = 0; j < kVpt; ++j) {
+        if (on[j]) {
+          lo[0] = fminf(lo[0], px[j]); lo[1] = fminf(lo[1], py[j]); lo[2] = fminf(lo[2], pz[j]);
+          hi[0] = fmaxf(hi[0], px[j]); hi[1] = fmaxf(hi[1], py[j]); hi[2] = fmaxf(hi[2], pz[j]);
         }
       }
     }
+    team_box(lo, hi, s);
+    if (lanes > 32) {
+      if (lane == 0) {
 #pragma unroll
-    for (int j = 0; j < kVpt; ++j) m = min_nan(mv[j], m);
-  }
-  // The pair's min over its lanes: a shuffle inside each warp (lanes is a
-  // power of two, so a pair's lanes never straddle another pair's), then
-  // across the pair's warps through shared memory.
-  const int span = lanes < 32 ? lanes : 32;
-  for (int off = span / 2; off > 0; off >>= 1) {
-    m = min_nan(__shfl_xor_sync(0xffffffffu, m, off), m);
-  }
-  if (lanes > 32) {
-    if ((tid & 31) == 0) warp_min[tid >> 5] = m;
-    __syncthreads();
-    if (lane == 0) {
-      for (int w = 1; w < lanes / 32; ++w) m = min_nan(warp_min[(tid >> 5) + w], m);
+        for (int c = 0; c < 3; ++c) { s_box[warp][c] = lo[c]; s_box[warp][3 + c] = hi[c]; }
+      }
+      __syncthreads();
+      for (int w = warp - team; w < warp - team + lanes / 32; ++w) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          lo[c] = fminf(lo[c], s_box[w][c]);
+          hi[c] = fmaxf(hi[c], s_box[w][3 + c]);
+        }
+      }
+    }
+    // The team's lanes split the groups, then meet (ties to the lowest
+    // index); every team of a pair finds the same g0.
+    float best = f32_inf();
+    int g0 = a.ng;
+    for (int g = tl; g < a.ng; g += s) {
+      const float d = box_d2(lo, hi, gbox + 6 * g);
+      if (d < best || (d == best && g < g0)) { best = d; g0 = g; }
+    }
+    for (int o = s / 2; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(kAll, best, o);
+      const int og = __shfl_xor_sync(kAll, g0, o);
+      if (od < best || (od == best && og < g0)) { best = od; g0 = og; }
+    }
+
+    // Pass 1: every vertex against g0's triangles; m0 starts the pair's
+    // minimum.
+    float m = f32_inf();
+    const int t_lo = g0 * a.gsize, t_hi = min(a.nt, t_lo + a.gsize);
+    for (int v0 = team * unit; v0 < a.block; v0 += lanes * kVpt) {
+      pose_run(p.r, p.verts, v0, s, tl, a.block, p.live, px, py, pz, on);
+      scan<false>(a.tab, t_lo, t_hi, px, py, pz, on, m);
+    }
+    m = pair_min(m, lanes, s, warp, lane, team, s_m0);
+    if (p.live && plane == 0) {
+      pair_min_bits(a)[p.index] = __float_as_uint(m != m ? f32_inf() : m);
+      pair_nan(a)[p.index] = m != m;
+    }
+    const float thr = sqrtf(m) + a.slack;
+
+    // Pass 2's tests, unit by unit: the warp's kept (pair, unit, group)
+    // cells are appended together.
+    for (int v0 = team * unit; v0 < a.block; v0 += lanes * kVpt) {
+      pose_run(p.r, p.verts, v0, s, tl, a.block, p.live, px, py, pz, on);
+      float ulo[3] = {f32_inf(), f32_inf(), f32_inf()};
+      float uhi[3] = {-f32_inf(), -f32_inf(), -f32_inf()};
+#pragma unroll
+      for (int j = 0; j < kVpt; ++j) {
+        if (on[j]) {
+          ulo[0] = fminf(ulo[0], px[j]); ulo[1] = fminf(ulo[1], py[j]);
+          ulo[2] = fminf(ulo[2], pz[j]); uhi[0] = fmaxf(uhi[0], px[j]);
+          uhi[1] = fmaxf(uhi[1], py[j]); uhi[2] = fmaxf(uhi[2], pz[j]);
+        }
+      }
+      team_box(ulo, uhi, s);
+      const int u = v0 / unit;
+      int scans = 1;  // g0, in pass 1
+      for (int g_base = 0; g_base < a.ng; g_base += s) {
+        const int g = g_base + tl;
+        const bool want = p.live && g < a.ng && g != g0 &&
+                          (always[g] != 0 || !(sqrtf(box_d2(ulo, uhi, gbox + 6 * g)) > thr));
+        const unsigned bits = __ballot_sync(kAll, want);
+        scans += __popc(s < 32 ? (bits >> (lane - tl)) & ((1u << s) - 1u) : bits);
+        int at = 0;
+        if (lane == 0 && bits) at = atomicAdd(a.scratch + 1, __popc(bits));
+        at = __shfl_sync(kAll, at, 0);
+        if (want) a.tasks[at + __popc(bits & below)] = make_int2(p.index, (u << 16) | g);
+      }
+      if (a.visits != nullptr && p.live && tl == 0) atomicAdd(a.visits + p.index, scans);
     }
   }
-  if (active && lane == 0) out[pair] = bad ? f32_nan() : sqrtf(m);
+}
+
+// ---- Culled, launch 2 of 3: a warp per kept (pair, unit, group) scan,
+// taken from a counter (a scan near the obstacle costs more than a far
+// one); the warp's minimum goes into the pair's by an atomic min on the
+// float's bits (non-negative floats order as their bits), a NaN into the
+// pair's flag. ----
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads, 3) task_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  const float* tab = kStaged ? reinterpret_cast<const float*>(smem4) : a.tab;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int unit = (a.lanes < 32 ? a.lanes : 32) * kVpt;
+  if (kStaged) {
+    stage_table(reinterpret_cast<float*>(smem4), a.tab, a.nt, tid);
+    __syncthreads();
+  }
+  const int n = a.scratch[1];  // the tasks plan_kernel appended
+  for (;;) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(a.scratch + 2, 1);
+    t = __shfl_sync(kAll, t, 0);
+    if (t >= n) break;
+    const int2 task = a.tasks[t];
+    const int pair = task.x, u = task.y >> 16, g = task.y & 0xffff;
+    float r[12];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) r[j] = __ldg(a.rows + int64_t(pair) * 12 + j);
+    const float* verts = a.blocks + int64_t(__ldg(a.ids + pair)) * a.block * 3;
+    float px[kVpt], py[kVpt], pz[kVpt];
+    bool on[kVpt];
+    // Lane l holds vertices u * unit + l + 32 j of the unit.
+    pose_run(r, verts, u * unit, 32, lane, min(a.block, (u + 1) * unit), true, px, py, pz, on);
+    float m = f32_inf();
+    scan<kStaged>(tab, g * a.gsize, min(a.nt, (g + 1) * a.gsize), px, py, pz, on, m);
+    m = team_min_nan(m, 32);
+    if (lane == 0) {
+      if (m != m) pair_nan(a)[pair] = 1;
+      else atomicMin(pair_min_bits(a) + pair, __float_as_uint(m));
+    }
+  }
+}
+
+// ---- Culled, launch 3 of 3: each pair's answer. ----
+__global__ void finish_kernel(const Args a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.k) return;
+  const int32_t b = a.ids[i];
+  const bool nan = b < 0 || b >= a.nb || pair_nan(a)[i] != 0;
+  a.out[i] = nan ? f32_nan() : sqrtf(__uint_as_float(pair_min_bits(a)[i]));
 }
 
 // Threads per pair for blocks of `block` vertices: the least power of two
@@ -205,23 +548,101 @@ int lanes_for(int block) {
   return lanes;
 }
 
+// Whether the table is staged in a scanning block's shared memory: where at
+// least two such blocks stay resident per SM with it.
+bool staged_table(int nt, int optin) { return size_t(nt) * 72 <= size_t(optin) / 2; }
+
+// Launch `kernel` on as many blocks as stay resident, at most `items`.
+template <typename Kernel>
+cudaError_t launch_persistent(Kernel kernel, const Args& a, int items, size_t smem, int sms,
+                              cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t cap = int64_t(per_sm) * sms;
+  kernel<<<int(items < cap ? items : cap), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int device_limits(int* sms, int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return int(err);
+}
+
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = launched).
-extern "C" int rc_clearance_pair_min(const float* rows, const int32_t* ids,
-                                     int64_t k, const float* blocks, int nb,
-                                     int block, const float* tris, int nt,
-                                     float* out, void* stream) {
+extern "C" {
+
+// Launch on `stream`; returns the cudaError_t of the launches (0 =
+// launched). `gbox` null: the nocull instance (`always` to `tasks` unused).
+// `scratch`: int32 device scratch, 1 entry for nocull, 4 + 2k culled;
+// `tasks`: room for k x units x ng int2 (units = ceil(block / unit)). `tab`
+// must be 16-byte aligned.
+int rc_clearance_pair_min(const float* rows, const int32_t* ids, int64_t k,
+                          const float* blocks, int nb, int block, const float* tab, int nt,
+                          const float* gbox, const uint8_t* always, int ng, int gsize,
+                          float slack, float* out, int32_t* visits, void* tasks, int* scratch,
+                          void* stream) {
   if (k <= 0) return 0;
-  if (nb <= 0 || block <= 0 || nt < 0) return (int)cudaErrorInvalidValue;
-  const int lanes = lanes_for(block);
-  const int64_t grid = (k + kThreads / lanes - 1) / (kThreads / lanes);
-  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  pair_min_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      rows, ids, k, blocks, nb, block, tris, nt, lanes, out);
-  return (int)cudaGetLastError();
+  const bool cull = gbox != nullptr;
+  const int lanes = lanes_for(block > 0 ? block : 1), per_item = kThreads / lanes;
+  const int unit = (lanes < 32 ? lanes : 32) * kVpt;
+  if (k > (int64_t(1) << 30) || nb <= 0 || block <= 0 || nt < 0 ||
+      (reinterpret_cast<uintptr_t>(tab) & 15) != 0 ||
+      (cull && (gsize <= 0 || ng != (nt + gsize - 1) / gsize || ng >= (1 << 16) ||
+                (block + unit - 1) / unit >= (1 << 15) || always == nullptr ||
+                tasks == nullptr)))
+    return int(cudaErrorInvalidValue);
+  const Args a{rows, ids, int(k), blocks, nb, block, tab, nt, out, lanes,
+               int((k + per_item - 1) / per_item), scratch, gbox, always, ng, gsize, slack,
+               visits, static_cast<int2*>(tasks)};
+  int sms = 0, optin = 0;
+  cudaError_t err = cudaError_t(device_limits(&sms, &optin));
+  if (err != cudaSuccess) return int(err);
+  const bool staged = staged_table(nt, optin);
+  const size_t tab_bytes = staged ? size_t(nt) * 72 : 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!cull) {
+    if ((err = cudaMemsetAsync(scratch, 0, sizeof(int), st)) != cudaSuccess) return int(err);
+    return int(staged ? launch_persistent(nocull_kernel<true>, a, a.items, tab_bytes, sms, st)
+                      : launch_persistent(nocull_kernel<false>, a, a.items, 0, sms, st));
+  }
+  // The counters and NaN flags to 0; plan_kernel writes the minimum of
+  // every pair with a block before task_kernel reads it.
+  if ((err = cudaMemsetAsync(scratch, 0, 3 * sizeof(int), st)) != cudaSuccess ||
+      (err = cudaMemsetAsync(scratch + 4 + k, 0, k * sizeof(int), st)) != cudaSuccess)
+    return int(err);
+  if ((err = launch_persistent(plan_kernel, a, a.items, size_t(ng) * 25, sms, st)) !=
+      cudaSuccess)
+    return int(err);
+  err = staged ? launch_persistent(task_kernel<true>, a, 1 << 30, tab_bytes, sms, st)
+               : launch_persistent(task_kernel<false>, a, 1 << 30, 0, sms, st);
+  if (err != cudaSuccess) return int(err);
+  finish_kernel<<<int((k + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
+  return int(cudaGetLastError());
 }
 
-extern "C" const char* rc_clearance_error_string(int err) {
+// The dynamic shared memory of a scanning block (nocull, or culled pass 2)
+// on `nt` triangles: the staged table, or 0 where it is read through the
+// L2; a negative cudaError_t on failure.
+int64_t rc_clearance_smem_bytes(int nt) {
+  int sms = 0, optin = 0;
+  const int err = device_limits(&sms, &optin);
+  if (err != 0) return -int64_t(err);
+  return staged_table(nt, optin) ? int64_t(nt) * 72 : 0;
+}
+
+const char* rc_clearance_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+}  // extern "C"

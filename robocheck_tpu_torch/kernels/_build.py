@@ -115,9 +115,12 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
               [ptr, i64, ptr, i32, ptr, i32, ptr, i32, i32, i32, ptr, ptr])
         _bind(lib.rc_invariant_probe, i32, [ptr, i64, ptr, i32, i32, ptr, i64, ptr])
     elif name == "clearance":
-        # rows, ids, k, blocks, nb, block, tris, nt, out, stream
+        # rows, ids, k, blocks, nb, block, tab, nt, gbox, always, ng, gsize,
+        # slack, out, visits, tasks, scratch, stream
         _bind(lib.rc_clearance_pair_min, i32,
-              [ptr, ptr, i64, ptr, i32, i32, ptr, i32, ptr, ptr])
+              [ptr, ptr, i64, ptr, i32, i32, ptr, i32, ptr, ptr, i32, i32, ctypes.c_float,
+               ptr, ptr, ptr, ptr, ptr])
+        _bind(lib.rc_clearance_smem_bytes, i64, [i32])
         _bind(lib.rc_clearance_error_string, ctypes.c_char_p, [i32])
     return lib
 

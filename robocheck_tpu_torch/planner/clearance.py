@@ -23,7 +23,11 @@ block) pair:
     scan kernel (`kernels/clearance.py`, `csrc/clearance.cu`), 1,024 pairs a
     launch; after each wave the tightened per-configuration best re-filters
     the rest before they run. The scatter-min into ``best`` is float64 on
-    the host, as in the reference.
+    the host, as in the reference. Inside a pair the kernel also skips the
+    obstacle groups whose box is farther from a unit of 128 posed vertices
+    than the pair's minimum over its nearest group plus 2 x err_bound (the
+    culled instance: the same float32 answer as the full scan); the
+    representatives run the nocull instance.
   * The reported distance subtracts ``err_bound`` (128 float32 ulp of the
     posed scene's scale), so it is a sound lower bound; the same slack
     guards the cull, so no pair that could hold the true minimum is dropped.
@@ -42,7 +46,8 @@ import numpy as np
 import torch
 
 from ..core.types import Mesh
-from ..kernels.clearance import pair_min_cuda, pair_min_reference, pose_rows
+from ..kernels.clearance import (make_groups, pair_min_cuda, pair_min_reference, pose_rows,
+                                  tri_table)
 from ..ops.transform import apply_pose, rotation_matrices
 from ..runtime.device import resolve as resolve_device
 from ..utils.morton import morton_argsort, morton_codes
@@ -76,9 +81,7 @@ class ClearanceEngine:
                  device: torch.device | str = "cuda", obs_group: int = 32):
         t0 = _time.perf_counter()
         self.device = resolve_device(device)
-        # The kernel launches or raises; the twin runs only on the CPU.
-        self._pair_min = pair_min_cuda if self.device.type == "cuda" else pair_min_reference
-        self._events = []  # (start, end) CUDA events of launches not yet read
+        self._events = []  # (phase, start, end): CUDA events of launches not yet read
         v = np.asarray(robot_vertices, dtype=np.float64).reshape(-1, 3)
         tri = np.asarray(obstacle.triangle_vertices, dtype=np.float64)
         if len(v) == 0:
@@ -108,14 +111,12 @@ class ClearanceEngine:
 
         tri = tri[morton_argsort(tri.mean(axis=1))]
         nt = len(tri)
-        ng = math.ceil(nt / obs_group)
-        trig = _pad_to(tri, ng * obs_group, tri[-1]).reshape(ng, -1, 3)
-        glo, ghi = trig.min(axis=1), trig.max(axis=1)
-        ginfl = np.maximum(np.abs(glo), np.abs(ghi)) * (4 * _F32_EPS) + 1e-12
-        self._glo = put(glo - ginfl)
-        self._ghi = put(ghi + ginfl)
-        self.num_groups = ng
         self._tris = put(tri.reshape(nt, 9))
+        self._tab = tri_table(self._tris)  # corners and edges, once for every launch
+        # Group boxes (the reference's `_glo` / `_ghi`) and always-scan flags.
+        self._groups = make_groups(self._tris, obs_group)
+        self._glo, self._ghi = self._groups.boxes[:, 0:3], self._groups.boxes[:, 3:6]
+        self.num_groups = self._groups.boxes.shape[0]
         self.num_triangles = nt
 
         self._obs_scale = float(np.abs(tri).max())
@@ -129,10 +130,11 @@ class ClearanceEngine:
         # chip_smoke.py, scripts/torch_certify_alpha.py): host-clock seconds
         # of construction and of each phase, and kernel_s, the device
         # seconds of the scan kernel's launches (CUDA events around each;
-        # 0.0 on the CPU, where the twin runs).
+        # 0.0 on the CPU, where the twin runs), the sum of rep_kernel_s
+        # (the representatives) and exact_kernel_s (the exact phase).
         self.stats = {"construct_s": _time.perf_counter() - t0,
-                      "bounds_s": 0.0, "exact_s": 0.0, "kernel_s": 0.0, "pairs": 0,
-                      "configs": 0, "calls": 0}
+                      "bounds_s": 0.0, "exact_s": 0.0, "kernel_s": 0.0, "rep_kernel_s": 0.0,
+                      "exact_kernel_s": 0.0, "pairs": 0, "configs": 0, "calls": 0}
 
     # -- error model --------------------------------------------------------
     def err_bound(self, confs: np.ndarray) -> float:
@@ -147,25 +149,32 @@ class ClearanceEngine:
         return 128.0 * _F32_EPS * scale
 
     # -- device phases ------------------------------------------------------
-    def _scan(self, rows: torch.Tensor, ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-        """One launch of the scan over ``table``'s blocks (the twin on the
-        CPU); on the card it is timed by CUDA events, read by ``_fetch``."""
+    def _scan(self, phase: str, rows: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
+              slack: float | None = None) -> torch.Tensor:
+        """One launch of the scan over ``table``'s blocks for ``phase``
+        ("rep" or "exact"), culled with ``slack`` where one is given (the
+        twin on the CPU, the same distances); on the card it is timed by
+        CUDA events, read by ``_fetch``."""
         if self.device.type != "cuda":
-            return self._pair_min(rows, ids, table, self._tris)
+            return pair_min_reference(rows, ids, table, self._tris)
         stream = torch.cuda.current_stream(self.device)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record(stream)
-        out = self._pair_min(rows, ids, table, self._tris)
+        out = pair_min_cuda(rows, ids, table, self._tab,
+                            None if slack is None else self._groups, slack or 0.0)
         end.record(stream)
-        self._events.append((start, end))
+        self._events.append((phase, start, end))
         return out
 
     def _fetch(self, outs: list) -> np.ndarray:
         """The launches' outputs, concatenated, as float64 on the host; adds
-        their device time to ``stats["kernel_s"]`` (the fetch waits for
-        them)."""
+        their device time to ``stats["kernel_s"]`` and their phase's (the
+        fetch waits for them)."""
         d = torch.cat(outs).cpu().numpy().astype(np.float64)
-        self.stats["kernel_s"] += sum(s.elapsed_time(e) for s, e in self._events) / 1e3
+        for phase, s, e in self._events:
+            sec = s.elapsed_time(e) / 1e3
+            self.stats["kernel_s"] += sec
+            self.stats[f"{phase}_kernel_s"] += sec
         self._events.clear()
         return d
 
@@ -193,28 +202,44 @@ class ClearanceEngine:
         # block), up to REP_PAIRS pairs (their pose rows) a launch.
         block_ids = torch.arange(nb, dtype=torch.int32, device=self.device)
         cr = max(1, REP_PAIRS // nb)
-        reps = [self._scan(rows[lo : lo + cr].repeat_interleave(nb, dim=0),
+        reps = [self._scan("rep", rows[lo : lo + cr].repeat_interleave(nb, dim=0),
                            block_ids.repeat(min(cr, b - lo)), self._reps)
                 for lo in range(0, b, cr)]
         return (torch.cat(lbs).cpu().numpy().astype(np.float64),
                 self._fetch(reps).reshape(b, nb))
 
     def _run_pairs(self, rows: torch.Tensor, cfg_ids: np.ndarray, blk_ids: np.ndarray,
-                   best: np.ndarray) -> None:
+                   best: np.ndarray, err: float) -> None:
         """Exact distances of (configuration, block) pairs, PAIR_CHUNK a
-        launch, all launched before one fetch; scatter-min into ``best``
-        (float64, in place, on the host)."""
+        launch, all launched before one fetch, culled with slack 2 x ``err``;
+        scatter-min into ``best`` (float64, in place, on the host)."""
         if len(cfg_ids) == 0:
             return
         t0 = _time.perf_counter()
         ci = torch.as_tensor(cfg_ids).to(self.device)
         bi = torch.as_tensor(blk_ids.astype(np.int32)).to(self.device)
-        outs = [self._scan(rows[ci[lo : lo + PAIR_CHUNK]], bi[lo : lo + PAIR_CHUNK], self._blocks)
+        outs = [self._scan("exact", rows[ci[lo : lo + PAIR_CHUNK]], bi[lo : lo + PAIR_CHUNK],
+                           self._blocks, 2.0 * err)
                 for lo in range(0, len(cfg_ids), PAIR_CHUNK)]
         d = self._fetch(outs)
         np.minimum.at(best, cfg_ids, d)
         self.stats["exact_s"] += _time.perf_counter() - t0
         self.stats["pairs"] += len(cfg_ids)
+
+    def _survivors(self, confs: torch.Tensor, rows: torch.Tensor, best: np.ndarray,
+                   err: float):
+        """Phase 1: box lower bounds and representative-vertex distances;
+        ``best`` (in place) starts at U (attained distances). Returns the
+        surviving pairs' configurations, blocks and lower bounds in
+        ascending-LB order: the exact phase's launch order."""
+        t0 = _time.perf_counter()
+        lb, drep = self._bounds(confs, rows)
+        np.minimum(best, drep.min(axis=1), out=best)
+        self.stats["bounds_s"] += _time.perf_counter() - t0
+        surv_c, surv_b = np.nonzero(lb - err <= best[:, None] + err)
+        order = np.argsort(lb[surv_c, surv_b], kind="stable")
+        surv_c, surv_b = surv_c[order], surv_b[order]
+        return surv_c, surv_b, lb[surv_c, surv_b]
 
     def min_distances(self, confs: np.ndarray) -> np.ndarray:
         """Per-configuration min distance from any posed robot vertex to the
@@ -235,24 +260,14 @@ class ClearanceEngine:
         dev_confs = torch.as_tensor(confs).to(self.device)
         rows = pose_rows(dev_confs)
         if self.num_blocks == 1:
-            self._run_pairs(rows, np.arange(b), np.zeros(b, np.int64), best)
+            self._run_pairs(rows, np.arange(b), np.zeros(b, np.int64), best, err)
             return best - err
 
-        # Phase 1: box lower bounds and representative-vertex distances;
-        # best starts at U (attained distances).
-        t0 = _time.perf_counter()
-        lb, drep = self._bounds(dev_confs, rows)
-        np.minimum(best, drep.min(axis=1), out=best)
-        self.stats["bounds_s"] += _time.perf_counter() - t0
-
         # Phase 2: surviving pairs in ascending-LB waves.
-        surv_c, surv_b = np.nonzero(lb - err <= best[:, None] + err)
-        order = np.argsort(lb[surv_c, surv_b], kind="stable")
-        surv_c, surv_b = surv_c[order], surv_b[order]
-        slb = lb[surv_c, surv_b]
+        surv_c, surv_b, slb = self._survivors(dev_confs, rows, best, err)
         wave = max(2048, 4 * b)
         while len(surv_c):
-            self._run_pairs(rows, surv_c[:wave], surv_b[:wave], best)
+            self._run_pairs(rows, surv_c[:wave], surv_b[:wave], best, err)
             surv_c, surv_b, slb = surv_c[wave:], surv_b[wave:], slb[wave:]
             if len(surv_c):
                 keep = slb - err <= best[surv_c] + err

@@ -14,7 +14,8 @@ assume the card's full power limit of 700 W.
 The work of both kernels depends on their data, so it is counted from the
 inputs of the run being timed: the check's from the counter rows
 (`OUT_COLS`) of the same pose rows, the clearance scan's from the region
-each of its distances ends in (`kernels/clearance.region_counts`).
+each of its distances ends in (`kernels/clearance.region_counts`), for the
+culled scan only of the distances its plan takes, with its culling work.
 """
 from __future__ import annotations
 
@@ -54,6 +55,15 @@ REGION_OPS = (
 )
 # Posing one vertex: 9 multiplies and 6 adds, and the translation (3).
 POSE_VERTEX_OPS = 18
+# The culled clearance scan's own work (`csrc/clearance.cu`): a posed
+# vertex's share of its unit's box (3 min, 3 max); one box distance (per
+# axis two differences, two gap selects and their sum; then 3 multiplies
+# and 2 adds), which g0's choice takes for every group of a pair; and one
+# cull test of a unit against a group (a box distance, its sqrt and the
+# compare).
+BOX_VERTEX_OPS = 6
+BOX_DIST_OPS = 3 * 5 + 5
+CULL_TEST_OPS = BOX_DIST_OPS + 2
 # Stage of the fused check -> whether it includes (gate, box tests, planes).
 STAGE_WORK = {"nosweep": (True, False, False), "maskonly": (True, True, False),
               "planesonly": (True, True, True), "nodiv": (True, True, True),
@@ -113,8 +123,8 @@ def probe_work(piece: str, n: int, tr: int = 1024) -> tuple[float, float]:
     raise ValueError(f"no work model for probe piece {piece!r}")
 
 
-def clearance_work(k: int, block: int, nt: int, blocks_read: int,
-                   regions) -> tuple[float, float]:
+def clearance_work(k: int, block: int, nt: int, blocks_read: int, regions,
+                   plan=None) -> tuple[float, float]:
     """(bytes, operations) of the clearance scan over ``k`` pairs of
     ``block``-vertex blocks against ``nt`` obstacle triangles, reading
     ``blocks_read`` distinct blocks, whose distances end in each region as
@@ -122,8 +132,22 @@ def clearance_work(k: int, block: int, nt: int, blocks_read: int,
     of the same inputs) says. Bytes: pose rows (48 B), block ids and outputs
     (4 B each) per pair, the blocks read (12 B a vertex) and the triangles
     (36 B each). Operations: POSE_VERTEX_OPS a vertex and REGION_OPS a
-    distance by its region."""
+    distance by its region.
+
+    With ``plan`` (`kernels/clearance.cull_plan`'s bool [k, units, ng] of
+    the same inputs, ``regions`` counted under it) this is the culled
+    kernel's work: also the group table (24 B of box and a flag a group),
+    and for every pair that scans anything the boxes of its posed vertices
+    (BOX_VERTEX_OPS a vertex), g0's choice (BOX_DIST_OPS a group; its
+    distances are in ``regions``) and the cull tests (CULL_TEST_OPS a unit
+    and group)."""
     n_bytes = k * (48 + 4 + 4) + blocks_read * block * 12 + nt * 36
     regions = np.asarray(regions, dtype=np.int64)
     n_ops = k * block * POSE_VERTEX_OPS + int((regions * np.asarray(REGION_OPS)).sum())
+    if plan is not None:
+        plan = np.asarray(plan, dtype=bool)
+        _, units, ng = plan.shape
+        n_bytes += ng * 25
+        live = int(plan.any(axis=(1, 2)).sum())
+        n_ops += live * (block * BOX_VERTEX_OPS + ng * BOX_DIST_OPS + units * ng * CULL_TEST_OPS)
     return float(n_bytes), float(n_ops)

@@ -14,8 +14,10 @@ Prints the card's name and power limit, the level reports, then one JSON
 line per leg: certified, collision, num_checks (beside the JAX package's
 count in `ALPHA_CCD.json`), min_clearance, min_seen_clearance,
 method_floor, uncertified_steps, wall_s, the engine's stats summed over the
-levels (with ``kernel_s``, the scan kernel's device seconds by CUDA events),
-the kernel's share of the wall time, and each kernel's launches.
+levels (with ``kernel_s``, the scan kernel's device seconds by CUDA events:
+the representatives' ``rep_kernel_s`` plus the exact phase's
+``exact_kernel_s``), the kernel's share of the wall time, and each kernel's
+launches.
 """
 from __future__ import annotations
 

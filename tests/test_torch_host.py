@@ -51,7 +51,7 @@ def test_port_imports_no_jax():
             "[runpy.run_path(f'scripts/{n}.py', run_name='imported') for n in "
             "('torch_run_integration', 'torch_roofline', 'torch_bisect', 'torch_profile', "
             "'torch_k1_compare', 'torch_gate_study', 'torch_demo_planner', "
-            "'torch_bench_chunked', 'torch_certify_alpha')]; "
+            "'torch_bench_chunked', 'torch_certify_alpha', 'torch_clearance_study')]; "
             "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "
