@@ -98,7 +98,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `exact_kernel_s` and `rep_kernel_s`, K1 and the scan kernel launched;
      (e) the tunneling path through `tests/test_clearance.py`'s wall
      refuted; (f) `min_distances` on the 1x and the 16x obstacle, culled and
-     nocull: configurations/s, exact_s and the 16x / 1x ratio.
+     nocull: configurations/s, exact_s and the 16x / 1x ratio;
+ 10. the gradient planners on the card: (a) SQP smoothing of the alpha RRT
+     path as `scripts/torch_certify_alpha.py --smooth` runs it (the settings
+     of `certify_alpha.py:104-128`), which must certify, and its output
+     through `certify_multires` on 2:8,4:10,6:12 with 0 uncertified steps,
+     the check count beside ALPHA_CCD.json's 1,390 (the TPU run's own SQP
+     output: another run's trajectory); (b) the wall scene's
+     `plan_and_smooth` with `swept_certify` (`scripts/torch_demo_planner.py
+     --wall --ccd`), certified discretely and continuously; K1 and the scan
+     kernel launched in (a)-(b); (c) the card against the CPU on the alpha
+     init of (a): the SQP constraint blocks (g, J, penalty total) and the
+     TrajOpt cost and gradient, within the cross-package tolerances of
+     `tests/test_torch_{sqp,trajopt}.py`; (d) times: an SQP outer iteration
+     split into constraint blocks, subproblem, merit and certification, one
+     Adam step and one TrajOpt round of the wall scene, and the card's idle
+     share over (a) from a `torch.profiler` trace.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -110,6 +125,7 @@ import json
 import os
 import runpy
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,11 +139,18 @@ CLEARANCE_SOURCE = "robocheck_tpu_torch/csrc/clearance.cu"
 CLEARANCE_REPLACES = "robocheck_tpu/planner/clearance.py:312"
 # Phase 9's alpha legs (`scripts/torch_certify_alpha.py`) and the checks
 # each must take: the port's counts since its certifier was ported (the raw
-# leg's is the JAX package's too; its smoothed count is of another
-# trajectory, ROADMAP Queue 3). The scan's distances are bit-equal to the
-# full scan's, so the counts cannot move.
+# leg's is the JAX package's too; the stored smoothed file has no JAX count:
+# ALPHA_CCD.json's 1,390 is of a fresh SQP output, which phase 10 (a)
+# reproduces). The scan's distances are bit-equal to the full scan's, so the
+# counts cannot move.
 CERTIFY_LEGS = ("smoothed", "raw")
 CERTIFY_CHECKS = {"raw": 1196, "smoothed": 1309}
+# Phase 10 (c): the card against the CPU, at the cross-package tolerances of
+# tests/test_torch_sqp.py (g, J: (rtol, atol), atol times the coordinate
+# scale) and tests/test_torch_trajopt.py (the TrajOpt cost; its gradient with
+# atol times the largest component).
+G_TOL, J_TOL = (2e-5, 1e-6), (2e-4, 1e-5)
+COST_RTOL, GRAD_TOL = 1e-5, (1e-4, 1e-5)
 # The JAX knob each stage variant replaces (robocheck_tpu/kernels/megakernel.py).
 STAGE_REPLACES = {"nosweep": "robocheck_tpu/kernels/megakernel.py:625",
                   "maskonly": "robocheck_tpu/kernels/megakernel.py:761",
@@ -719,10 +742,12 @@ def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
         require(rec["certified"] and not rec["collision"] and rec["uncertified_steps"] == 0,
                 f"(d) the {rec['leg']} leg is not certified with 0 uncertified steps")
         stats = rec["engine_stats"]
+        ref = rec["reference_num_checks"] or "no count"
         print(f"  (d) {rec['leg']} leg: {rec['num_checks']} checks (must be "
-              f"{CERTIFY_CHECKS[rec['leg']]}; JAX package: {rec['reference_num_checks']}), "
-              f"{rec['wall_s']} s; exact_kernel_s {stats['exact_kernel_s']}, rep_kernel_s "
-              f"{stats['rep_kernel_s']}, exact_s {stats['exact_s']}, pairs {stats['pairs']}")
+              f"{CERTIFY_CHECKS[rec['leg']]}; JAX package: {ref} on "
+              f"{rec['reference_of'] or 'this file'}), {rec['wall_s']} s; exact_kernel_s "
+              f"{stats['exact_kernel_s']}, rep_kernel_s {stats['rep_kernel_s']}, exact_s "
+              f"{stats['exact_s']}, pairs {stats['pairs']}")
         require(rec["num_checks"] == CERTIFY_CHECKS[rec["leg"]],
                 f"(d) the {rec['leg']} leg took {rec['num_checks']} checks")
     print(f"  (d) launches in the legs' run: K1 {k1}, scan kernel {scans}")
@@ -736,6 +761,199 @@ def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
     print(f"  (e) tunneling path through tests/test_clearance.py's wall: collision "
           f"{res.collision}, certified {res.certified}, {res.num_checks} checks")
     require(res.collision and not res.certified, "(e) the tunneling path is not refuted")
+    return k1, scans
+
+
+def phase10_parity(opt, robot, obstacle, init, card: str) -> dict:
+    """Phase 10 (c): the SQP constraint blocks and the TrajOpt cost and
+    gradient on the card and on the CPU (the same grid values, moved), on
+    the alpha init; returns each one's worst error over its tolerance (1.0:
+    at the tolerance)."""
+    from robocheck_tpu_torch.planner import (SQPOptimizer, TrajectoryOptimizer, TrajOptConfig,
+                                             grid_from_arrays)
+    from robocheck_tpu_torch.planner.trajopt import _pose_points
+
+    grid = opt.grid
+    cpu_grid = grid_from_arrays(grid.values.cpu().numpy(), grid.origin.cpu().numpy(),
+                                grid.spacing.cpu().numpy(), device="cpu")
+    cpu = SQPOptimizer(robot, obstacle, opt.cfg, grid=cpu_grid, checker=opt.checker,
+                       device="cpu")
+    q_card, q_cpu = torch.from_numpy(init).cuda(), torch.from_numpy(init)
+    g, J, tot = opt._constraint_blocks(q_card)
+    g_ref, J_ref, tot_ref = cpu._constraint_blocks(q_cpu)
+    g, J = g.cpu(), J.cpu()
+    idx, idx_ref = opt._top_residuals(q_card)[1].cpu(), cpu._top_residuals(q_cpu)[1]
+    scale = max(1.0, float(_pose_points(q_cpu, cpu._samples).abs().max()))
+    d = cpu.grid.query(_pose_points(q_cpu, cpu._samples))
+    top = torch.topk(cpu.cfg.margin - d, cpu.cfg.top_k + 1, dim=-1)[0]
+    gap = (top[:, -2] - top[:, -1]).numpy()
+    same = (idx.sort(dim=1)[0] == idx_ref.sort(dim=1)[0]).all(dim=1).numpy()
+
+    def worst(got, want, rtol, atol):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max(initial=0.0))
+
+    out = {"g": worst(g, g_ref, G_TOL[0], G_TOL[1] * scale),
+           "J": worst(J[same], J_ref[same], J_TOL[0], J_TOL[1] * scale),
+           "total": abs(tot - tot_ref) / (1e-4 * max(1.0, abs(tot_ref)))}
+    print(f"  (c) SQP blocks, card vs CPU, alpha init ({len(init)} waypoints, coordinate scale "
+          f"{scale}): top-K samples equal on {int(same.sum())}/{len(same)} waypoints "
+          f"(smallest K/K+1 gap {float(gap.min())}); g max abs err "
+          f"{float((g - g_ref).abs().max())}, J {float((J - J_ref)[same].abs().max())}, "
+          f"total {tot} / {tot_ref}; worst error over tolerance {json.dumps(out)}")
+    require(bool(same[gap > 1e-3].all()), "(c) the card picks other top-K samples at a clear gap")
+    topt = TrajOptConfig(num_waypoints=len(init), margin=opt.cfg.margin,
+                         grid_resolution=opt.cfg.grid_resolution)
+    card_opt = TrajectoryOptimizer(robot, obstacle, topt, grid=grid, checker=opt.checker)
+    cpu_opt = TrajectoryOptimizer(robot, obstacle, topt, grid=cpu_grid, checker=opt.checker,
+                                  device="cpu")
+    for w in (10.0, 640.0):
+        grads, costs = [], []
+        for o, q in ((card_opt, q_card), (cpu_opt, q_cpu)):
+            free = q[1:-1].clone().requires_grad_(True)
+            c = o.cost(free, (q[0], q[-1]), w)
+            c.backward()
+            costs.append(float(c.detach()))
+            grads.append(free.grad.cpu().numpy())
+        gmax = float(np.abs(grads[1]).max())
+        err = {"cost": abs(costs[0] - costs[1]) / (COST_RTOL * abs(costs[1])),
+               "grad": worst(grads[0], grads[1], GRAD_TOL[0], GRAD_TOL[1] * gmax)}
+        print(f"  (c) TrajOpt cost and gradient, w {w}, card vs CPU: cost {costs[0]} / {costs[1]},"
+              f" gradient max abs err {float(np.abs(grads[0] - grads[1]).max())} (largest "
+              f"component {gmax}); worst error over tolerance {json.dumps(err)}")
+        out[f"cost_w{w:g}"], out[f"grad_w{w:g}"] = err["cost"], err["grad"]
+    require(all(v <= 1.0 for v in out.values()), f"(c) card and CPU disagree: {out}")
+    return out
+
+
+def phase10_times(opt, init, card: str) -> dict:
+    """Phase 10 (d): an SQP outer iteration's parts on the alpha init (host
+    clock after synchronize, best of 5), one Adam step and one round of the
+    wall scene's optimizer (host clock, and the device's busy share of the
+    round from a trace)."""
+    from robocheck_tpu_torch.models.shapes import box, icosphere
+    from robocheck_tpu_torch.planner import TrajectoryOptimizer, TrajOptConfig
+    from robocheck_tpu_torch.profiling import timers
+
+    q = torch.from_numpy(init).cuda()
+    mu, delta = opt.cfg.penalty_init, opt.cfg.trust_init
+    g0, J, tot = opt._constraint_blocks(q)
+    dq = opt._solve_subproblem(q, g0, J, mu, delta)
+    t = {"blocks_s": timers.benchmark(opt._constraint_blocks, q),
+         "subproblem_s": timers.benchmark(opt._solve_subproblem, q, g0, J, mu, delta),
+         "merit_s": timers.benchmark(
+             lambda: float(opt._smooth_cost(q)) + mu * tot + opt._merit(q + dq, mu)),
+         "certify_s": timers.benchmark(opt._certify, init)}
+    t["outer_s"] = t["blocks_s"] + t["subproblem_s"] + t["merit_s"]
+    print(f"  (d) [{card}] SQP outer iteration on the alpha init ({len(init)} waypoints x "
+          f"{opt.cfg.num_surface_samples} samples, {opt.cfg.subproblem_iters} subproblem "
+          f"steps; outer_s = blocks + subproblem + merit; certify_s: one trajectory's "
+          f"certification, the most a harvest waits): {json.dumps(t)}")
+    robot, wall = icosphere(1, radius=0.3, name="robot"), box(extent=(0.5, 3.0, 3.0), name="wall")
+    topt = TrajectoryOptimizer(robot, wall, TrajOptConfig(num_waypoints=24, iters_per_round=150,
+                                                          max_rounds=4, margin=0.25))
+    start = np.array([-3, 0, 0, 0, 0, 0], np.float32)
+    q0 = topt.initial_trajectory(start, -start)
+    ends = (torch.from_numpy(start).cuda(), torch.from_numpy(-start).cuda())
+    free0 = torch.from_numpy(q0[1:-1].copy()).cuda()
+    free = free0.clone().requires_grad_(True)
+    adam = torch.optim.Adam([free], lr=topt.cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    w = topt.cfg.collision_weight
+    t["adam_step_s"] = timers.benchmark(topt.adam_step, free, adam, ends, w, runs=20)
+    t["adam_step_event_ms"] = timers.event_ms(lambda: topt.adam_step(free, adam, ends, w), 50)
+    t["round_s"] = timers.benchmark(topt.optimize_round, free0, ends, w, runs=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        with timers.trace(tmp) as path:
+            t0 = time.perf_counter()
+            topt.optimize_round(free0, ends, w)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+        busy = timers.busy_us(timers.device_intervals(
+            path, ("kernel", "gpu_memcpy", "gpu_memset"))) / 1e3
+    t["round_busy_ms"], t["round_profiled_ms"] = busy, profiled_ms
+    t["round_busy_share"] = busy / (t["round_s"] * 1e3)
+    print(f"  (d) [{card}] wall-scene TrajOpt (24 waypoints x 256 samples, 4 subsamples): "
+          f"Adam step {t['adam_step_s'] * 1e3} ms (host, synchronised; back to back by events "
+          f"{t['adam_step_event_ms']} ms), round of {topt.cfg.iters_per_round} steps "
+          f"{t['round_s'] * 1e3} ms; device busy {busy} ms of the round "
+          f"({100 * t['round_busy_share']}% of the unprofiled round; profiled {profiled_ms} ms)")
+    return t
+
+
+def phase10_idle(runs, card: str) -> None:
+    """Phase 10 (d): the card's busy and idle share over (a), each of
+    ``runs`` ((name, a call repeating it, its unprofiled wall s)) again under
+    a `torch.profiler` trace."""
+    from robocheck_tpu_torch.profiling import timers
+
+    for name, fn, unprofiled in runs:
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with timers.trace(tmp) as path:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                profiled = time.perf_counter() - t0
+            spans = timers.device_intervals(path, ("kernel", "gpu_memcpy", "gpu_memset"))
+        busy = timers.busy_us(spans) / 1e6
+        print(f"  (d) [{card}] (a) {name}: device busy {busy} s in {len(spans)} device events; "
+              f"unprofiled wall {unprofiled} s, profiled {profiled} s; idle share "
+              f"{1.0 - busy / unprofiled} of the unprofiled wall ({1.0 - busy / profiled} of "
+              f"the profiled)")
+
+
+def phase10(robot, obstacle, card: str) -> tuple[int, int]:
+    """The gradient planners on the card (phase 10). Returns the launches of
+    K1 and of the scan kernel in (a)-(b)."""
+    from robocheck_tpu_torch import make_checker
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.io.parasol import read_query
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.planner import resample
+
+    cert_alpha = runpy.run_path(os.path.join(ROOT, "scripts", "torch_certify_alpha.py"),
+                                run_name="imported")
+    demo = runpy.run_path(os.path.join(ROOT, "scripts", "torch_demo_planner.py"),
+                          run_name="imported")
+    query = read_query(assets.find_asset("models/alpha1.0/alpha.query"))
+    stored = {k: np.load(assets.find_asset(f"data/alpha_{k}_path.npy"))
+              for k in ("certified", "smoothed")}
+    init = resample(stored["certified"], 48)
+    checker = make_checker(robot, obstacle, device="cuda")
+    print("[10] gradient planners on the card")
+    t_start = time.perf_counter()
+    mk.check_poses_cuda.launches = 0
+    kc.pair_min_cuda.launches = 0
+    res, opt, rec = cert_alpha["smooth_alpha"](robot, obstacle, checker)
+    print(f"  (a) [{card}] SQP smoothing of the alpha RRT path: {json.dumps(rec)}")
+    require(res.certified, "(a) the SQP-smoothed alpha path is not certified")
+    leg = cert_alpha["certify_leg"]("sqp", robot, obstacle, checker, path=res.trajectory)
+    print(f"  (a) [{card}] {json.dumps(leg)}")
+    require(leg["certified"] and not leg["collision"] and leg["uncertified_steps"] == 0,
+            "(a) the smoothed path is not certified with 0 uncertified steps")
+    diff = float(np.abs(res.trajectory - stored["smoothed"]).max())
+    print(f"  (a) smoothed path: {leg['num_checks']} checks (ALPHA_CCD.json: "
+          f"{leg['reference_num_checks']}, {leg['reference_of']}); largest abs difference "
+          f"from data/alpha_smoothed_path.npy {diff}")
+    wall = demo["wall_demo"]("cuda", ccd=True)
+    print(f"  (b) [{card}] wall scene, plan_and_smooth with swept_certify: {json.dumps(wall)}")
+    require(wall["found"] and wall["certified"] and wall["swept"]["certified"],
+            "(b) the wall scene's path is not certified discretely and continuously")
+    torch.cuda.synchronize()
+    k1, scans = mk.check_poses_cuda.launches, kc.pair_min_cuda.launches
+    print(f"  launches in (a)-(b): K1 {k1}, scan kernel {scans}")
+    require(k1 > 0 and scans > 0, "(a)-(b) did not launch both kernels")
+    t_ab = time.perf_counter() - t_start
+    phase10_parity(opt, robot, obstacle, init, card)
+    phase10_times(opt, init, card)
+    phase10_idle((("SQP plan", lambda: opt.plan(query[0], query[1], init=init), rec["plan_s"]),
+                  ("certify_multires", lambda: cert_alpha["certify_leg"](
+                      "sqp", robot, obstacle, checker, verbose=False, path=res.trajectory),
+                   leg["wall_s"])), card)
+    print(f"  [{card}] phase 10: {time.perf_counter() - t_start} s, of which (a)-(b) {t_ab} s "
+          f"((a) SQP {rec['sqp_smooth_wall_s']} s and its certificate {leg['wall_s']} s, (b) "
+          f"{wall['wall_s']} s)")
     return k1, scans
 
 
@@ -1045,16 +1263,20 @@ def main() -> None:
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                         "piece": timed})
 
-    # ---- 7-9. The oversized-mesh path, the planners, the certifier. ----
+    # ---- 7-10. The oversized-mesh path, the planners, the certifier, the
+    # gradient planners. ----
     launches7, chunk_err = phase7(lib, card, device)
     launches8 = phase8(robot, obstacle, card)
     clearance_entry = phase9_engine(robot, obstacle, card, device)
-    launches9, clearance_entry["launches"] = phase9_certify(robot, obstacle, card)
+    launches9, scans9 = phase9_certify(robot, obstacle, card)
+    launches10, scans10 = phase10(robot, obstacle, card)
+    clearance_entry["launches"] = scans9 + scans10
     entries.append(clearance_entry)
-    entries[0]["launches"] = launches + launches7 + launches8 + launches9
+    entries[0]["launches"] = launches + launches7 + launches8 + launches9 + launches10
     entries[0]["max_abs_err"] = max(max_err, chunk_err)
     print(f"  megakernel launches by path: main {launches}, oversized meshes {launches7}, "
-          f"planners {launches8}, certifier {launches9}")
+          f"planners {launches8}, certifier {launches9}, gradient planners {launches10}; scan "
+          f"kernel: certifier {scans9}, gradient planners {scans10}")
 
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -33,13 +33,19 @@ class DistanceGrid:
     values: torch.Tensor  # [nx, ny, nz] float32 distances
     origin: torch.Tensor  # [3] grid corner (node 0)
     spacing: torch.Tensor  # [3] cell sizes
+    # The clamp's upper bound, shape - 1.0001 in float32 on the values'
+    # device: made once here, not uploaded on every query.
+    upper: torch.Tensor = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        shape = torch.tensor(self.values.shape, dtype=torch.float32, device=self.values.device)
+        object.__setattr__(self, "upper", shape - 1.0001)
 
     def query(self, points: torch.Tensor) -> torch.Tensor:
         """Differentiable trilinear interpolation; clamps outside the grid
         (`sdf.py:99-124`). ``points`` [..., 3] -> [...]."""
         g = (points - self.origin) / self.spacing
-        shape = torch.tensor(self.values.shape, dtype=torch.float32, device=g.device)
-        g = torch.minimum(torch.clamp(g, min=0.0), shape - 1.0001)
+        g = torch.minimum(torch.clamp(g, min=0.0), self.upper)
         i0 = torch.floor(g).to(torch.int64)
         f = g - i0.to(torch.float32)
 

@@ -12,7 +12,8 @@
     overhead); ``kernel_ms``: the summed durations of the kernels a call
     launches, from a ``trace`` (the device's own time, with no gaps);
     ``device_intervals``: the device spans of a written trace, which both
-    ``kernel_ms`` and the busy time of ``scripts/torch_profile.py`` read;
+    ``kernel_ms`` and ``busy_us`` (the union of the spans: the device's busy
+    time) read;
     ``card_line``: the card's name and power limit, which every device
     number carries.
 
@@ -115,6 +116,16 @@ def device_intervals(path: str, cats=("kernel",)) -> list[tuple[float, float]]:
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     return sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in cats)
+
+
+def busy_us(spans: list[tuple[float, float]]) -> float:
+    """µs covered by the union of sorted (start, end) device spans: the
+    device's busy time (overlapping spans count once)."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        total += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return total
 
 
 def kernel_ms(fn, reps: int = 20) -> float:

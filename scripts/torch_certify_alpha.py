@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Certify the stored alpha-1.0 paths continuously on the card: the port's
+"""Certify the stored alpha-1.0 paths continuously on the card, and with
+``--smooth`` SQP-smooth the RRT path and certify the result: the port's
 counterpart of `scripts/certify_alpha.py`.
 
-    python3 scripts/torch_certify_alpha.py [--backend native] [--legs raw,smoothed]
+    python3 scripts/torch_certify_alpha.py [--backend native] [--legs raw,smoothed] [--smooth]
 
 Legs: `data/alpha_certified_path.npy` (the RRT-Connect path) with levels
 2:8,4:10,6:12,7:14 and `data/alpha_smoothed_path.npy` with 2:8,4:10,6:12,
 each through `certify_multires` with the fused check (`make_checker`) on the
 card. The clearance backend is the engine on the card (default) or the
 native float64 BVH on the host (``--backend native``, the cross-check).
+``--smooth`` runs SQP as `certify_alpha.py:104-128` does (48 waypoints,
+max_outer 12, 3 penalty rounds, grid 96, margin 1.0, certify step 0.1 x the
+norm of the robot's box extent, init `resample(path, 48)` of the RRT path),
+prints its certificate, wall time, outer iterations and merit, writes the
+smoothed trajectory to ``--out`` (`build/torch_sqp_smoothed_path.npy`)
+and certifies it on 2:8,4:10,6:12 as the leg "sqp".
 
 Prints the card's name and power limit, the level reports, then one JSON
 line per leg: certified, collision, num_checks (beside the JAX package's
-count in `ALPHA_CCD.json`), min_clearance, min_seen_clearance,
+count in `ALPHA_CCD.json` where it has one), min_clearance, min_seen_clearance,
 method_floor, uncertified_steps, wall_s, the engine's stats summed over the
 levels (with ``kernel_s``, the scan kernel's device seconds by CUDA events:
 the representatives' ``rep_kernel_s`` plus the exact phase's
@@ -34,26 +41,66 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 LEGS = {"raw": ("data/alpha_certified_path.npy", "2:8,4:10,6:12,7:14"),
-        "smoothed": ("data/alpha_smoothed_path.npy", "2:8,4:10,6:12")}
-# The JAX package's counts for the same legs (ALPHA_CCD.json).
-REFERENCE_CHECKS = {"raw": 1196, "smoothed": 1390}
+        "smoothed": ("data/alpha_smoothed_path.npy", "2:8,4:10,6:12"),
+        "sqp": (None, "2:8,4:10,6:12")}
+# The JAX package's counts on a TPU (ALPHA_CCD.json). "raw": the same file.
+# "sqp": 1,390 is the count of the trajectory the TPU run's own SQP made
+# inside `certify_alpha.py --smooth` (`sqp_smoothed_path`), the same
+# procedure as the "sqp" leg here on another device's rounding. The stored
+# `data/alpha_smoothed_path.npy` has no JAX count.
+REFERENCE_CHECKS = {"raw": 1196, "smoothed": None, "sqp": 1390}
+REFERENCE_OF = {"raw": "the same file", "smoothed": None,
+                "sqp": "another run's trajectory: the TPU run's own SQP output"}
+# The SQP settings of `certify_alpha.py:112-118` (certify_step is set from
+# the robot's box in `smooth_alpha`).
+SQP_SETTINGS = dict(num_waypoints=48, max_outer=12, max_penalty_rounds=3, grid_resolution=96,
+                    margin=1.0)
 
 
 def parse_levels(spec: str) -> tuple:
     return tuple(tuple(int(x) for x in part.split(":")) for part in spec.split(","))
 
 
+def smooth_alpha(robot, obstacle, checker):
+    """SQP smoothing of the alpha RRT path on the card, as
+    `certify_alpha.py:104-128` runs it, from `resample` of
+    `data/alpha_certified_path.npy` to 48 waypoints. Returns (the SQPResult,
+    the optimizer, its record: certificate, wall time split into
+    construction (the 96^3 grid) and `plan`, outer iterations, merit)."""
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.io.parasol import read_query
+    from robocheck_tpu_torch.planner import SQPConfig, SQPOptimizer, resample
+
+    query = read_query(assets.find_asset("models/alpha1.0/alpha.query"))
+    ext = float(np.linalg.norm(robot.aabb[3:] - robot.aabb[:3]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt = SQPOptimizer(robot, obstacle, SQPConfig(certify_step=0.1 * ext, **SQP_SETTINGS),
+                       checker=checker)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    init = resample(np.load(assets.find_asset(LEGS["raw"][0])), 48, opt.cfg.rot_scale)
+    res = opt.plan(query[0], query[1], init=init)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec = {"sqp_smooth_certified": bool(res.certified), "sqp_smooth_wall_s": t2 - t0,
+           "construct_s": t1 - t0, "plan_s": t2 - t1, "outer_iters": int(res.outer_iters),
+           "merit": float(res.merit)}
+    return res, opt, rec
+
+
 def certify_leg(name: str, robot, obstacle, checker, backend: str = "engine",
-                verbose: bool = True) -> dict:
+                verbose: bool = True, path: np.ndarray | None = None) -> dict:
     """Certify leg ``name`` (a key of LEGS) on the card; returns its
-    record."""
+    record. ``path``: the trajectory of a leg without a file ("sqp")."""
     from robocheck_tpu_torch.io import assets
     from robocheck_tpu_torch.kernels import clearance as kc
     from robocheck_tpu_torch.kernels import megakernel as mk
     from robocheck_tpu_torch.planner.ccd import certify_multires
 
     rel, levels = LEGS[name]
-    path = np.load(assets.find_asset(rel))
+    if path is None:
+        path = np.load(assets.find_asset(rel))
     k1_before, kc_before = mk.check_poses_cuda.launches, kc.pair_min_cuda.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -66,6 +113,7 @@ def certify_leg(name: str, robot, obstacle, checker, backend: str = "engine",
         "leg": name, "waypoints": len(path), "levels": levels, "backend": backend,
         "certified": bool(res.certified), "collision": bool(res.collision),
         "num_checks": int(res.num_checks), "reference_num_checks": REFERENCE_CHECKS[name],
+        "reference_of": REFERENCE_OF[name],
         "min_clearance": float(res.min_clearance),
         "min_seen_clearance": float(res.min_seen_clearance),
         "method_floor": float(res.method_floor), "uncertified_steps": int(res.uncertified_steps),
@@ -80,7 +128,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", default="engine", choices=("engine", "native"))
     ap.add_argument("--legs", default="raw,smoothed")
+    ap.add_argument("--smooth", action="store_true",
+                    help="also SQP-smooth the RRT path and certify the result")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "torch_sqp_smoothed_path.npy"),
+                    help="where --smooth writes the smoothed trajectory")
     args = ap.parse_args()
+    if "sqp" in args.legs.split(","):
+        ap.error("the sqp leg is the --smooth output; pass --smooth")
     if not torch.cuda.is_available():
         raise SystemExit("torch_certify_alpha: no CUDA device")
 
@@ -103,6 +157,19 @@ def main() -> None:
     for name in args.legs.split(","):
         print(f"{name} leg, backend {args.backend}", flush=True)
         print(json.dumps(certify_leg(name, robot, obstacle, checker, args.backend)), flush=True)
+    if args.smooth:
+        res, _, rec = smooth_alpha(robot, obstacle, checker)
+        print(f"SQP smoothing: certified={res.certified} after {res.outer_iters} outer "
+              f"iterations in {rec['sqp_smooth_wall_s']} s (merit {res.merit})", flush=True)
+        print(json.dumps(rec), flush=True)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        np.save(args.out, res.trajectory)
+        print(f"wrote {args.out}", flush=True)
+        if not res.certified:
+            raise SystemExit("torch_certify_alpha: the SQP-smoothed path is not certified")
+        print(f"sqp leg, backend {args.backend}", flush=True)
+        print(json.dumps(certify_leg("sqp", robot, obstacle, checker, args.backend,
+                                     path=res.trajectory)), flush=True)
 
 
 if __name__ == "__main__":

@@ -101,11 +101,7 @@ def busy(checker, confs, runs: int, log_dir: Path) -> dict:
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / runs
     spans = timers.device_intervals(path, ("kernel", "gpu_memcpy", "gpu_memset"))
-    total, end = 0.0, float("-inf")
-    for lo, hi in spans:  # union of the device intervals, in µs
-        total += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    return {"device_busy_ms": total / 1e3 / runs, "profiled_wall_ms": wall,
+    return {"device_busy_ms": timers.busy_us(spans) / 1e3 / runs, "profiled_wall_ms": wall,
             "device_events": len(spans)}
 
 

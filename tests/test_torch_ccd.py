@@ -1,8 +1,7 @@
 """The port's continuous certifier (`robocheck_tpu_torch.planner.ccd`)
 against `robocheck_tpu.planner.ccd`, on the CPU.
 
-Tests ported from `tests/test_ccd.py` keep their names (the trajectory
-optimizer's is not ported: the optimizer is not). The certifier refutes
+Tests ported from `tests/test_ccd.py` keep their names. The certifier refutes
 tunneling paths that discrete checks miss, certifies clearly free motion,
 and reports near-floor clearances as unproven; on the same scenes the two
 packages give the same verdicts.
@@ -100,6 +99,26 @@ def test_exact_mode_and_multires(wall_world):
     res2 = certify_multires(robot, wall, tun, checker, levels=((0, 6), (2, 8)),
                             backend="native")
     assert res2.collision and not res2.certified
+
+
+def test_trajopt_swept_certificate():
+    # End to end: the optimizer's certificate upgrades to continuous when
+    # swept_certify is on (the grid certifier on the CPU).
+    from robocheck_tpu_torch.planner import TrajectoryOptimizer, TrajOptConfig
+
+    opt = TrajectoryOptimizer(
+        box(extent=(0.3, 0.3, 0.3), name="robot"), icosphere(1, radius=0.6, name="ball"),
+        TrajOptConfig(num_waypoints=12, iters_per_round=60, max_rounds=3, grid_resolution=32,
+                      swept_certify=True, seed=3),
+        device="cpu")
+    start = np.array([-2.0, 0, 0, 0, 0, 0], np.float32)
+    goal = np.array([2.0, 0, 0, 0, 0, 0], np.float32)
+    res = opt.plan(start, goal)
+    assert res.certified
+    assert res.swept is not None and not res.swept.collision
+    # The sphere world is wide open: the continuous certificate succeeds
+    # outright here.
+    assert res.swept.certified
 
 
 @pytest.mark.parametrize("levels", [0, 1, 2, 3])

@@ -30,9 +30,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_no_jax():
     # A fresh interpreter: the package, its kernels, chunked, planner (with the
-    # distance grid, clearance engine and certifier), io and profiling modules
-    # and the entry-point scripts (their imports, not main()) load torch and
-    # numpy only, never jax or the JAX package.
+    # distance grid, clearance engine, certifier and gradient planners), io,
+    # runtime and profiling modules and the entry-point scripts (their
+    # imports, not main()) load torch and numpy only, never jax or the JAX
+    # package.
     code = ("import sys, runpy; import robocheck_tpu_torch; "
             "import robocheck_tpu_torch.kernels.megakernel; "
             "import robocheck_tpu_torch.kernels._build; "
@@ -48,6 +49,9 @@ def test_port_imports_no_jax():
             "import robocheck_tpu_torch.planner.ccd, robocheck_tpu_torch.kernels.clearance; "
             "import robocheck_tpu_torch.io.datagen, robocheck_tpu_torch.io.parasol; "
             "import robocheck_tpu_torch.io.byu; "
+            "import robocheck_tpu_torch.planner.trajopt, robocheck_tpu_torch.planner.sqp; "
+            "import robocheck_tpu_torch.runtime.checkpoint; "
+            "from robocheck_tpu_torch.planner import plan_and_smooth; "
             "[runpy.run_path(f'scripts/{n}.py', run_name='imported') for n in "
             "('torch_run_integration', 'torch_roofline', 'torch_bisect', 'torch_profile', "
             "'torch_k1_compare', 'torch_gate_study', 'torch_demo_planner', "

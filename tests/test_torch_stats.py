@@ -26,7 +26,7 @@ from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.obj import load_obj
 from robocheck_tpu_torch.kernels import megakernel as mk
 from robocheck_tpu_torch.profiling import bounds, counters
-from robocheck_tpu_torch.profiling.timers import (StageTimer, benchmark,
+from robocheck_tpu_torch.profiling.timers import (StageTimer, benchmark, busy_us,
                                                   device_intervals, trace)
 
 
@@ -374,6 +374,13 @@ def test_stage_timer_benchmark_and_trace(tmp_path):
     assert device_intervals(path) == []
     ops = device_intervals(path, ("cpu_op",))
     assert ops and all(lo <= hi for lo, hi in ops) and ops == sorted(ops)
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([], 0.0), ([(0.0, 2.0)], 2.0), ([(0.0, 2.0), (1.0, 3.0)], 3.0),
+    ([(0.0, 4.0), (1.0, 2.0), (5.0, 6.5)], 5.5), ([(1.0, 1.0), (2.0, 3.0)], 1.0)])
+def test_busy_us_counts_overlaps_once(spans, want):
+    assert busy_us(spans) == want
 
 
 def _tile_counts_by_hand(prep, poses):
