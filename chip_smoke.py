@@ -113,7 +113,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `tests/test_torch_{sqp,trajopt}.py`; (d) times: an SQP outer iteration
      split into constraint blocks, subproblem, merit and certification, one
      Adam step and one TrajOpt round of the wall scene, and the card's idle
-     share over (a) from a `torch.profiler` trace.
+     share over (a) from a `torch.profiler` trace;
+ 11. the dense reference pipeline, `CollisionWorld(..., device="cuda")`
+     (torch ops, no kernel): 0 golden mismatches on all 10,000 rows of
+     hard10k and easy10k, 7296 valid on 10,000samples, the same verdicts at
+     `narrow_chunk` 8 and 64, and ms per 10k rows beside phase 5's
+     `check_valid_resolved`;
+ 12. scale-out: two ranks of one gloo process group, spawned on the one
+     card (`runtime.distributed.launch`), run (a) `ShardedChecker` on all of
+     hard10k at the alpha pair's full width: bytes equal to the world of 1's
+     by phase 3's rule (bit 0 on every row, the byte on valid rows: a
+     colliding row's bits 1-2 follow the kernel's run-time order, and two
+     world-of-1 runs are counted where they differ), 0 golden mismatches
+     resolved, totals equal to the rows' counts, the
+     counter rows' valid and broad columns equal to the world of 1's, and
+     `check_valid_distributed` on 256 rows (each rank reading its shard)
+     equal to the goldens; (b) the sharded `ClearanceEngine` on bench.py's
+     clearance scene, bit-equal to the world of 1's; (c) phase 10 (a)'s SQP
+     with waypoint-sharded blocks, certified at phase 10 (a)'s outer
+     iteration with its merit within rel 1e-5, and its sharded certificate's
+     checks beside ALPHA_CCD.json's 1,390; (d) `torch_graft_entry.
+     dryrun_multichip(2)`; checks/s and configurations/s at 1 and 2 ranks,
+     the SQP's `plan` seconds; each kernel's launches in the ranks.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -902,9 +923,9 @@ def phase10_idle(runs, card: str) -> None:
               f"the profiled)")
 
 
-def phase10(robot, obstacle, card: str) -> tuple[int, int]:
+def phase10(robot, obstacle, card: str) -> tuple[int, int, dict]:
     """The gradient planners on the card (phase 10). Returns the launches of
-    K1 and of the scan kernel in (a)-(b)."""
+    K1 and of the scan kernel in (a)-(b), and (a)'s SQP record."""
     from robocheck_tpu_torch import make_checker
     from robocheck_tpu_torch.io import assets
     from robocheck_tpu_torch.io.parasol import read_query
@@ -954,7 +975,185 @@ def phase10(robot, obstacle, card: str) -> tuple[int, int]:
     print(f"  [{card}] phase 10: {time.perf_counter() - t_start} s, of which (a)-(b) {t_ab} s "
           f"((a) SQP {rec['sqp_smooth_wall_s']} s and its certificate {leg['wall_s']} s, (b) "
           f"{wall['wall_s']} s)")
-    return k1, scans
+    return k1, scans, rec
+
+
+def phase11(robot, obstacle, data, card: str, resolved_s: dict) -> None:
+    """The dense reference pipeline `CollisionWorld` on the card (phase 11):
+    0 golden mismatches on hard10k and easy10k, the header's valid count on
+    10,000samples; ms per 10k rows beside phase 5's `check_valid_resolved`,
+    and at ``narrow_chunk`` 64 (fewer syncs) beside the default 8. It runs
+    no kernel of its own (the JAX package's is XLA)."""
+    from robocheck_tpu_torch.ops.pipeline import CollisionWorld, PipelineConfig
+
+    print("[11] CollisionWorld (torch ops, no kernel) on the card")
+    t_start = time.perf_counter()
+    worlds = {8: CollisionWorld(robot, obstacle, device="cuda"),
+              64: CollisionWorld(robot, obstacle, PipelineConfig(narrow_chunk=64), device="cuda")}
+    for w in worlds.values():
+        w.check(data["hard10k"].confs[:64])  # warm-up
+    for key, ds in data.items():
+        # The default (narrow_chunk 8) on every set, timed by the pass
+        # itself (`check` returns host arrays); 64 on hard10k and easy10k.
+        t0 = time.perf_counter()
+        valid, res = worlds[8].check(ds.confs, return_result=True)
+        ms = {8: (time.perf_counter() - t0) * 1e3 * 1e4 / len(ds.confs)}
+        msg = (f"  {key}: {int(valid.sum())} valid, {int(res.coplanar.sum())} flagged coplanar "
+               f"(to float64), {int((~res.broad_valid).sum())} broad-phase hits, "
+               f"{int(res.num_pairs.sum())} box-overlapping pairs, overflow "
+               f"{int(res.overflow.sum())}")
+        if key == "samples10k":
+            print(f"{msg}; header says {ds.header_valid} valid")
+            require(int(valid.sum()) == ds.header_valid, f"[11] {key}: valid count off the header")
+            continue
+        mism = int((valid != ds.valid).sum())
+        print(f"{msg}; {mism} golden mismatches")
+        require(mism == 0, f"[11] {key}: {mism} golden mismatches")
+        t0 = time.perf_counter()
+        require(np.array_equal(worlds[64].check(ds.confs), valid),
+                f"{key}: narrow_chunk 64 changes a verdict")
+        ms[64] = (time.perf_counter() - t0) * 1e3 * 1e4 / len(ds.confs)
+        print(f"  [{card}] {key}: CollisionWorld {ms[8]} ms per 10k rows (narrow_chunk 8; 64: "
+              f"{ms[64]} ms, the same verdicts); check_valid_resolved "
+              f"{resolved_s[key] * 1e3 * 1e4 / len(ds.confs)} ms per 10k rows (phase 5)")
+    print(f"  [{card}] phase 11: {time.perf_counter() - t_start} s")
+
+
+def phase12_rank() -> dict:
+    """One rank of phase 12 (a)-(c), in a spawned process of a gloo group of
+    2 on the one card. Counts the kernels' launches of the legs from 0 (a
+    fresh process); the timed reruns come after the counts are read."""
+    from robocheck_tpu_torch import load_obj, read_conf_file
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.parallel.sharding import ShardedChecker, make_mesh
+    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
+    from robocheck_tpu_torch.planner.clearance import ClearanceEngine
+    from robocheck_tpu_torch.profiling.timers import benchmark
+    from robocheck_tpu_torch.runtime.distributed import shard_bounds
+
+    mesh = make_mesh(2, "cuda", backend="gloo")
+    robot = load_obj(assets.alpha_robot_path())
+    obstacle = load_obj(assets.alpha_obstacle_path())
+    hard = read_conf_file(assets.dataset_path("hard10k")).confs
+    checker = ShardedChecker(robot, obstacle, mesh)
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    # (a) the checker on all of hard10k, and 256 rows read per rank.
+    out["packed"] = checker.check_packed(hard)
+    out["resolved"] = checker.check_valid_resolved(hard)
+    block, totals = checker.check_block(hard)
+    out["block"], out["totals"] = block.numpy(), totals.numpy()
+    lo, hi = shard_bounds(256)
+    out["dist_rows"] = (lo, hi)
+    out["dist_valid"] = checker.check_valid_distributed(hard[lo:hi], 256)[0]
+    # (b) the engine on bench.py's clearance scene.
+    eng = ClearanceEngine(subdivide_mesh(robot, 4).vertices, obstacle, mesh=mesh)
+    queries = clearance_queries(obstacle)
+    out["dist"] = eng.min_distances(queries)
+    # (c) phase 10 (a)'s SQP with sharded blocks and checker, and its
+    # certificate with the engine sharded.
+    cert_alpha = runpy.run_path(os.path.join(ROOT, "scripts", "torch_certify_alpha.py"),
+                                run_name="imported")
+    res, _, rec = cert_alpha["smooth_alpha"](robot, obstacle, checker, mesh=mesh)
+    out["sqp"] = rec
+    out["sqp_cert"] = cert_alpha["certify_leg"]("sqp", robot, obstacle, checker, verbose=False,
+                                                path=res.trajectory, mesh=mesh)
+    torch.cuda.synchronize()
+    out["launches"] = {"megakernel": mk.check_poses_cuda.launches,
+                       "megakernel_stats": mk.check_poses_stats_cuda.launches,
+                       "clearance": kc.pair_min_cuda.launches}
+    out["check_s"] = benchmark(checker.check_valid_resolved, hard)
+    out["engine_s"] = benchmark(eng.min_distances, queries, runs=3)
+    return out
+
+
+def phase12(robot, obstacle, data, checker, card: str, sqp_ref: dict) -> dict:
+    """Scale-out on the card (phase 12): two gloo ranks spawned on the one
+    card run (a) `ShardedChecker` on hard10k, (b) the sharded engine, (c)
+    the sharded SQP and its certificate; (d) `torch_graft_entry.
+    dryrun_multichip(2)`. Everything is held against a world of 1 here.
+    Returns the launches of each kernel in the ranks."""
+    import torch_graft_entry
+    from robocheck_tpu_torch.parallel.sharding import ShardedChecker
+    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
+    from robocheck_tpu_torch.planner.clearance import ClearanceEngine
+    from robocheck_tpu_torch.profiling.timers import benchmark
+    from robocheck_tpu_torch.runtime.distributed import launch
+
+    print("[12] scale-out: 2 gloo ranks (spawned processes) on the one card")
+    t_start = time.perf_counter()
+    hard = data["hard10k"]
+    ranks = launch(phase12_rank, 2, timeout=600.0)
+    t_ranks = time.perf_counter() - t_start
+    r0 = ranks[0]
+    print(f"  ranks on {[r['device'] for r in ranks]}, done in {t_ranks} s")
+    # (a) against the world of 1 and the goldens. Bits 1-2 of a colliding
+    # row depend on the pairs the kernel reached before its any-hit exit, an
+    # order its warps settle at run time: phase 3's rule compares bit 0 on
+    # every row and the whole byte on valid rows. Two world-of-1 runs show
+    # how often a colliding row's bits move.
+    packed1 = checker.check_packed(hard.confs)
+    moved = int((checker.check_packed(hard.confs) != packed1).sum())
+    block1 = checker.check_block(hard.confs).cpu().numpy()
+    mism = int((r0["resolved"] != hard.valid).sum())
+    tot = r0["totals"]
+    dist_valid = np.concatenate([r["dist_valid"] for r in ranks])
+    print(f"  (a) check_packed on hard10k: bytes equal to the world of 1's on "
+          f"{int((r0['packed'] == packed1).sum())} / {len(packed1)} rows (two world-of-1 runs: "
+          f"{moved} rows differ); check_valid_resolved "
+          f"{int(r0['resolved'].sum())} valid, {mism} golden mismatches; check_block totals "
+          f"{tot.tolist()} (valid, colliding, coplanar); check_valid_distributed on rows "
+          f"{[r['dist_rows'] for r in ranks]}: {int(dist_valid.sum())} valid, "
+          f"{int((dist_valid != hard.valid[:256]).sum())} golden mismatches")
+    for r in ranks:
+        compare_bits(f"(a) rank {r['rank']} bytes vs the world of 1's",
+                     torch.from_numpy(r["packed"]), torch.from_numpy(packed1))
+    require(mism == 0, f"(a) {mism} golden mismatches under sharding")
+    require(tot[0] == r0["block"][:, 0].sum() and tot[0] + tot[1] == len(hard.confs)
+            and tot[2] == r0["block"][:, 1].sum(), "(a) the totals differ from the rows' counts")
+    require(np.array_equal(r0["block"][:, [0, 3]], block1[:, [0, 3]]),
+            "(a) the counter rows' valid or broad column differs from the world of 1's")
+    require(np.array_equal(dist_valid, hard.valid[:256])
+            and np.array_equal(dist_valid, (packed1[:256] & 1) == 1),
+            "(a) check_valid_distributed differs from the goldens or the world of 1")
+    s1 = benchmark(ShardedChecker(robot, obstacle).check_valid_resolved, hard.confs)
+    s2 = max(r["check_s"] for r in ranks)
+    print(f"  (a) [{card}] check_valid_resolved on hard10k, best of 5: 1 rank {s1 * 1e3} ms "
+          f"({len(hard.confs) / s1} checks/s); 2 ranks {s2 * 1e3} ms ({len(hard.confs) / s2} "
+          f"checks/s)")
+    # (b) bit-equal to the world of 1's engine.
+    eng = ClearanceEngine(subdivide_mesh(robot, 4).vertices, obstacle, device="cuda")
+    queries = clearance_queries(obstacle)
+    d1 = eng.min_distances(queries)
+    same = all(np.array_equal(r["dist"], d1) for r in ranks)
+    print(f"  (b) engine distances on bench.py's scene ({len(queries)} queries): bit-equal to "
+          f"the world of 1's: {same} (max abs diff {float(np.abs(r0['dist'] - d1).max())})")
+    require(same, "(b) the sharded engine's distances differ from the world of 1's")
+    e1 = benchmark(eng.min_distances, queries, runs=3)
+    e2 = max(r["engine_s"] for r in ranks)
+    print(f"  (b) [{card}] min_distances: 1 rank {len(queries) / e1} configurations/s, 2 ranks "
+          f"{len(queries) / e2}")
+    # (c) the sharded SQP against phase 10 (a).
+    rec, cert = r0["sqp"], r0["sqp_cert"]
+    print(f"  (c) [{card}] sharded SQP: {json.dumps(rec)}")
+    print(f"  (c) its certificate: {cert['num_checks']} checks (ALPHA_CCD.json: "
+          f"{cert['reference_num_checks']}), certified {cert['certified']}, uncertified steps "
+          f"{cert['uncertified_steps']}, {cert['wall_s']} s; phase 10 (a): outer iterations "
+          f"{sqp_ref['outer_iters']}, merit {sqp_ref['merit']}, plan {sqp_ref['plan_s']} s")
+    require(rec["sqp_smooth_certified"] and rec["outer_iters"] == sqp_ref["outer_iters"],
+            "(c) the sharded SQP does not certify at phase 10 (a)'s outer iteration")
+    require(abs(rec["merit"] - sqp_ref["merit"]) <= 1e-5 * abs(sqp_ref["merit"]),
+            "(c) the sharded SQP's merit is off phase 10 (a)'s (rel 1e-5)")
+    require(cert["certified"] and not cert["collision"] and cert["uncertified_steps"] == 0,
+            "(c) the sharded SQP's path is not certified with 0 uncertified steps")
+    # (d) torch_graft_entry's dryrun.
+    dry = torch_graft_entry.dryrun_multichip(2, "cuda")
+    launches = {k: sum(r["launches"][k] for r in ranks + dry) for k in r0["launches"]}
+    print(f"  launches in the ranks (a)-(d): {launches}")
+    require(all(launches.values()), "phase 12 did not launch every kernel of its path")
+    print(f"  [{card}] phase 12: {time.perf_counter() - t_start} s")
+    return launches
 
 
 def main() -> None:
@@ -1118,9 +1317,10 @@ def main() -> None:
 
     # ---- 5. Times. ----
     print(f"[5] times on {card}")
+    resolved_s = {}
     for key in ("hard10k", "easy10k"):
         confs = data[key].confs
-        s = benchmark(checker.check_valid_resolved, confs)
+        s = resolved_s[key] = benchmark(checker.check_valid_resolved, confs)
         print(f"  [{card}] {key}: check_valid_resolved best of 5 {s * 1e3} ms, "
               f"{len(confs) / s} checks/s")
     # The kernel and its twin at the main path's shape (all rows of a set in
@@ -1269,14 +1469,23 @@ def main() -> None:
     launches8 = phase8(robot, obstacle, card)
     clearance_entry = phase9_engine(robot, obstacle, card, device)
     launches9, scans9 = phase9_certify(robot, obstacle, card)
-    launches10, scans10 = phase10(robot, obstacle, card)
-    clearance_entry["launches"] = scans9 + scans10
+    launches10, scans10, sqp_rec = phase10(robot, obstacle, card)
+
+    # ---- 11-12. The dense reference pipeline; scale-out. ----
+    phase11(robot, obstacle, data, card, resolved_s)
+    launches12 = phase12(robot, obstacle, data, checker, card, sqp_rec)
+    clearance_entry["launches"] = scans9 + scans10 + launches12["clearance"]
     entries.append(clearance_entry)
-    entries[0]["launches"] = launches + launches7 + launches8 + launches9 + launches10
+    entries[0]["launches"] = (launches + launches7 + launches8 + launches9 + launches10
+                              + launches12["megakernel"])
     entries[0]["max_abs_err"] = max(max_err, chunk_err)
+    entries[1]["launches"] = stats_launches + launches12["megakernel_stats"]
     print(f"  megakernel launches by path: main {launches}, oversized meshes {launches7}, "
-          f"planners {launches8}, certifier {launches9}, gradient planners {launches10}; scan "
-          f"kernel: certifier {scans9}, gradient planners {scans10}")
+          f"planners {launches8}, certifier {launches9}, gradient planners {launches10}, "
+          f"scale-out {launches12['megakernel']}; counter kernel: stats path "
+          f"{stats_launches}, scale-out {launches12['megakernel_stats']}; scan kernel: "
+          f"certifier {scans9}, gradient planners {scans10}, scale-out "
+          f"{launches12['clearance']}")
 
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -9,6 +9,11 @@ dense arrays with a batch-major layout:
   * mesh vertices:  float32 ``[V, 3]``
   * mesh triangles: int32 ``[T, 3]`` vertex indices
   * AABBs: float32 ``[..., 6]`` with columns (xmin, ymin, zmin, xmax, ymax, zmax)
+
+`Mesh.padded` gives lane-aligned triangle arrays: the triangle count rounded
+up to a multiple of 128, the padding triangles degenerate (all three indices
+point at vertex 0) and marked False in a validity mask, so the dense
+reference pipeline (`ops.pipeline`) masks the tail instead of branching.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import dataclasses
 from functools import cached_property
 
 import numpy as np
+
+from .constants import LANE, round_up
 
 # Column indices for configuration arrays.
 CONF_X, CONF_Y, CONF_Z, CONF_PITCH, CONF_YAW, CONF_ROLL = range(6)
@@ -63,6 +70,9 @@ class Mesh:
         """Gathered triangle corners, float32 [T, 3 (corner), 3 (xyz)]."""
         return self.vertices[self.triangles]
 
+    def padded(self, multiple: int = LANE) -> "PaddedMesh":
+        return PaddedMesh.from_mesh(self, multiple)
+
     @staticmethod
     def merge(meshes: "list[Mesh]", name: str = "merged") -> "Mesh":
         """Concatenate meshes into one (multi-obstacle scenes collapse into
@@ -83,6 +93,32 @@ class Mesh:
 
         v = transform_vertices_f64(np.asarray(conf, np.float64), self.vertices)
         return Mesh(v.astype(np.float32), self.triangles, self.name)
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedMesh:
+    """Lane-aligned view of a mesh: the triangle list padded to a multiple of
+    ``multiple`` with degenerate triangles, and a validity mask."""
+
+    vertices: np.ndarray  # [V, 3] float32 (unpadded)
+    triangles: np.ndarray  # [Tp, 3] int32
+    tri_mask: np.ndarray  # [Tp] bool, False on padding
+    num_triangles: int  # true triangle count
+
+    @staticmethod
+    def from_mesh(mesh: Mesh, multiple: int = LANE) -> "PaddedMesh":
+        t = mesh.num_triangles
+        tp = round_up(t, multiple)
+        tris = np.zeros((tp, 3), dtype=np.int32)
+        tris[:t] = mesh.triangles
+        mask = np.zeros((tp,), dtype=bool)
+        mask[:t] = True
+        return PaddedMesh(mesh.vertices, tris, mask, t)
+
+    @cached_property
+    def triangle_vertices(self) -> np.ndarray:
+        """[Tp, 3, 3] float32; padding rows repeat vertex 0 (degenerate)."""
+        return self.vertices[self.triangles]
 
 
 def validate_confs(confs: np.ndarray) -> np.ndarray:

@@ -16,7 +16,9 @@ pair. So the packed byte's bit 0 (valid) ANDs, bits 1 (coplanar) and 2
 (``num_pairs`` sums).
 
 ``make_checker`` is the entry point: a plain `MegaKernelChecker` where the
-pair fits, a `ChunkedMegaKernelChecker` otherwise.
+pair fits, a `ChunkedMegaKernelChecker` otherwise; with ``mesh=`` (a
+`parallel.sharding.ProcessMesh`) every check is sharded over its ranks
+(`ShardedChecker`), so oversized meshes and several ranks compose.
 """
 from __future__ import annotations
 
@@ -64,19 +66,29 @@ class ChunkedMegaKernelChecker:
     (`megakernel.robot_bounds`, the kernel's stage 1 bit for bit) against
     every obstacle chunk's box, and launches each chunk pair on its hits
     only. Verdicts are identical either way: a row it skips is one that
-    chunk pair's kernel would have ended at its broad phase."""
+    chunk pair's kernel would have ended at its broad phase.
+
+    With ``mesh`` each chunk pair runs through a `ShardedChecker` over its
+    ranks."""
 
     def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
                  morton: bool = True, max_rob_tris: int = MAX_ROB_TRIS,
-                 max_obs_tris: int = MAX_OBS_TRIS):
+                 max_obs_tris: int = MAX_OBS_TRIS, mesh=None):
         self.robot = robot
         self.obstacle = obstacle
+        if mesh is not None:
+            from ..parallel.sharding import ShardedChecker
+
+            def build(r, o):
+                return ShardedChecker(r, o, mesh, morton, device)
+        else:
+            def build(r, o):
+                return MegaKernelChecker(r, o, device, morton)
         rob_chunks = split_mesh(robot, max_rob_tris)
         obs_chunks = split_mesh(obstacle, max_obs_tris)
         self._n_obs_chunks = len(obs_chunks)
         # Robot-major: checker i holds robot chunk i // n_obs_chunks.
-        self.checkers = [MegaKernelChecker(r, o, device, morton)
-                         for r in rob_chunks for o in obs_chunks]
+        self.checkers = [build(r, o) for r in rob_chunks for o in obs_chunks]
         self.device = self.checkers[0].device
 
     @property
@@ -157,11 +169,16 @@ class ChunkedMegaKernelChecker:
 
 
 def make_checker(robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
-                 morton: bool = True):
+                 morton: bool = True, mesh=None):
     """One checker for any mesh sizes, on the card by default: the fused
     `MegaKernelChecker` where the pair fits one kernel block, the
-    Morton-chunked one otherwise."""
+    Morton-chunked one otherwise; sharded over the ranks of ``mesh`` (a
+    `parallel.sharding.ProcessMesh`) when one is given."""
     try:
+        if mesh is not None:
+            from ..parallel.sharding import ShardedChecker
+
+            return ShardedChecker(robot, obstacle, mesh, morton, device)
         return MegaKernelChecker(robot, obstacle, device, morton)
     except SharedMemoryBudgetError:
-        return ChunkedMegaKernelChecker(robot, obstacle, device, morton)
+        return ChunkedMegaKernelChecker(robot, obstacle, device, morton, mesh=mesh)

@@ -722,37 +722,37 @@ class MegaKernelChecker:
 
     def check(self, confs: np.ndarray, two_phase: bool = True):
         """[N,6] configurations -> (valid, coplanar, num_pairs, broad) numpy
-        arrays (`megakernel.py:1444-1491`).
+        arrays (`megakernel.py:1444-1491`), by `stats_columns` over
+        ``broad_block`` and ``check_block``."""
+        return stats_columns(confs, two_phase, lambda c: self.broad_block(c).cpu().numpy(),
+                             lambda c: self.check_block(c).cpu().numpy())
 
-        ``two_phase``: the broad phase over the whole batch first, then the
-        counter kernel on its survivors only (one ``nonzero``); otherwise the
-        counter kernel on every row. Non-finite rows are reported invalid,
-        not coplanar, with 0 pairs and broad True."""
-        confs = validate_confs(confs)
-        n = confs.shape[0]
-        finite = np.isfinite(confs).all(axis=1)
-        if not finite.all():
-            out_v = np.zeros((n,), dtype=bool)
-            out_c = np.zeros((n,), dtype=bool)
-            out_p = np.zeros((n,), dtype=np.int32)
-            out_b = np.ones((n,), dtype=bool)
-            if finite.any():
-                (out_v[finite], out_c[finite], out_p[finite],
-                 out_b[finite]) = self.check(confs[finite], two_phase=two_phase)
-            return out_v, out_c, out_p, out_b
-        dev = torch.from_numpy(confs).to(self.device)
-        if not two_phase:
-            out = self.check_block(dev).cpu().numpy()
-            return (out[:, 0].astype(bool), out[:, 1].astype(bool), out[:, 2],
-                    out[:, 3].astype(bool))
-        overlap = self.broad_block(dev)
-        idx = overlap.nonzero()[:, 0]
-        out = self.check_block(dev[idx]).cpu().numpy()
-        idx = idx.cpu().numpy()
-        valid = np.ones((n,), dtype=bool)
-        coplanar = np.zeros((n,), dtype=bool)
-        num_pairs = np.zeros((n,), dtype=np.int32)
-        valid[idx] = out[:, 0].astype(bool)
-        coplanar[idx] = out[:, 1].astype(bool)
-        num_pairs[idx] = out[:, 2]
-        return valid, coplanar, num_pairs, overlap.cpu().numpy()
+
+def stats_columns(confs: np.ndarray, two_phase: bool, broad, rows):
+    """The stats path's (valid, coplanar, num_pairs, broad) numpy arrays of
+    [N,6] configurations, over a checker's ``broad(confs) -> [n] bool``
+    (the kernel's stage 1) and ``rows(confs) -> [n, OUT_COLS] int32``
+    (counter rows), both numpy.
+
+    ``two_phase``: the broad phase over the whole batch first, then the
+    counter rows of its survivors only; otherwise counter rows of every
+    row. Non-finite rows are reported invalid, not coplanar, with 0 pairs
+    and broad True."""
+    confs = validate_confs(confs)
+    n = confs.shape[0]
+    valid = np.zeros((n,), dtype=bool)
+    coplanar = np.zeros((n,), dtype=bool)
+    num_pairs = np.zeros((n,), dtype=np.int32)
+    broad_hit = np.ones((n,), dtype=bool)
+    idx = np.flatnonzero(np.isfinite(confs).all(axis=1))
+    if two_phase:
+        broad_hit[idx] = broad(confs[idx])
+        valid[idx] = True
+        idx = idx[broad_hit[idx]]
+    out = rows(confs[idx])
+    valid[idx] = out[:, 0].astype(bool)
+    coplanar[idx] = out[:, 1].astype(bool)
+    num_pairs[idx] = out[:, 2]
+    if not two_phase:
+        broad_hit[idx] = out[:, 3].astype(bool)
+    return valid, coplanar, num_pairs, broad_hit

@@ -161,12 +161,13 @@ class SweptCertifier:
     ``device`` ("cuda" by default: the scan kernel; "cpu": its twin), and
     ``backend="native"`` with the float64 BVH of the native library on the
     host. Without ``exact`` a distance grid on ``device`` bounds them
-    (``grid=`` shares one).
+    (``grid=`` shares one). ``mesh`` (a `parallel.sharding.ProcessMesh`)
+    shards the engine's exact pairs over its ranks.
     """
 
     def __init__(self, robot: Mesh, obstacle: Mesh, grid: DistanceGrid | None = None,
                  resolution: int = 96, refine: int = 0, exact: bool = False,
-                 backend: str = "engine", device: torch.device | str = "cuda"):
+                 backend: str = "engine", device: torch.device | str = "cuda", mesh=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.device = torch.device(device)  # the engine's or the grid's
@@ -199,7 +200,8 @@ class SweptCertifier:
         if exact and backend == "engine":
             from .clearance import ClearanceEngine
 
-            self._engine = ClearanceEngine(self._exact_verts, obstacle, device=self.device)
+            self._engine = ClearanceEngine(self._exact_verts, obstacle, device=self.device,
+                                           mesh=mesh)
         elif exact:
             from ..runtime import native
 
@@ -363,7 +365,7 @@ def _segments_of(res: SweptCertificate) -> list[np.ndarray]:
 def certify_multires(robot: Mesh, obstacle: Mesh, path: np.ndarray, checker,
                      levels=((0, 8), (2, 8), (4, 8), (7, 10)), verbose: bool = False,
                      backend: str = "engine", device: torch.device | str = "cuda",
-                     prefetch: bool = True) -> SweptCertificate:
+                     prefetch: bool = True, mesh=None) -> SweptCertificate:
     """Multi-resolution continuous certification: each level is a
     ``(refine, max_depth)`` pair with exact surface distances (``backend``
     "engine" on ``device``, or "native"). Cheap levels certify what their
@@ -379,8 +381,12 @@ def certify_multires(robot: Mesh, obstacle: Mesh, path: np.ndarray, checker,
 
     Returns a certificate with totals over levels; ``min_clearance`` is the
     min over levels of each level's own proven margin. Stops at the first
-    refutation (collision=True)."""
-    dev = torch.device(device)
+    refutation (collision=True).
+
+    ``mesh`` (a `parallel.sharding.ProcessMesh`, whose device then replaces
+    ``device``) shards each engine's exact pairs over its ranks; every rank
+    calls this with the same path and gets the same certificate."""
+    dev = torch.device(device) if mesh is None else mesh.device
     if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
         # The worker thread's current device may differ: name it.
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -395,7 +401,7 @@ def certify_multires(robot: Mesh, obstacle: Mesh, path: np.ndarray, checker,
 
     def _build(refine):
         cert = SweptCertifier(robot, obstacle, refine=refine, exact=True,
-                              backend=backend, device=dev)
+                              backend=backend, device=dev, mesh=mesh)
         if cert._engine is not None and dev.type == "cuda":
             torch.cuda.synchronize(dev)  # its uploads are done before it is used
         return cert

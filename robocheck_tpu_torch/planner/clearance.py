@@ -32,10 +32,18 @@ block) pair:
     posed scene's scale), so it is a sound lower bound; the same slack
     guards the cull, so no pair that could hold the true minimum is dropped.
 
+  * With ``mesh`` (a `parallel.sharding.ProcessMesh`) each exact dispatch's
+    pairs are sharded over the ranks: each rank runs its contiguous slice
+    through the scan kernel, and the per-pair minima are all-gathered in
+    pair order, so the host scatter-min runs identically on every rank. A
+    pair's minimum is the same kernel on the same inputs, so the distances
+    are bit-equal to a world of 1's. The bounds phase runs on every rank
+    alike.
+
 Two faults of the reference are not carried over: the obstacle triangles
 are not padded with a far-away sentinel (the kernel loops to nt, the twin
 slices), and an empty vertex or triangle array raises ValueError instead of
-an IndexError. There is no ``mesh=`` (sharding is not ported).
+an IndexError.
 """
 from __future__ import annotations
 
@@ -75,12 +83,19 @@ class ClearanceEngine:
       obstacle: obstacle :class:`Mesh` with at least one triangle.
       device: "cuda" (the default: the scan kernel) or "cpu" (its twin).
       obs_group: obstacle triangles per box group.
+      mesh: a `parallel.sharding.ProcessMesh` whose ranks share the exact
+        phase's pairs, or None; its device must be of ``device``'s type.
     """
 
     def __init__(self, robot_vertices: np.ndarray, obstacle: Mesh,
-                 device: torch.device | str = "cuda", obs_group: int = 32):
+                 device: torch.device | str = "cuda", obs_group: int = 32, mesh=None):
         t0 = _time.perf_counter()
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"device {device!r} asked for on a mesh of {mesh.device}")
+            self.device = mesh.device
+        self.mesh = mesh
         self._events = []  # (phase, start, end): CUDA events of launches not yet read
         v = np.asarray(robot_vertices, dtype=np.float64).reshape(-1, 3)
         tri = np.asarray(obstacle.triangle_vertices, dtype=np.float64)
@@ -216,15 +231,27 @@ class ClearanceEngine:
         if len(cfg_ids) == 0:
             return
         t0 = _time.perf_counter()
-        ci = torch.as_tensor(cfg_ids).to(self.device)
-        bi = torch.as_tensor(blk_ids.astype(np.int32)).to(self.device)
+        k = len(cfg_ids)
+        mine = slice(None)
+        if self.mesh is not None and self.mesh.size > 1:
+            # This rank's contiguous slice of the pairs, padded so that the
+            # slices are equal (the padding repeats pair 0 and is dropped).
+            per = -(-k // self.mesh.size)
+            mine = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+            pad = per * self.mesh.size - k
+            cfg_ids = np.concatenate([cfg_ids, np.repeat(cfg_ids[:1], pad)])
+            blk_ids = np.concatenate([blk_ids, np.repeat(blk_ids[:1], pad)])
+        ci = torch.as_tensor(cfg_ids[mine]).to(self.device)
+        bi = torch.as_tensor(blk_ids[mine].astype(np.int32)).to(self.device)
         outs = [self._scan("exact", rows[ci[lo : lo + PAIR_CHUNK]], bi[lo : lo + PAIR_CHUNK],
                            self._blocks, 2.0 * err)
-                for lo in range(0, len(cfg_ids), PAIR_CHUNK)]
+                for lo in range(0, len(ci), PAIR_CHUNK)]
         d = self._fetch(outs)
-        np.minimum.at(best, cfg_ids, d)
+        if self.mesh is not None and self.mesh.size > 1:
+            d = self.mesh.all_gather(torch.from_numpy(d)).numpy()[:k]
+        np.minimum.at(best, cfg_ids[:k], d)
         self.stats["exact_s"] += _time.perf_counter() - t0
-        self.stats["pairs"] += len(cfg_ids)
+        self.stats["pairs"] += k
 
     def _survivors(self, confs: torch.Tensor, rows: torch.Tensor, best: np.ndarray,
                    err: float):

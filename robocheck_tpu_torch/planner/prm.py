@@ -77,18 +77,19 @@ def _interpolate_many(a: np.ndarray, b: np.ndarray, steps: int) -> np.ndarray:
 class PRMPlanner:
     """``checker``: anything with ``check_valid_resolved`` (default: the
     port's `kernels.chunked.make_checker` on ``device``, the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU; sharded over the ranks of ``mesh``, a
+    `parallel.sharding.ProcessMesh`, when one is given)."""
 
     def __init__(self, robot: Mesh, obstacle: Mesh,
                  config: PRMConfig | None = None, checker=None,
                  sample_box: tuple | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         from ..kernels.chunked import make_checker
 
         self.robot = robot
         self.obstacle = obstacle
         self.cfg = config or PRMConfig()
-        self.checker = checker or make_checker(robot, obstacle, device)
+        self.checker = checker or make_checker(robot, obstacle, device, mesh=mesh)
         if sample_box is None:
             # The obstacle box inflated by one robot extent per side.
             o = obstacle.aabb.astype(np.float64)

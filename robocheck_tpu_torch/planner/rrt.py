@@ -47,17 +47,18 @@ class RRTResult(NamedTuple):
 class RRTConnectPlanner:
     """``checker``: anything with ``check_valid_resolved`` (default: the
     port's `kernels.chunked.make_checker` on ``device``, the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU; sharded over the ranks of ``mesh``, a
+    `parallel.sharding.ProcessMesh`, when one is given)."""
 
     def __init__(self, robot: Mesh, obstacle: Mesh,
                  config: RRTConfig | None = None, checker=None,
-                 sample_box=None, device: torch.device | str = "cuda"):
+                 sample_box=None, device: torch.device | str = "cuda", mesh=None):
         from ..kernels.chunked import make_checker
 
         self.robot = robot
         self.obstacle = obstacle
         self.cfg = config or RRTConfig()
-        self.checker = checker or make_checker(robot, obstacle, device)
+        self.checker = checker or make_checker(robot, obstacle, device, mesh=mesh)
         r = robot.aabb.astype(np.float64)
         o = obstacle.aabb.astype(np.float64)
         ext = float((r[3:] - r[:3]).min())

@@ -1,5 +1,5 @@
 """Sequential Quadratic Programming trajectory optimizer (PyTorch port of
-`robocheck_tpu.planner.sqp`, single device).
+`robocheck_tpu.planner.sqp`).
 
 The l1-penalty SQP formulation (TrajOpt-style) over batched collision
 constraint blocks. Per outer iteration:
@@ -16,6 +16,11 @@ constraint blocks. Per outer iteration:
      region otherwise, grow it on good steps.
   4. Penalty escalation until the fused checker certifies the densified
      trajectory (`trajopt.densify`).
+
+With ``mesh`` (a `parallel.sharding.ProcessMesh`) the waypoints are sharded
+over its ranks: each evaluates its waypoints' blocks, the penalty total is
+all-reduced and g, J are all-gathered (the subproblem consumes them
+whole), and certification goes through the sharded checker.
 """
 from __future__ import annotations
 
@@ -83,26 +88,56 @@ def _pose_each(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return v + q[..., 0:3]
 
 
+class _InlineExecutor:
+    """``submit`` runs the call at once: certification in line, where its
+    collectives must keep their order against the main thread's."""
+
+    def submit(self, fn, *args) -> _cf.Future:
+        fut = _cf.Future()
+        fut.set_result(fn(*args))
+        return fut
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
 class SQPOptimizer:
     """``checker``: anything with ``check_valid_resolved`` (default: the
     port's `kernels.chunked.make_checker` on ``device``, the card unless the
     caller asks for the CPU). Constraint blocks, subproblem and merit run on
     ``device``; certification runs on a worker thread, overlapping the next
-    penalty round's first constraint evaluation."""
+    penalty round's first constraint evaluation.
+
+    ``mesh`` (a `parallel.sharding.ProcessMesh` of more than one rank, whose
+    device replaces ``device``) shards the constraint blocks over the
+    waypoints and the default checker over the rows. Every rank runs
+    ``plan`` with the same arguments. The collectives of the blocks and of
+    the checker share one process group, so certification then runs in line
+    (the same results, with no overlap): from a worker thread its
+    collectives could interleave with the main thread's in another order on
+    each rank."""
 
     def __init__(self, robot: Mesh, obstacle: Mesh,
                  config: SQPConfig | None = None,
                  grid: DistanceGrid | None = None, checker=None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         from ..kernels.chunked import make_checker
 
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"device {device!r} asked for on a mesh of {mesh.device}")
+            self.device = mesh.device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.robot = robot
         self.obstacle = obstacle
         self.cfg = cfg = config or SQPConfig()
         self.grid = grid if grid is not None else build_distance_grid(
             obstacle, cfg.grid_resolution, device=self.device)
-        self.checker = checker or make_checker(robot, obstacle, self.device)
+        self.checker = checker or make_checker(robot, obstacle, self.device, mesh=mesh)
         self._samples = torch.from_numpy(
             _sample_surface_points(robot, cfg.num_surface_samples, cfg.seed)).to(self.device)
         rs = cfg.rot_scale
@@ -117,11 +152,11 @@ class SQPOptimizer:
         d = self.grid.query(_pose_points(q, self._samples))  # [T,P]
         return torch.topk(self.cfg.margin - d, self.cfg.top_k, dim=-1)
 
-    def _constraint_blocks(self, q: torch.Tensor):
-        """(g0 [T,K], J [T,K,6], penalty total) (`sqp.py:110-120`), with
-        J[t,k] = d g[t,k] / d q_t. Each residual is one sample's distance at
-        its own waypoint, so one backward pass over the K selected samples,
-        each posed by its own copy of q_t, gives every block."""
+    def _blocks(self, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(g0 [T,K], J [T,K,6]) of the waypoints ``q`` (`sqp.py:110-120`),
+        with J[t,k] = d g[t,k] / d q_t. Each residual is one sample's distance
+        at its own waypoint, so one backward pass over the K selected
+        samples, each posed by its own copy of q_t, gives every block."""
         with torch.no_grad():
             g, idx = self._top_residuals(q)
         T, K = idx.shape
@@ -129,11 +164,41 @@ class SQPOptimizer:
         with torch.enable_grad():
             gk = self.cfg.margin - self.grid.query(_pose_each(qk, self._samples[idx]))
             (J,) = torch.autograd.grad(gk.sum(), qk)
-        return g, J, float(torch.clamp(g, min=0.0).sum())
+        return g, J
+
+    def _my_waypoints(self, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """This rank's waypoints of ``q`` padded to a multiple of the world
+        size (the last row repeated, `sqp.py:204-214`) and their mask (0 on
+        the padding)."""
+        t, n = q.shape[0], self.mesh.size
+        per = -(-t // n)
+        qp = torch.cat([q, q[-1:].expand(per * n - t, 6)])
+        mask = (torch.arange(per * n, device=q.device) < t).to(torch.float32)
+        lo = self.mesh.rank * per
+        return qp[lo : lo + per], mask[lo : lo + per]
+
+    def _sharded_total(self, g: torch.Tensor, mask: torch.Tensor) -> float:
+        local = torch.sum(torch.clamp(g, min=0.0) * mask[:, None]).reshape(1)
+        return float(self.mesh.all_reduce_sum(local)[0])
+
+    def _constraint_blocks(self, q: torch.Tensor):
+        """(g0 [T,K], J [T,K,6], penalty total): waypoint-sharded, with an
+        all-reduced total and all-gathered blocks, under a mesh."""
+        if self.mesh is None:
+            g, J = self._blocks(q)
+            return g, J, float(torch.clamp(g, min=0.0).sum())
+        ql, mask = self._my_waypoints(q)
+        g, J = self._blocks(ql)
+        t = q.shape[0]
+        return (self.mesh.all_gather(g)[:t], self.mesh.all_gather(J)[:t],
+                self._sharded_total(g, mask))
 
     @torch.no_grad()
     def _penalty_total(self, q: torch.Tensor) -> float:
-        return float(torch.clamp(self._top_residuals(q)[0], min=0.0).sum())
+        if self.mesh is None:
+            return float(torch.clamp(self._top_residuals(q)[0], min=0.0).sum())
+        ql, mask = self._my_waypoints(q)
+        return self._sharded_total(self._top_residuals(ql)[0], mask)
 
     def _smooth_cost(self, q: torch.Tensor) -> torch.Tensor:
         dq = (q[1:] - q[:-1]) * self._scale
@@ -236,7 +301,8 @@ class SQPOptimizer:
 
         qj = torch.from_numpy(q).to(self.device)
         pending = None  # (future, traj, outer, mu, checkpoint) certification in flight
-        with _cf.ThreadPoolExecutor(max_workers=1) as pool:
+        with (_cf.ThreadPoolExecutor(max_workers=1) if self.mesh is None
+              else _InlineExecutor()) as pool:
             for rnd in range(start_round, cfg.max_penalty_rounds):
                 for _ in range(cfg.max_outer):
                     outer += 1

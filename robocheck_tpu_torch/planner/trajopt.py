@@ -153,13 +153,14 @@ def _pose_points(confs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
 class TrajectoryOptimizer:
     """``checker``: anything with ``check_valid_resolved`` (default: the
     port's `kernels.chunked.make_checker` on ``device``, the card unless the
-    caller asks for the CPU). The grid, the surface samples and the Adam
+    caller asks for the CPU; sharded over the ranks of ``mesh``, a
+    `parallel.sharding.ProcessMesh`, when one is given). The grid, the surface samples and the Adam
     loop live on ``device``."""
 
     def __init__(self, robot: Mesh, obstacle: Mesh,
                  config: TrajOptConfig | None = None,
                  grid: DistanceGrid | None = None, checker=None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         from ..kernels.chunked import make_checker
 
         self.device = resolve_device(device)
@@ -168,7 +169,7 @@ class TrajectoryOptimizer:
         self.cfg = cfg = config or TrajOptConfig()
         self.grid = grid if grid is not None else build_distance_grid(
             obstacle, cfg.grid_resolution, device=self.device)
-        self.checker = checker or make_checker(robot, obstacle, self.device)
+        self.checker = checker or make_checker(robot, obstacle, self.device, mesh=mesh)
         self._samples = torch.from_numpy(
             _sample_surface_points(robot, cfg.num_surface_samples, cfg.seed)).to(self.device)
         rs = cfg.rot_scale

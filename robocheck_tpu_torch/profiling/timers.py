@@ -6,7 +6,8 @@
   * ``trace``: a context manager around ``torch.profiler`` that writes a
     Chrome trace (open it in Perfetto or chrome://tracing).
   * ``benchmark``: best of ``runs`` after ``warmup`` calls, each synchronised
-    (the reference report's protocol, section 4.2: minimum of 5 runs).
+    (the reference report's protocol, section 4.2: minimum of 5 runs); in a
+    rank of a process group every rank starts and ends each call together.
   * ``event_ms``: a call's device time by CUDA events (back-to-back calls,
     so a kernel shorter than its launch's host overhead reads as that
     overhead); ``kernel_ms``: the summed durations of the kernels a call
@@ -36,6 +37,8 @@ import torch
 def _sync() -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        torch.distributed.barrier()
 
 
 class StageTimer:
@@ -88,6 +91,7 @@ def benchmark(fn, *args, runs: int = 5, warmup: int = 1) -> float:
         fn(*args)
         _sync()
     best = float("inf")
+    _sync()
     for _ in range(runs):
         t0 = time.perf_counter()
         fn(*args)

@@ -61,11 +61,12 @@ def parse_levels(spec: str) -> tuple:
     return tuple(tuple(int(x) for x in part.split(":")) for part in spec.split(","))
 
 
-def smooth_alpha(robot, obstacle, checker):
+def smooth_alpha(robot, obstacle, checker, mesh=None):
     """SQP smoothing of the alpha RRT path on the card, as
     `certify_alpha.py:104-128` runs it, from `resample` of
-    `data/alpha_certified_path.npy` to 48 waypoints. Returns (the SQPResult,
-    the optimizer, its record: certificate, wall time split into
+    `data/alpha_certified_path.npy` to 48 waypoints (its constraint blocks
+    sharded over the ranks of ``mesh`` where one is given). Returns (the
+    SQPResult, the optimizer, its record: certificate, wall time split into
     construction (the 96^3 grid) and `plan`, outer iterations, merit)."""
     from robocheck_tpu_torch.io import assets
     from robocheck_tpu_torch.io.parasol import read_query
@@ -76,7 +77,7 @@ def smooth_alpha(robot, obstacle, checker):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     opt = SQPOptimizer(robot, obstacle, SQPConfig(certify_step=0.1 * ext, **SQP_SETTINGS),
-                       checker=checker)
+                       checker=checker, mesh=mesh)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     init = resample(np.load(assets.find_asset(LEGS["raw"][0])), 48, opt.cfg.rot_scale)
@@ -90,9 +91,10 @@ def smooth_alpha(robot, obstacle, checker):
 
 
 def certify_leg(name: str, robot, obstacle, checker, backend: str = "engine",
-                verbose: bool = True, path: np.ndarray | None = None) -> dict:
+                verbose: bool = True, path: np.ndarray | None = None, mesh=None) -> dict:
     """Certify leg ``name`` (a key of LEGS) on the card; returns its
-    record. ``path``: the trajectory of a leg without a file ("sqp")."""
+    record. ``path``: the trajectory of a leg without a file ("sqp");
+    ``mesh``: shard the engine's exact pairs over its ranks."""
     from robocheck_tpu_torch.io import assets
     from robocheck_tpu_torch.kernels import clearance as kc
     from robocheck_tpu_torch.kernels import megakernel as mk
@@ -105,7 +107,7 @@ def certify_leg(name: str, robot, obstacle, checker, backend: str = "engine",
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = certify_multires(robot, obstacle, path, checker, levels=parse_levels(levels),
-                           verbose=verbose, backend=backend)
+                           verbose=verbose, backend=backend, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     kernel_s = res.engine_stats["kernel_s"] if res.engine_stats is not None else None

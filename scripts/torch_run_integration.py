@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Full-integration run of the PyTorch port: check a configuration file
-end to end with `MegaKernelChecker.check` (the stats path) and diff against
-its tags. The port of `scripts/run_integration.py` without `--xla`
-(the reference's `Full-Integration-Test`, `test/full-integration-test.cu:
-652-732`, with its FP/FN triage and the red KERNEL BROKEN banner).
+end to end with `MegaKernelChecker.check` (the stats path), or with
+`--xla` the dense reference pipeline `CollisionWorld.check`, and diff
+against its tags. The port of `scripts/run_integration.py` (the reference's
+`Full-Integration-Test`, `test/full-integration-test.cu:652-732`, with its
+FP/FN triage and the red KERNEL BROKEN banner).
 
     python3 scripts/torch_run_integration.py data/hard_confs10,000.conf
+    python3 scripts/torch_run_integration.py --xla ...     # CollisionWorld
     python3 scripts/torch_run_integration.py --oracle ...   # re-tag with the CPU oracle
     python3 scripts/torch_run_integration.py --device cpu ...  # the kernels' twins
 
@@ -24,7 +26,8 @@ sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
 
-from robocheck_tpu_torch import MegaKernelChecker, load_obj, read_conf_file  # noqa: E402
+from robocheck_tpu_torch import (CollisionWorld, MegaKernelChecker, load_obj,  # noqa: E402
+                                 read_conf_file)
 from robocheck_tpu_torch.io import assets  # noqa: E402
 from robocheck_tpu_torch.profiling.counters import CheckStats, verdict_diff  # noqa: E402
 from robocheck_tpu_torch.profiling.timers import card_line  # noqa: E402
@@ -38,6 +41,9 @@ def main() -> int:
                          "of trusting the file's tags")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda: the CUDA kernels; cpu: their PyTorch twins")
+    ap.add_argument("--xla", action="store_true",
+                    help="the dense reference pipeline (CollisionWorld) instead of the "
+                         "fused kernel")
     args = ap.parse_args()
 
     robot = load_obj(assets.alpha_robot_path())
@@ -60,14 +66,24 @@ def main() -> int:
         golden = check_configs(robot, obstacle, ds.confs)
         print(f"CPU oracle: {time.perf_counter() - t0:.2f}s")
 
-    checker = MegaKernelChecker(robot, obstacle, device=args.device)
     card = card_line() if args.device == "cuda" else "cpu (no card)"
-    checker.check(ds.confs)  # builds and loads the kernels
-    if args.device == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    valid, coplanar, num_pairs, broad_hit = checker.check(ds.confs)
-    elapsed = time.perf_counter() - t0
+    if args.xla:
+        world = CollisionWorld(robot, obstacle, device=args.device)
+        world.check(ds.confs[:64])  # warm-up
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        valid, res = world.check(ds.confs, return_result=True)
+        elapsed = time.perf_counter() - t0
+        coplanar, num_pairs, broad_hit = res.coplanar, res.num_pairs, ~res.broad_valid
+    else:
+        checker = MegaKernelChecker(robot, obstacle, device=args.device)
+        checker.check(ds.confs)  # builds and loads the kernels
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        valid, coplanar, num_pairs, broad_hit = checker.check(ds.confs)
+        elapsed = time.perf_counter() - t0
 
     stats = CheckStats.from_check(valid, coplanar, num_pairs, broad_hit, elapsed)
     print(stats.report())
@@ -75,6 +91,7 @@ def main() -> int:
     print(f"verdict diff: {diff['mismatches']} mismatches "
           f"({diff['false_positives']} FP / {diff['false_negatives']} FN)")
     print(json.dumps({"conf_file": str(args.conf_file), "device": args.device,
+                      "pipeline": "xla" if args.xla else "megakernel",
                       "card": card, "n": stats.num_confs, "valid": stats.num_valid,
                       "broad_culled": stats.broad_culled,
                       "coplanar_flagged": stats.coplanar_flagged,

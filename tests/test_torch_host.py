@@ -31,9 +31,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     # A fresh interpreter: the package, its kernels, chunked, planner (with the
     # distance grid, clearance engine, certifier and gradient planners), io,
-    # runtime and profiling modules and the entry-point scripts (their
-    # imports, not main()) load torch and numpy only, never jax or the JAX
-    # package.
+    # runtime, profiling, pipeline and sharding modules, `torch_graft_entry` and
+    # the entry-point scripts (their imports, not main()) load torch and numpy
+    # only, never jax or the JAX package.
     code = ("import sys, runpy; import robocheck_tpu_torch; "
             "import robocheck_tpu_torch.kernels.megakernel; "
             "import robocheck_tpu_torch.kernels._build; "
@@ -52,10 +52,13 @@ def test_port_imports_no_jax():
             "import robocheck_tpu_torch.planner.trajopt, robocheck_tpu_torch.planner.sqp; "
             "import robocheck_tpu_torch.runtime.checkpoint; "
             "from robocheck_tpu_torch.planner import plan_and_smooth; "
+            "import robocheck_tpu_torch.ops.pipeline, robocheck_tpu_torch.parallel.sharding; "
+            "import robocheck_tpu_torch.runtime.distributed; import torch_graft_entry; "
             "[runpy.run_path(f'scripts/{n}.py', run_name='imported') for n in "
             "('torch_run_integration', 'torch_roofline', 'torch_bisect', 'torch_profile', "
             "'torch_k1_compare', 'torch_gate_study', 'torch_demo_planner', "
-            "'torch_bench_chunked', 'torch_certify_alpha', 'torch_clearance_study')]; "
+            "'torch_bench_chunked', 'torch_certify_alpha', 'torch_clearance_study', "
+            "'torch_multihost_worker', 'torch_bench_scaling')]; "
             "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "
