@@ -7,11 +7,12 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each of which ends the run with a non-zero exit if it fails:
   1. the card: name, and `nvidia-smi` name and power limit;
   2. build the CUDA sources `robocheck_tpu_torch/csrc/megakernel.cu`,
-     `stage_probes.cu` and `clearance.cu` (sm_90a, -fmad=false; one nvcc
-     each, started together, beside `make -C native`, the float64 oracle)
-     and print the ptxas register / shared-memory / spill lines of
+     `stage_probes.cu`, `clearance.cu` and `front.cu` (sm_90a, -fmad=false;
+     one nvcc each, started together, beside `make -C native`, the float64
+     oracle) and print the ptxas register / shared-memory / spill lines of
      every kernel instance, and the fused kernel's shared memory per block
-     and resident blocks per SM for the alpha-1.0 tables;
+     and resident blocks per SM for the alpha-1.0 tables; the native
+     library's `parse_conf` on hard10k must equal `io.conf`'s rows and tags;
   3. the kernel against its plain PyTorch twin on the card, on the same pose
      rows: alpha-1.0 meshes over hard10k[:2048] and easy10k[:2048], two
      icosphere scenes (one with a 2200-triangle soup obstacle), the
@@ -148,6 +149,31 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      the bench launches it: hard100k's first chunk of `STREAM_CHUNK` rows
      [16384,16], its tail [1696,16] and the latency leg's [2048,16]; the
      kernel table's K1 times and bound are those of the [16384,16] chunk.
+Every check path above poses its rows through K2 (`csrc/front.cu`, the pose
+rows), and presort, the stats path's broad phase and the chunked `compact=`
+pre-filter go through K5 (the robot box); phases 4, 4b, 7, 8, 9 (d), 10,
+12's ranks and 13 set K2's and K5's launch counters to 0 before their path
+and fail if K2 (and K5 in 4b) did not launch.
+ 14. the front end: (a) K2 against its twin `poses_from_confs_reference`,
+     bit for bit (the int32 views equal), on all rows of the three 10k sets,
+     hard100k and easy100k and on 65,536 adversarial rows
+     (`io.datagen.adversarial_confs`: multiples of pi/4 and their
+     neighbours, +-1e4 rad, denormals, magnitudes to 1e38); (b) K5 against
+     `robot_bounds_reference` / `mesh_broad_reference`, boxes equal as
+     values (the min of -0.0 and +0.0 may be either zero), NaN for NaN, hit
+     bytes identical, on the alpha table and its cuts to Tr 1008, 77 and 1, a
+     one-triangle robot, an all-padding table (the 3.0e38 sentinel box), the
+     phase-3 scenes, every robot group of phase 7's scenes and hard10k rows
+     with NaN / +-inf entries through `broad_block`; (c) K2's and K5's
+     launch counters above 0 on `check_valid_resolved` (K2),
+     `check_valid(presort=True)`, `check(two_phase=True)` and
+     `ChunkedMegaKernelChecker` with `compact=True` (K2 and K5), each set to
+     0 just before; (d) K2 and K5 on hard100k's first 16,384 and all 100,000
+     rows by CUDA events, beside their torch-ops twins and their bounds
+     (`profiling.bounds.pose_rows_work`, `robot_bounds_work`), and
+     `check_valid` with presort off and on on hard100k and easy100k
+     (checks/s, best of 5, verdicts identical). K2's and K5's kernel-table
+     entries carry the [100000] times and the launches of every path above.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -172,6 +198,11 @@ SOURCE = "robocheck_tpu_torch/csrc/megakernel.cu"
 PROBE_SOURCE = "robocheck_tpu_torch/csrc/stage_probes.cu"
 CLEARANCE_SOURCE = "robocheck_tpu_torch/csrc/clearance.cu"
 CLEARANCE_REPLACES = "robocheck_tpu/planner/clearance.py:312"
+FRONT_SOURCE = "robocheck_tpu_torch/csrc/front.cu"
+POSE_REPLACES = "robocheck_tpu/kernels/megakernel.py:1099"
+BOX_REPLACES = "robocheck_tpu/kernels/megakernel.py:1209"
+# K2's and K5's launches in each path's run, by path (`read_front`).
+FRONT_LAUNCHES = {}
 # The rows of `scripts/torch_bench.py`'s latency batch.
 LATENCY_BATCH = 2048
 # Phase 9's alpha legs (`scripts/torch_certify_alpha.py`) and the checks
@@ -208,6 +239,29 @@ JAX_COPLANAR_OT = [[-163.90807, -449.27316, -312.38596], [55.186058, -181.60817,
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def zero_front() -> None:
+    """Set the front end's launch counters (K2, K5) to 0, just before a
+    path's run."""
+    from robocheck_tpu_torch.kernels import front
+
+    front.poses_from_confs_cuda.launches = 0
+    front.robot_bounds_cuda.launches = 0
+
+
+def read_front(path: str, k5: bool = False) -> dict:
+    """K2's and K5's launches in ``path``'s run, read just after it and kept
+    in FRONT_LAUNCHES; fails unless K2 (and K5, where ``k5``) launched."""
+    from robocheck_tpu_torch.kernels import front
+
+    torch.cuda.synchronize()
+    got = {"pose_rows": front.poses_from_confs_cuda.launches,
+           "robot_bounds": front.robot_bounds_cuda.launches}
+    FRONT_LAUNCHES[path] = got
+    require(got["pose_rows"] > 0, f"{path}: K2 (the pose rows) was not launched")
+    require(got["robot_bounds"] > 0 or not k5, f"{path}: K5 (the robot box) was not launched")
+    return got
 
 
 def compare_on_card(mk, name, robot, obstacle, confs, device, scenes):
@@ -281,9 +335,10 @@ def bench_chunked_scene(big: bool, n: int = 8192):
     return robot, obstacle, confs
 
 
-def phase7(lib, card: str, device) -> tuple[int, int]:
+def phase7(lib, card: str, device) -> tuple[int, int, list]:
     """The oversized-mesh path on the card; returns (kernel launches of its
-    main-path runs, max abs err of the chunked bytes against the twin)."""
+    main-path runs, max abs err of the chunked bytes against the twin, and
+    each scene's (name, chunked checker, rows) for phase 14)."""
     from robocheck_tpu_torch.kernels import chunked
     from robocheck_tpu_torch.kernels import megakernel as mk
     from robocheck_tpu_torch.oracle import check_configs
@@ -299,7 +354,7 @@ def phase7(lib, card: str, device) -> tuple[int, int]:
         mine, compiled = mk.smem_bytes(tr, g), lib.rc_megakernel_smem_bytes(tr, g)
         print(f"  smem_bytes({tr}, {g}) = {mine}, rc_megakernel_smem_bytes = {compiled}")
         require(mine == compiled, f"smem_bytes({tr}, {g}) differs from the kernel's layout")
-    launches, max_err = 0, 0
+    launches, max_err, made = 0, 0, []
     for big in (False, True):
         robot, obstacle, confs = bench_chunked_scene(big)
         name = f"{robot.num_triangles} x {obstacle.num_triangles} triangles"
@@ -308,11 +363,13 @@ def phase7(lib, card: str, device) -> tuple[int, int]:
         t_build = time.perf_counter() - t0
         require(isinstance(ck, chunked.ChunkedMegaKernelChecker), f"{name}: not chunked")
         mk.check_poses_cuda.launches = 0
+        zero_front()
         t0 = time.perf_counter()
         resolved = ck.check_valid_resolved(confs)
         t_main = time.perf_counter() - t0
         n_launch = mk.check_poses_cuda.launches
         require(n_launch > 0, f"{name}: the chunked path launched no kernel")
+        read_front(f"oversized meshes (7), {name}")
         launches += n_launch
         t0 = time.perf_counter()
         oracle = check_configs(robot, obstacle, confs)
@@ -345,7 +402,8 @@ def phase7(lib, card: str, device) -> tuple[int, int]:
                                torch.from_numpy(packed[False][:512]),
                                mk.check_poses_reference(poses, prep))
         max_err = max(max_err, err)
-    return launches, max_err
+        made.append((name, ck, confs))
+    return launches, max_err, made
 
 
 class RecordingChecker:
@@ -375,6 +433,7 @@ def phase8(robot, obstacle, card: str) -> int:
     ext = float((robot.aabb[3:] - robot.aabb[:3]).min())
     print(f"[8] planners on the card, alpha-1.0 pair, alpha.query; robot extent {ext}")
     mk.check_poses_cuda.launches = 0
+    zero_front()
     rrt = RRTConnectPlanner(robot, obstacle,
                             RRTConfig(max_iters=16, batch=256, step=0.35 * ext,
                                       edge_resolution=48, surface_bias=0.6, seed=0))
@@ -402,6 +461,7 @@ def phase8(robot, obstacle, card: str) -> int:
         paths[name] = res.path
     launches = mk.check_poses_cuda.launches
     require(launches > 0, "the planners launched no kernel")
+    read_front("planners (8)")
     tpu = np.load(assets.find_asset("data/alpha_certified_path.npy"))
     path = paths["RRT-Connect"]
     same = path.shape == tpu.shape
@@ -748,9 +808,11 @@ def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
     checker = make_checker(robot, obstacle, device="cuda")
     mk.check_poses_cuda.launches = 0
     kc.pair_min_cuda.launches = 0
+    zero_front()
     records = [cert_alpha["certify_leg"](leg, robot, obstacle, checker) for leg in CERTIFY_LEGS]
     torch.cuda.synchronize()
     k1, scans = mk.check_poses_cuda.launches, kc.pair_min_cuda.launches
+    read_front("certifier (9 (d))")
     for rec in records:
         print(f"  (d) [{card}] {json.dumps(rec)}")
         require(rec["certified"] and not rec["collision"] and rec["uncertified_steps"] == 0,
@@ -939,6 +1001,7 @@ def phase10(robot, obstacle, card: str) -> tuple[int, int, dict]:
     t_start = time.perf_counter()
     mk.check_poses_cuda.launches = 0
     kc.pair_min_cuda.launches = 0
+    zero_front()
     res, opt, rec = cert_alpha["smooth_alpha"](robot, obstacle, checker)
     print(f"  (a) [{card}] SQP smoothing of the alpha RRT path: {json.dumps(rec)}")
     require(res.certified, "(a) the SQP-smoothed alpha path is not certified")
@@ -956,6 +1019,7 @@ def phase10(robot, obstacle, card: str) -> tuple[int, int, dict]:
             "(b) the wall scene's path is not certified discretely and continuously")
     torch.cuda.synchronize()
     k1, scans = mk.check_poses_cuda.launches, kc.pair_min_cuda.launches
+    read_front("gradient planners (10 (a)-(b))")
     print(f"  launches in (a)-(b): K1 {k1}, scan kernel {scans}")
     require(k1 > 0 and scans > 0, "(a)-(b) did not launch both kernels")
     t_ab = time.perf_counter() - t_start
@@ -1019,6 +1083,7 @@ def phase12_rank() -> dict:
     from robocheck_tpu_torch import load_obj, read_conf_file
     from robocheck_tpu_torch.io import assets
     from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.kernels import front
     from robocheck_tpu_torch.kernels import megakernel as mk
     from robocheck_tpu_torch.parallel.sharding import ShardedChecker, make_mesh
     from robocheck_tpu_torch.planner.ccd import subdivide_mesh
@@ -1056,6 +1121,8 @@ def phase12_rank() -> dict:
     out["launches"] = {"megakernel": mk.check_poses_cuda.launches,
                        "megakernel_stats": mk.check_poses_stats_cuda.launches,
                        "clearance": kc.pair_min_cuda.launches}
+    out["front"] = {"pose_rows": front.poses_from_confs_cuda.launches,
+                    "robot_bounds": front.robot_bounds_cuda.launches}
     out["check_s"] = benchmark(checker.check_valid_resolved, hard)
     out["engine_s"] = benchmark(eng.min_distances, queries, runs=3)
     return out
@@ -1143,8 +1210,11 @@ def phase12(robot, obstacle, data, checker, card: str, sqp_ref: dict) -> dict:
     # (d) torch_graft_entry's dryrun.
     dry = torch_graft_entry.dryrun_multichip(2, "cuda")
     launches = {k: sum(r["launches"][k] for r in ranks + dry) for k in r0["launches"]}
-    print(f"  launches in the ranks (a)-(d): {launches}")
+    front12 = FRONT_LAUNCHES["scale-out (12), ranks (a)-(c)"] = {
+        k: sum(r["front"][k] for r in ranks) for k in r0["front"]}
+    print(f"  launches in the ranks (a)-(d): {launches}; K2 and K5 in (a)-(c): {front12}")
     require(all(launches.values()), "phase 12 did not launch every kernel of its path")
+    require(front12["pose_rows"] > 0, "phase 12's ranks did not launch K2")
     print(f"  [{card}] phase 12: {time.perf_counter() - t_start} s")
     return launches
 
@@ -1204,6 +1274,7 @@ def phase13(checker, card: str) -> tuple[int, int, dict]:
     print(f"  (a) [{card}] torch_make_datasets.py --sizes 100000: "
           f"{time.perf_counter() - t_start} s")
     mk.check_poses_cuda.launches = 0
+    zero_front()
     for key in ("hard100k", "easy100k"):
         ds = read_conf_file(assets.dataset_path(key))
         require(len(ds.confs) == 100000 and ds.tags_match_header is True,
@@ -1222,7 +1293,8 @@ def phase13(checker, card: str) -> tuple[int, int, dict]:
         require(not len(bad), f"(a) {key}: {len(bad)} golden mismatches")
     torch.cuda.synchronize()
     k1 = mk.check_poses_cuda.launches
-    print(f"  (a) K1 launches: {k1}")
+    front13 = read_front("100k sets (13 (a))")
+    print(f"  (a) K1 launches: {k1}; K2 {front13['pose_rows']}")
 
     t0 = time.perf_counter()
     bench = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "torch_bench.py")],
@@ -1241,10 +1313,218 @@ def phase13(checker, card: str) -> tuple[int, int, dict]:
     require(extra["presort_verdicts_identical"], "(b) presort changes a verdict byte")
     launches = extra["kernel_launches"]
     require(all(launches.values()), f"(b) the bench did not launch every kernel: {launches}")
+    FRONT_LAUNCHES["bench (13 (b))"] = {k: launches[k] for k in ("pose_rows", "robot_bounds")}
     shapes = phase13_shapes(checker, card)
     print(f"  [{card}] phase 13: {time.perf_counter() - t_start} s; launches: K1 {k1} in (a), "
           f"{launches['megakernel']} in the bench; scan kernel {launches['clearance']}")
     return k1 + launches["megakernel"], launches["clearance"], shapes
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want|: entries equal as values (infinities included,
+    -0.0 == +0.0) or NaN in both count 0, a NaN in one of them inf."""
+    if not got.numel():
+        return 0.0
+    same = (got == want) | (got.isnan() & want.isnan())
+    diff = (got.double() - want.double()).abs().nan_to_num(nan=float("inf"))
+    return float(torch.where(same, 0.0, diff).max())
+
+
+def phase14_poses(sets: dict, device) -> float:
+    """Phase 14 (a): K2 against its twin on every row of each set, bit for
+    bit (the int32 views equal). Returns the max abs err."""
+    from robocheck_tpu_torch.kernels import front
+    from robocheck_tpu_torch.kernels import megakernel as mk
+
+    worst = 0.0
+    for name, confs in sets.items():
+        x = torch.from_numpy(confs).to(device)
+        got, want = front.poses_from_confs_cuda(x), mk.poses_from_confs_reference(x)
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = max_abs_err(got, want)
+        print(f"  (a) {name} {list(x.shape)}: K2 vs twin, {n_diff} of {got.numel()} entries "
+              f"differ in any bit, max abs err {err}")
+        require(n_diff == 0, f"(a) {name}: K2's pose rows differ from the twin's")
+        worst = max(worst, err)
+    return worst
+
+
+def hold_box(poses, rob_base, obs_box) -> dict:
+    """Phase 14 (b) on one table and obstacle box: K5 with and without the
+    box against `robot_bounds_reference` / `mesh_broad_reference` on the
+    same pose rows. Boxes are held as values (the min of -0.0 and +0.0 may
+    be either zero), NaN for NaN; the hit bytes exactly."""
+    from robocheck_tpu_torch.kernels import front
+    from robocheck_tpu_torch.kernels import megakernel as mk
+
+    box, hit = front.robot_bounds_cuda(poses, rob_base, obs_box)
+    alone = front.robot_bounds_cuda(poses, rob_base)
+    want = mk.robot_bounds_reference(poses, rob_base)
+    want_hit = mk.mesh_broad_reference(poses, rob_base, obs_box)
+    return {"err": max(max_abs_err(box, want), max_abs_err(alone, want)),
+            "hits": int(hit.sum()), "twin_hits": int(want_hit.sum()),
+            "hits_equal": bool(torch.equal(hit, want_hit)),
+            "nan": int(want.isnan().sum()), "box": box}
+
+
+def phase14_boxes(checker, data, scenes, chunked_scenes, device) -> float:
+    """Phase 14 (b): K5 against its twins on the alpha tables, the phase-3
+    scenes, every robot group of phase 7's chunked scenes, tables whose Tr is
+    not a multiple of 32, an all-padding table, and non-finite rows through
+    `broad_block`. Returns the max abs err."""
+    from robocheck_tpu_torch.core.types import Mesh
+    from robocheck_tpu_torch.io.datagen import adversarial_confs
+    from robocheck_tpu_torch.kernels import megakernel as mk
+
+    worst = 0.0
+
+    def held(name, poses, rob_base, obs_box) -> dict:
+        nonlocal worst
+        r = hold_box(poses, rob_base, obs_box)
+        worst = max(worst, r["err"])
+        require(r["err"] == 0 and r["hits_equal"],
+                f"(b) {name}: K5 differs from its twin (max abs err {r['err']}, hits "
+                f"{r['hits']}/{r['twin_hits']})")
+        return r
+
+    def line(name, poses, rob_base, r):
+        real = int((rob_base[9] > 0).sum())
+        print(f"  (b) {name}: {poses.shape[0]} rows, Tr {rob_base.shape[1]} ({real} real): boxes "
+              f"equal as values ({r['nan']} NaN entries, NaN for NaN), hits {r['hits']} / twin "
+              f"{r['twin_hits']}, max abs err {r['err']}")
+
+    rob, obs_mesh = checker.tables.rob_base, checker.tables.obs_mesh
+    alpha = {key: data[key].confs for key in ("hard10k", "easy10k")}
+    alpha["adversarial"] = adversarial_confs()
+    one = np.array([[0, 1, 2]], np.int32)
+    tri = mk.MegaKernelPrep.build(Mesh(np.eye(3, dtype=np.float32), one),
+                                  Mesh(np.eye(3, dtype=np.float32) + 0.5, one)).to(device)
+    padding = rob.clone()
+    padding[9] = 0.0
+    tables = {"alpha": rob, "alpha Tr 1008 (its real triangles)": rob[:, :1008].contiguous(),
+              "alpha Tr 1": rob[:, :1].contiguous(), "alpha Tr 77": rob[:, :77].contiguous(),
+              "one-triangle robot (Tr 128)": tri.rob_base, "all padding": padding}
+    for key, confs in alpha.items():
+        poses = mk.poses_from_confs_reference(torch.from_numpy(confs).to(device))
+        for name, table in tables.items():
+            r = held(f"{name}, {key}", poses, table, obs_mesh)
+            line(f"{name}, {key}", poses, table, r)
+            if name == "all padding":
+                sentinel = torch.tensor([3.0e38] * 3 + [-3.0e38] * 3, device=device)
+                require(bool((r["box"] == sentinel).all()),
+                        "(b) an all-padding table does not give the 3.0e38 sentinel box")
+    for name, prep, poses in scenes:
+        line(name, poses, prep.rob_base, held(name, poses, prep.rob_base, prep.obs_mesh))
+    for name, ck, confs in chunked_scenes:
+        poses = mk.poses_from_confs_reference(torch.from_numpy(confs).to(device))
+        n_groups, n_boxes, hits = 0, 0, 0
+        for lo in range(0, ck.num_chunk_pairs, ck._n_obs_chunks):
+            group = ck.checkers[lo : lo + ck._n_obs_chunks]
+            n_groups += 1
+            for c in group:
+                hits += held(f"{name}, robot group {n_groups}", poses, group[0].tables.rob_base,
+                             c.tables.obs_mesh)["hits"]
+                n_boxes += 1
+        print(f"  (b) {name}: {n_groups} robot groups x their {n_boxes} obstacle-chunk boxes, "
+              f"{len(confs)} rows each: equal to the twin, {hits} hits in all")
+    # Non-finite rows, which broad_block takes as they are (check_packed
+    # filters them): K2 then K5 against both twins.
+    bad = np.array(data["hard10k"].confs[:4096])
+    rng = np.random.default_rng(14)
+    for col in range(6):
+        rows = rng.choice(len(bad), len(bad) // 16, replace=False)
+        bad[rows, col] = rng.choice(np.float32([np.nan, np.inf, -np.inf]), len(rows))
+    x = torch.from_numpy(bad).to(device)
+    got = checker.broad_block(bad)
+    twin_poses = mk.poses_from_confs_reference(x)
+    want = mk.mesh_broad_reference(twin_poses, rob, obs_mesh)
+    r = held("non-finite rows", twin_poses, rob, obs_mesh)
+    print(f"  (b) broad_block on {len(bad)} hard10k rows with NaN / +-inf entries "
+          f"({int((~np.isfinite(bad).all(1)).sum())} non-finite rows): {int(got.sum())} hits, "
+          f"twin {int(want.sum())}, equal {bool(torch.equal(got, want))}; boxes NaN for NaN "
+          f"({r['nan']} NaN entries), max abs err {r['err']}")
+    require(torch.equal(got, want), "(b) broad_block differs from the twin on non-finite rows")
+    return worst
+
+
+def phase14(checker, data, scenes, chunked_scenes, card: str, device) -> list:
+    """The front end (phase 14): (a) K2 and (b) K5 against their twins, (c)
+    their launch counters on the four paths that reach them, (d) times
+    beside the twins and the bounds, presort on and off. Returns the two
+    kernels' entries of the kernel table."""
+    from robocheck_tpu_torch import read_conf_file
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.io.datagen import adversarial_confs
+    from robocheck_tpu_torch.kernels import front
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.profiling import bounds
+    from robocheck_tpu_torch.profiling.timers import benchmark, event_ms
+
+    print("[14] front end: K2 (pose rows) and K5 (robot box), csrc/front.cu")
+    t_start = time.perf_counter()
+    big = {key: read_conf_file(assets.dataset_path(key)).confs
+           for key in ("hard100k", "easy100k")}
+    sets = {key: ds.confs for key, ds in data.items()}
+    sets.update(big)
+    sets["adversarial"] = adversarial_confs()
+    err2 = phase14_poses(sets, device)
+    err5 = phase14_boxes(checker, data, scenes, chunked_scenes, device)
+
+    # (c) each path with the counters set to 0 just before it.
+    hard = data["hard10k"].confs
+    name7, ck7, confs7 = chunked_scenes[0]
+    paths = {"check_valid_resolved": (lambda: checker.check_valid_resolved(hard), False),
+             "check_valid(presort=True)": (lambda: checker.check_valid(hard, presort=True),
+                                           True),
+             "check(two_phase=True)": (lambda: checker.check(hard, two_phase=True), True),
+             f"ChunkedMegaKernelChecker(compact=True), {name7}": (
+                 lambda: ck7.check_packed(confs7, compact=True), True)}
+    for name, (run, k5) in paths.items():
+        zero_front()
+        run()
+        got = read_front(f"(14 (c)) {name}", k5)
+        print(f"  (c) {name}: K2 {got['pose_rows']} launches, K5 {got['robot_bounds']}")
+
+    # (d) times at the bench's shapes, beside the twins and the bounds.
+    rob, obs_mesh = checker.tables.rob_base, checker.tables.obs_mesh
+    rob_np = rob.cpu().numpy()
+    times = {}
+    for n in (16384, 100000):
+        x = torch.from_numpy(big["hard100k"][:n]).to(device)
+        poses = mk.poses_from_confs_reference(x)
+        k2 = (event_ms(lambda: front.poses_from_confs_cuda(x), 20),
+              event_ms(lambda: mk.poses_from_confs_reference(x), 20),
+              *bounds.bound_ms(*bounds.pose_rows_work(len(x))))
+        k5 = (event_ms(lambda: front.robot_bounds_cuda(poses, rob, obs_mesh), 20),
+              event_ms(lambda: mk.mesh_broad_reference(poses, rob, obs_mesh), 3),
+              *bounds.bound_ms(*bounds.robot_bounds_work(rob_np, len(x), True)))
+        times[n] = (k2, k5)
+        for what, (ms, plain, b_ms, b_by) in (("K2 pose rows", k2),
+                                              ("K5 robot box + mesh-box test", k5)):
+            print(f"  (d) [{card}] {what}, hard100k[:{n}]: {ms} ms; torch-ops twin {plain} ms; "
+                  f"bound {b_ms} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+    for key, confs in big.items():
+        plain, sorted_ = (checker.check_valid(confs), checker.check_valid(confs, presort=True))
+        same = all(np.array_equal(a, b) for a, b in zip(plain, sorted_))
+        off = benchmark(lambda: checker.check_valid(confs))
+        on = benchmark(lambda: checker.check_valid(confs, presort=True))
+        print(f"  (d) [{card}] check_valid on {key}, best of 5: presort off {len(confs) / off} "
+              f"checks/s ({off * 1e3} ms), on {len(confs) / on} checks/s ({on * 1e3} ms); "
+              f"verdicts identical {same}")
+        require(same, f"(d) {key}: presort changes a verdict")
+    total = {k: sum(v[k] for v in FRONT_LAUNCHES.values()) for k in ("pose_rows", "robot_bounds")}
+    print(f"  K2 / K5 launches by path: {json.dumps(FRONT_LAUNCHES)}")
+    print(f"  [{card}] phase 14: {time.perf_counter() - t_start} s")
+    (k2_ms, k2_plain, k2_b, k2_by), (k5_ms, k5_plain, k5_b, k5_by) = times[100000]
+    # No single PyTorch call computes either function: library_ms null.
+    return [{"name": "pose_rows", "route": "cuda", "source": FRONT_SOURCE,
+             "replaces": POSE_REPLACES, "launches": total["pose_rows"], "max_abs_err": err2,
+             "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_b, "bound_by": k2_by,
+             "library_ms": None},
+            {"name": "robot_bounds", "route": "cuda", "source": FRONT_SOURCE,
+             "replaces": BOX_REPLACES, "launches": total["robot_bounds"],
+             "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_b,
+             "bound_by": k5_by, "library_ms": None}]
 
 
 def main() -> None:
@@ -1297,6 +1577,11 @@ def main() -> None:
     obstacle = load_obj(assets.alpha_obstacle_path())
     data = {key: read_conf_file(assets.dataset_path(key))
             for key in ("hard10k", "easy10k", "samples10k")}
+    n_confs, n_valid = native.parse_conf(str(assets.dataset_path("hard10k")))
+    same = (np.array_equal(n_confs, data["hard10k"].confs)
+            and np.array_equal(n_valid, data["hard10k"].valid))
+    print(f"  native parse_conf on hard10k: {len(n_confs)} rows, identical to io.conf's: {same}")
+    require(same, "the native parse_conf differs from io.conf on hard10k")
 
     # ---- 3. Kernel against its twin, same pose rows. ----
     print("[3] kernel vs twin on the card (exact: valid on every row, "
@@ -1383,10 +1668,12 @@ def main() -> None:
     print(f"[4] main path: MegaKernelChecker(device='cuda').check_valid_resolved; "
           f"float64 resolution by the {'native' if native.available() else 'numpy'} oracle")
     mk.check_poses_cuda.launches = 0
+    zero_front()
     resolved = {key: checker.check_valid_resolved(ds.confs) for key, ds in data.items()}
     torch.cuda.synchronize()
     launches = mk.check_poses_cuda.launches
     require(launches > 0, "the main path launched no kernel")
+    front4 = read_front("main path (4)")
     for key, ds in data.items():
         packed = checker.check_packed(ds.confs)
         valid = (packed & 1) == 1
@@ -1404,7 +1691,7 @@ def main() -> None:
             mism = int((resolved[key] != ds.valid).sum())
             print(f"{msg}, {mism} golden mismatches")
             require(mism == 0, f"{key}: {mism} golden mismatches")
-    print(f"  kernel launches in the main path: {launches}")
+    print(f"  kernel launches in the main path: {launches}; K2 {front4['pose_rows']}")
 
     # ---- 5. Times. ----
     print(f"[5] times on {card}")
@@ -1438,11 +1725,13 @@ def main() -> None:
           "check_valid(presort=True)")
     mk.check_poses_stats_cuda.launches = 0
     mk.check_poses_cuda.launches = 0
+    zero_front()
     checks = {(key, tp): checker.check(data[key].confs, two_phase=tp)
               for key in ("hard10k", "easy10k") for tp in (True, False)}
     presorted = {key: checker.check_valid(ds.confs, presort=True)
                  for key, ds in data.items()}
     torch.cuda.synchronize()
+    front4b = read_front("stats path and presort (4b)", k5=True)
     stats_launches = mk.check_poses_stats_cuda.launches
     presort_launches = mk.check_poses_cuda.launches
     require(stats_launches > 0, "the stats path launched no counter kernel")
@@ -1474,7 +1763,8 @@ def main() -> None:
         require(np.array_equal(v_sorted, v_plain) and np.array_equal(c_sorted, c_plain),
                 f"{key}: presort changes a verdict")
     print(f"  counter-kernel launches in the stats path: {stats_launches}; kernel "
-          f"launches under presort: {presort_launches}")
+          f"launches under presort: {presort_launches}; K2 {front4b['pose_rows']}, K5 "
+          f"{front4b['robot_bounds']}")
     hard_poses = mk.poses_from_confs(torch.from_numpy(data["hard10k"].confs).to(device))
     stats_ms = event_ms(lambda: mk.check_poses_stats_cuda(hard_poses, tables), 20)
     stats_plain_ms = event_ms(lambda: mk.check_poses_stats_reference(hard_poses, tables), 1)
@@ -1556,7 +1846,7 @@ def main() -> None:
 
     # ---- 7-10. The oversized-mesh path, the planners, the certifier, the
     # gradient planners. ----
-    launches7, chunk_err = phase7(lib, card, device)
+    launches7, chunk_err, chunked_scenes = phase7(lib, card, device)
     launches8 = phase8(robot, obstacle, card)
     clearance_entry = phase9_engine(robot, obstacle, card, device)
     launches9, scans9 = phase9_certify(robot, obstacle, card)
@@ -1581,6 +1871,7 @@ def main() -> None:
           f"{entries[0]['bound_ms']} ms ({entries[0]['bound_by']}); at hard10k [10000,16]: "
           f"{kernel_ms} ms, bound {bound(hard_rows)['bound_ms']} ms")
     entries[1]["launches"] = stats_launches + launches12["megakernel_stats"]
+    entries += phase14(checker, data, scenes, chunked_scenes, card, device)
     print(f"  megakernel launches by path: main {launches}, oversized meshes {launches7}, "
           f"planners {launches8}, certifier {launches9}, gradient planners {launches10}, "
           f"scale-out {launches12['megakernel']}, bench {launches13}; counter kernel: stats "

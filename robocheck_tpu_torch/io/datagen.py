@@ -52,3 +52,33 @@ def alpha_bot_configurations(
         (-ext[1] * scale, ext[1] * scale),
         (-ext[2] * scale, ext[2] * scale),
     )
+
+
+def adversarial_confs(num: int = 65536, seed: int = 14) -> np.ndarray:
+    """Finite configurations that stress the pose rows' sin / cos (not a
+    reference dataset): each angle of each row drawn from one of five
+    families, so every mix of them occurs: multiples of pi/4 (0, -0.0,
+    +-pi/2, +-pi among them) and their float32 neighbours; uniform in
+    +-1e4 rad (range reduction); uniform in +-pi; denormals and the
+    smallest normals; magnitudes from 1e6 to float32's largest.
+    Translations are uniform in +-1e3 with some 0, -0.0 and denormals."""
+    rng = np.random.default_rng(seed)
+    quarter = (np.arange(-8, 9) * (np.pi / 4)).astype(np.float32)
+    special = np.concatenate([quarter, np.nextafter(quarter, np.float32(np.inf)),
+                              np.nextafter(quarter, np.float32(-np.inf)),
+                              np.float32([-0.0])])
+    tiny = np.float32([1e-45, 1e-40, 1e-38, np.finfo(np.float32).tiny])
+    tiny = np.concatenate([tiny, -tiny])
+    confs = np.empty((num, 6), dtype=np.float32)
+    confs[:, 0:3] = rng.uniform(-1e3, 1e3, (num, 3))
+    odd = rng.random((num, 3)) < 0.05
+    confs[:, 0:3][odd] = rng.choice(np.float32([0.0, -0.0, 1e-40, -1e-45]), odd.sum())
+    for col in range(3, 6):
+        family = rng.integers(0, 5, num)
+        huge = np.float32(10.0 ** rng.uniform(6, 38, num)) * rng.choice([-1, 1], num)
+        confs[:, col] = np.select(
+            [family == 0, family == 1, family == 2, family == 3],
+            [rng.choice(special, num), rng.uniform(-1e4, 1e4, num),
+             rng.uniform(-np.pi, np.pi, num), rng.choice(tiny, num)],
+            huge).astype(np.float32)
+    return confs

@@ -1,7 +1,8 @@
 """Build the CUDA sources of `csrc/` with nvcc and bind them with ctypes.
 
 Each source (`megakernel.cu`, the fused check; `stage_probes.cu`, its probe
-kernels; `clearance.cu`, the clearance engine's exact scan) is compiled
+kernels; `clearance.cu`, the clearance engine's exact scan; `front.cu`, the
+check's pose rows and robot box) is compiled
 at first use into ``build/robocheck_tpu_torch/`` at the repository root,
 all nvcc processes started together, under names keyed by
 every source and the flags, so an edited source is never served from a stale
@@ -22,7 +23,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"megakernel": _CSRC / "megakernel.cu",
            "stage_probes": _CSRC / "stage_probes.cu",
-           "clearance": _CSRC / "clearance.cu"}
+           "clearance": _CSRC / "clearance.cu",
+           "front": _CSRC / "front.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "robocheck_tpu_torch"
 # -fmad=false: the TOL-band math and the clearance scan round every multiply
 # and add on its own, as their PyTorch twins do.
@@ -123,6 +125,12 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
                ptr, ptr, ptr, ptr, ptr])
         _bind(lib.rc_clearance_smem_bytes, i64, [i32])
         _bind(lib.rc_clearance_error_string, ctypes.c_char_p, [i32])
+    elif name == "front":
+        # confs, n, out, stream; poses, n, rob_base, tr, obs_box, out_box,
+        # out_hit, stream
+        _bind(lib.rc_pose_rows, i32, [ptr, i64, ptr, ptr])
+        _bind(lib.rc_robot_bounds, i32, [ptr, i64, ptr, i32, ptr, ptr, ptr, ptr])
+        _bind(lib.rc_front_error_string, ctypes.c_char_p, [i32])
     return lib
 
 

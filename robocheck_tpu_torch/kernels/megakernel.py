@@ -56,6 +56,7 @@ from ..ops.narrow import is_coplanar, no_overlap
 from ..ops.transform import rotation_matrices
 from ..runtime.device import resolve as resolve_device
 from ..utils.morton import morton_argsort
+from .front import _require, poses_from_confs_cuda, robot_bounds_cuda
 
 # Obstacle table columns (the JAX obs_t's first 19 columns, same indices).
 _O_C, _O_N, _O_D, _O_LO, _O_HI = 0, 9, 12, 13, 16
@@ -174,7 +175,17 @@ def prep_from_arrays(rob_base: np.ndarray, obs_t: np.ndarray,
 
 def poses_from_confs(confs: torch.Tensor) -> torch.Tensor:
     """[B,6] configurations -> [B,16] pose rows r00,r01,r02,tx, r10,...,ty,
-    r20,...,tz, 0,0,0,0 (`megakernel.py:1099-1113`)."""
+    r20,...,tz, 0,0,0,0 (`megakernel.py:1099-1113`): K2
+    (`front.poses_from_confs_cuda`, one launch) for a CUDA tensor, the twin
+    ``poses_from_confs_reference`` for a CPU one."""
+    if confs.is_cuda:
+        return poses_from_confs_cuda(confs.contiguous())
+    return poses_from_confs_reference(confs)
+
+
+def poses_from_confs_reference(confs: torch.Tensor) -> torch.Tensor:
+    """K2's plain PyTorch twin (any device): `ops.transform.rotation_matrices`
+    and the translations, as torch ops."""
     R = rotation_matrices(confs)
     t = confs[:, 0:3]
     pad = torch.zeros((confs.shape[0], 4), dtype=confs.dtype, device=confs.device)
@@ -323,9 +334,18 @@ def _pair_flags(r: dict, o: dict) -> PairFlags:
 def robot_bounds(poses: torch.Tensor, rob_base: torch.Tensor) -> torch.Tensor:
     """[B,16] pose rows -> [B,6] box (lo x,y,z, hi x,y,z) of the posed robot's
     real triangles: the JAX package's `_robot_bounds`
-    (`megakernel.py:1209-1228`), in the operation order of the kernel's stage
-    1: each corner posed as r0*x + r1*y + r2*z + t, masked min / max. Any
-    number of obstacle boxes can be tested against it (``mesh_broad``)."""
+    (`megakernel.py:1209-1228`). K5 (`front.robot_bounds_cuda`) for a CUDA
+    tensor, the twin ``robot_bounds_reference`` for a CPU one. Any number of
+    obstacle boxes can be tested against it (``boxes_overlap``)."""
+    if poses.is_cuda:
+        return robot_bounds_cuda(poses, rob_base)
+    return robot_bounds_reference(poses, rob_base)
+
+
+def robot_bounds_reference(poses: torch.Tensor, rob_base: torch.Tensor) -> torch.Tensor:
+    """K5's plain PyTorch twin (any device), in the operation order of K1's
+    stage 1: each corner posed as r0*x + r1*y + r2*z + t, masked min / max
+    (3.0e38 / -3.0e38 where no triangle is real)."""
     real = rob_base[9] > 0.0
     lo_hi = [], []
     for k in range(3):
@@ -352,8 +372,17 @@ def mesh_broad(poses: torch.Tensor, rob_base: torch.Tensor,
     """[B,16] pose rows -> [B] bool: the posed robot's mesh box (real
     triangles only) overlaps the obstacle's on closed intervals. The JAX
     package's `_broad_overlap` (`megakernel.py:1232-1248`), which is the
-    kernel's stage 1 bit for bit."""
-    return boxes_overlap(robot_bounds(poses, rob_base), obs_mesh[None])[0]
+    kernel's stage 1 bit for bit: K5 with the obstacle box for a CUDA
+    tensor, the twin ``mesh_broad_reference`` for a CPU one."""
+    if poses.is_cuda:
+        return robot_bounds_cuda(poses, rob_base, obs_mesh)[1]
+    return mesh_broad_reference(poses, rob_base, obs_mesh)
+
+
+def mesh_broad_reference(poses: torch.Tensor, rob_base: torch.Tensor,
+                         obs_mesh: torch.Tensor) -> torch.Tensor:
+    """``mesh_broad``'s plain PyTorch twin (any device)."""
+    return boxes_overlap(robot_bounds_reference(poses, rob_base), obs_mesh[None])[0]
 
 
 def _box_pairs(fb: dict, o: dict, real: torch.Tensor):
@@ -382,7 +411,7 @@ def check_poses_reference(poses: torch.Tensor,
     rob_base, obs = prep.rob_base, prep.obs
     f = _posed_robot(poses, rob_base)
     real = rob_base[9] > 0.0
-    broad = mesh_broad(poses, rob_base, prep.obs_mesh)
+    broad = mesh_broad_reference(poses, rob_base, prep.obs_mesh)
 
     out = torch.ones(poses.shape[0], dtype=torch.uint8, device=poses.device)
     o = _obstacle_fields(obs)
@@ -421,7 +450,7 @@ def check_poses_stats_reference(poses: torch.Tensor,
     rob_base, obs = prep.rob_base, prep.obs
     f = _posed_robot(poses, rob_base)
     real = rob_base[9] > 0.0
-    broad = mesh_broad(poses, rob_base, prep.obs_mesh)
+    broad = mesh_broad_reference(poses, rob_base, prep.obs_mesh)
     out = torch.zeros((poses.shape[0], OUT_COLS), dtype=torch.int32, device=poses.device)
     out[:, 0] = 1
     out[:, 3] = broad.to(torch.int32)
@@ -468,17 +497,6 @@ def check_poses_stats_reference(poses: torch.Tensor,
 # --------------------------------------------------------------------------
 # The CUDA kernel's wrapper.
 # --------------------------------------------------------------------------
-
-def _require(t: torch.Tensor, name: str, shape: tuple, device: torch.device):
-    if not t.is_cuda or t.device != device:
-        raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-
 
 def _launch(entry: str, poses: torch.Tensor, prep: MegaKernelPrep, out_shape: tuple,
             out_dtype: torch.dtype, *extra) -> tuple[bool, torch.Tensor]:

@@ -1,5 +1,6 @@
 """The least time an H100 could take for a kernel's work (its bound): the
-fused check's and the clearance scan's.
+fused check's, the clearance scan's and the check front end's (the pose
+rows, K2, and the robot box, K5).
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate, and
@@ -64,6 +65,13 @@ POSE_VERTEX_OPS = 18
 BOX_VERTEX_OPS = 6
 BOX_DIST_OPS = 3 * 5 + 5
 CULL_TEST_OPS = BOX_DIST_OPS + 2
+# K2 (`csrc/front.cu`): per row, 21 multiplies, adds and a negation of
+# sines and cosines, and six sin / cos, each charged as TRIG_OPS: about the
+# float32 operations of libdevice's path for arguments below 1e5 (a
+# three-part reduction, a polynomial of degree 7 to 9, the quadrant's
+# selects). K2 moves 88 bytes a row, so bytes bound it whatever TRIG_OPS is.
+POSE_ROW_OPS = 21
+TRIG_OPS = 20
 # Stage of the fused check -> whether it includes (gate, box tests, planes).
 STAGE_WORK = {"nosweep": (True, False, False), "maskonly": (True, True, False),
               "planesonly": (True, True, True), "nodiv": (True, True, True),
@@ -104,6 +112,24 @@ def check_work(rob_base: np.ndarray, n_obs: int, n_groups: int, counters: np.nda
     n_ops += gate * broad * n_tiles * n_groups * 6
     n_ops += box * pairs * BOX_OPS + planes * pairs * PLANE_OPS
     return float(n_bytes), float(n_ops)
+
+
+def pose_rows_work(n: int) -> tuple[float, float]:
+    """(bytes, operations) of K2 over ``n`` configurations: 24 B read and
+    64 B written a row; POSE_ROW_OPS and six TRIG_OPS a row."""
+    return float(n * (24 + 64)), float(n * (POSE_ROW_OPS + 6 * TRIG_OPS))
+
+
+def robot_bounds_work(rob_base: np.ndarray, n: int, hit: bool) -> tuple[float, float]:
+    """(bytes, operations) of K5 over ``n`` pose rows against ``rob_base``
+    [10, Tr], with the obstacle-box test where ``hit``. Bytes: the pose rows
+    (64 B), the table, the [n,6] box and, with the test, the obstacle box and
+    one byte a row. Operations: POSE_OPS per real robot triangle of every
+    row (its posed corners, its box and its share of the row's box: the
+    posed-corner work), and 6 compares a row for the test."""
+    n_real = int((np.asarray(rob_base)[9] > 0).sum())
+    n_bytes = n * (64 + 24) + 4 * np.asarray(rob_base).size + hit * (24 + n)
+    return float(n_bytes), float(n * n_real * POSE_OPS + hit * n * 6)
 
 
 def probe_work(piece: str, n: int, tr: int = 1024) -> tuple[float, float]:

@@ -4,10 +4,12 @@ the same shared library the JAX package binds).
 Build with ``make -C native`` (or ``start_build`` / ``finish_build``). The
 library is an accelerator, not a dependency: `oracle.check_configs` falls
 back to the NumPy oracle when
-``available()`` is false. Bound here: the oracle and the point-to-mesh
+``available()`` is false. Bound here: the oracle, the point-to-mesh
 distance query (`rc_point_mesh_dist`, the float64 BVH that the clearance
-engine is held against and the certifier's ``native`` backend); the
-library's parsers are not used by this package.
+engine is held against and the certifier's ``native`` backend) and the
+library's `.conf` / `.obj` parsers and `.conf` writer (``parse_conf``,
+``write_conf``, ``parse_obj``), which read and write what `io.conf` and
+`io.obj` do.
 """
 from __future__ import annotations
 
@@ -41,6 +43,22 @@ def _load():
                 lib = ctypes.CDLL(str(p))
             except OSError:
                 continue
+            lib.rc_parse_conf.restype = ctypes.c_int64
+            lib.rc_parse_conf.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64,
+            ]
+            lib.rc_write_conf.restype = ctypes.c_int64
+            lib.rc_write_conf.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64,
+            ]
+            lib.rc_parse_obj.restype = ctypes.c_int64
+            lib.rc_parse_obj.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p,
+            ]
             lib.rc_oracle_check.restype = ctypes.c_int64
             lib.rc_oracle_check.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -99,13 +117,61 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _require_lib():
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library not built (make -C native)")
+    return lib
+
+
+def parse_conf(path: str) -> tuple[np.ndarray, np.ndarray | None]:
+    """A `.conf` file -> (confs [N,6] f32, valid [N] bool, or None where the
+    rows are untagged)."""
+    lib = _require_lib()
+    n = lib.rc_parse_conf(str(path).encode(), None, None, 0)
+    if n < 0:
+        raise FileNotFoundError(path)
+    confs = np.empty((n, 6), dtype=np.float32)
+    valid = np.empty((n,), dtype=np.int8)
+    got = lib.rc_parse_conf(str(path).encode(), _ptr(confs), _ptr(valid), n)
+    if got != n:
+        raise RuntimeError(f"native parser read {got} of {n} rows of {path}")
+    if n and (valid < 0).any():
+        return confs, None
+    return confs, valid.astype(bool)
+
+
+def write_conf(path: str, confs: np.ndarray, valid: np.ndarray) -> None:
+    """Write [N,6] configurations and their [N] tags as a `.conf` file (the
+    header counts the valid rows)."""
+    lib = _require_lib()
+    confs = np.ascontiguousarray(confs, dtype=np.float32)
+    valid = np.ascontiguousarray(valid, dtype=np.int8)
+    if lib.rc_write_conf(str(path).encode(), _ptr(confs), _ptr(valid), confs.shape[0]) < 0:
+        raise IOError(f"cannot write {path}")
+
+
+def parse_obj(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """A Wavefront `.obj` file -> (vertices [V,3] f32, triangles [T,3] i32)."""
+    lib = _require_lib()
+    nv, nt = ctypes.c_int64(), ctypes.c_int64()
+    if lib.rc_parse_obj(str(path).encode(), None, None, 0, 0,
+                        ctypes.byref(nv), ctypes.byref(nt)) < 0:
+        raise FileNotFoundError(path)
+    verts = np.empty((nv.value, 3), dtype=np.float32)
+    tris = np.empty((nt.value, 3), dtype=np.int32)
+    r = lib.rc_parse_obj(str(path).encode(), _ptr(verts), _ptr(tris), nv.value, nt.value,
+                         ctypes.byref(nv), ctypes.byref(nt))
+    if r < 0:
+        raise IOError(f"failed parsing {path} ({r})")
+    return verts, tris
+
+
 def oracle_check(rob_verts: np.ndarray, rob_tris: np.ndarray,
                  obs_verts: np.ndarray, obs_tris: np.ndarray,
                  confs: np.ndarray) -> np.ndarray:
     """Native double-precision oracle; returns valid[N] bool."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native library not built (make -C native)")
+    lib = _require_lib()
     rv = np.ascontiguousarray(rob_verts, dtype=np.float64)
     rt = np.ascontiguousarray(rob_tris, dtype=np.int32)
     ov = np.ascontiguousarray(obs_verts, dtype=np.float64)

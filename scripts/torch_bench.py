@@ -32,7 +32,8 @@ Legs, in bench.py's order and with its protocol (`bench.py:81-233`):
 stdout is one JSON line with bench.py's `result` keys; stderr one JSON line
 with its `extra` keys and this script's (`backend: "cuda"`, the card's
 `nvidia-smi` name and power limit, the device and presort legs, the
-native clearance rate, the library's sha256, the kernels' launches). A leg
+native clearance rate, the library's sha256, the kernels' launches: K1,
+the front end's K2 and K5, and K3). A leg
 that fails ends the run non-zero. Imports neither JAX nor the JAX package.
 """
 import hashlib
@@ -50,6 +51,7 @@ import torch  # noqa: E402
 
 from robocheck_tpu_torch import MegaKernelChecker, load_obj, read_conf_file  # noqa: E402
 from robocheck_tpu_torch.io import assets  # noqa: E402
+from robocheck_tpu_torch.kernels import front  # noqa: E402
 from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
 from robocheck_tpu_torch.planner.clearance import (  # noqa: E402
     clearance_queries, native_min_distances)
@@ -231,6 +233,20 @@ def presort_leg(checker, confs: np.ndarray, runs: int = RUNS) -> dict:
             "presort_bytes_identical": bool(np.array_equal(plain, ordered))}
 
 
+def zero_launches() -> None:
+    """Set the launch counters of K1 and of the front end (K2, K5) to 0."""
+    mk.check_poses_cuda.launches = 0
+    front.poses_from_confs_cuda.launches = 0
+    front.robot_bounds_cuda.launches = 0
+
+
+def launches() -> dict:
+    """Launches of K1 and of the front end's K2 and K5 since zero_launches."""
+    return {"megakernel": mk.check_poses_cuda.launches,
+            "pose_rows": front.poses_from_confs_cuda.launches,
+            "robot_bounds": front.robot_bounds_cuda.launches}
+
+
 def easy_leg() -> None:
     """The easy leg's process (``--leg easy``): easy100k, warm-up, golden
     gate, best of RUNS (`bench.py:32-62`), then the presort leg on the same
@@ -242,13 +258,13 @@ def easy_leg() -> None:
     obstacle = load_obj(assets.alpha_obstacle_path())
     _build.build()
     checker = MegaKernelChecker(robot, obstacle, device="cuda")
-    mk.check_poses_cuda.launches = 0
+    zero_launches()
     rec = hard_leg(checker, eds, "easy100k")
     pre = presort_leg(checker, eds.confs)
     print(json.dumps({"n": rec["n_confs"], "times_s": rec["times_s"],
                       "mismatches": rec["golden_mismatches"],
                       "presort": {f"easy100k_{k}": v for k, v in pre.items()},
-                      "launches": mk.check_poses_cuda.launches}))
+                      "launches": launches()}))
 
 
 def easy_record() -> dict:
@@ -259,7 +275,7 @@ def easy_record() -> dict:
     try:
         assets.dataset_path("easy100k")
     except FileNotFoundError:
-        return {**dict.fromkeys(keys), "easy100k_launches": 0}
+        return {**dict.fromkeys(keys), "easy100k_launches": {}}
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--leg", "easy"],
                           capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0 or not proc.stdout.strip():
@@ -308,7 +324,7 @@ def main() -> int:
     except FileNotFoundError:
         name, ds = "hard10k", read_conf_file(assets.dataset_path("hard10k"))
     checker = MegaKernelChecker(robot, obstacle, device=device)
-    mk.check_poses_cuda.launches = 0
+    zero_launches()
     kc.pair_min_cuda.launches = 0
 
     rec = {**hard_leg(checker, ds, name),
@@ -323,8 +339,9 @@ def main() -> int:
     rec.update(easy_record())
     rec.update(device_leg(checker, ds.confs), **presort_leg(checker, ds.confs))
     torch.cuda.synchronize()
+    easy = rec.pop("easy100k_launches")
     rec.update(backend="cuda", card=card, kernel_launches={
-        "megakernel": mk.check_poses_cuda.launches + rec.pop("easy100k_launches"),
+        **{k: n + easy.get(k, 0) for k, n in launches().items()},
         "clearance": kc.pair_min_cuda.launches})
     result, extra = report(rec)
     print(json.dumps(result))

@@ -10,11 +10,13 @@ The port's counterpart of `scripts/profile_kernel.py` (its `--dataset`,
 key of `io.assets.DATASET_FILES`; hard100k and easy100k are written by
 `scripts/torch_make_datasets.py`) it prints:
   * layers: host time of each step of `MegaKernelChecker.check_valid_resolved`
-    (validate, upload, pose, kernel, fetch, resolve), each ended by
-    `torch.cuda.synchronize()`, the kernel (one launch per chunk of
+    (validate, upload, pose: K2's one launch, kernel, fetch, resolve), each
+    ended by `torch.cuda.synchronize()`, the kernel (one launch per chunk of
     `STREAM_CHUNK` rows, as `check_packed` launches it) also with CUDA
-    events, and the whole call unbroken; median, min and max of `--runs`
-    runs after a warm-up;
+    events, and the whole call unbroken; beside them `broad`, the pass that
+    `check_valid(presort=True)` adds (`mesh_broad`: K5 over every row), by
+    host clock and by CUDA events; median, min and max of `--runs` runs
+    after a warm-up;
   * trace: `--runs` calls under `torch.profiler`; the device's busy time per
     call (union of its kernel and copy intervals in the trace), the profiled
     call's wall time, and the busy time over the unprofiled median call;
@@ -74,8 +76,8 @@ def layers(checker, confs, runs: int) -> dict:
     (a launch per chunk of STREAM_CHUNK rows; the chunks' bytes are joined
     outside the kernel step's host and event spans), and of the whole call."""
     chunk = checker.STREAM_CHUNK
-    steps = {k: [] for k in ("validate", "upload", "pose", "kernel", "kernel_events",
-                             "fetch", "resolve", "end_to_end")}
+    steps = {k: [] for k in ("validate", "upload", "pose", "broad", "broad_events", "kernel",
+                             "kernel_events", "fetch", "resolve", "end_to_end")}
     for i in range(runs + 1):
         ms = {}
         ms["validate"], c = host_ms(
@@ -84,6 +86,12 @@ def layers(checker, confs, runs: int) -> dict:
         ms["pose"], poses = host_ms(lambda: mk.poses_from_confs(dev))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ms["broad"], _ = host_ms(lambda: mk.mesh_broad(poses, checker.tables.rob_base,
+                                                       checker.tables.obs_mesh))
+        end.record()
+        end.synchronize()
+        ms["broad_events"] = start.elapsed_time(end)
         start.record()
         ms["kernel"], outs = host_ms(lambda: [
             mk.check_poses_cuda(poses[lo : lo + chunk], checker.tables)
