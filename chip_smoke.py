@@ -10,9 +10,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `stage_probes.cu`, `clearance.cu` and `front.cu` (sm_90a, -fmad=false;
      one nvcc each, started together, beside `make -C native`, the float64
      oracle) and print the ptxas register / shared-memory / spill lines of
-     every kernel instance, and the fused kernel's shared memory per block
-     and resident blocks per SM for the alpha-1.0 tables; the native
-     library's `parse_conf` on hard10k must equal `io.conf`'s rows and tags;
+     every kernel instance (the front end's with 0 spill bytes), and the
+     fused kernel's shared memory per block and resident blocks per SM for
+     the alpha-1.0 tables; the native library against the io modules: its
+     `parse_conf` on hard10k must equal `io.conf`'s rows and tags, its
+     `parse_obj` of both alpha-1.0 meshes `io.obj.load_obj`'s vertices and
+     triangles, and its `write_conf` of hard10k the bytes of
+     `io.conf.write_conf_file`'s, parsing back (native and `io.conf`) to
+     hard10k's rows and tags;
   3. the kernel against its plain PyTorch twin on the card, on the same pose
      rows: alpha-1.0 meshes over hard10k[:2048] and easy10k[:2048], two
      icosphere scenes (one with a 2200-triangle soup obstacle), the
@@ -49,7 +54,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      beside the full kernel) and every probe piece of P1-P3 at its script's
      shape (`scripts/torch_bisect.py`; equal to its plain version, tolerance
      0), each launched once with the launch counters set to 0 just before,
-     then timed with its plain version by CUDA events;
+     then timed by its device duration from a trace (`timers.kernel_ms`, the
+     kernel table's figure) and by CUDA events around back-to-back calls,
+     with its plain version by CUDA events;
   7. the oversized-mesh path: `smem_bytes` against the compiled layout's
      `rc_megakernel_smem_bytes` on 8 shapes (the chunk caps among them) and
      the card's opt-in shared memory per block against `SMEM_LIMIT`; then
@@ -158,22 +165,31 @@ and fail if K2 (and K5 in 4b) did not launch.
      bit for bit (the int32 views equal), on all rows of the three 10k sets,
      hard100k and easy100k and on 65,536 adversarial rows
      (`io.datagen.adversarial_confs`: multiples of pi/4 and their
-     neighbours, +-1e4 rad, denormals, magnitudes to 1e38); (b) K5 against
-     `robot_bounds_reference` / `mesh_broad_reference`, boxes equal as
-     values (the min of -0.0 and +0.0 may be either zero), NaN for NaN, hit
-     bytes identical, on the alpha table and its cuts to Tr 1008, 77 and 1, a
-     one-triangle robot, an all-padding table (the 3.0e38 sentinel box), the
-     phase-3 scenes, every robot group of phase 7's scenes and hard10k rows
-     with NaN / +-inf entries through `broad_block`; (c) K2's and K5's
+     neighbours, +-1e4 rad, denormals, magnitudes to 1e38); (b) K5 over the
+     robot's vertex table (`robot_vertices`, 792 vertices for alpha-1.0)
+     against `robot_bounds_reference` / `mesh_broad_reference` (corner
+     table) and `robot_bounds_vertices_reference`, boxes equal as values
+     (the min of -0.0 and +0.0 may be either zero), NaN for NaN, hit bytes
+     identical, on the alpha table and its cuts to Tr 1008 (no padding), 77
+     and 1, a one-triangle robot, an all-padding table (the 3.0e38 sentinel
+     box), the phase-3 scenes, every robot group of phase 7's scenes and of
+     a 3,000-triangle soup whose 9,000 vertices take three 4,096-vertex
+     tiles (its `compact=True` bytes identical to `compact=False`'s), all
+     100,000 rows of hard100k, and hard10k rows with NaN / +-inf entries
+     through `broad_block` (and on the Tr 1008 cut); (c) K2's and K5's
      launch counters above 0 on `check_valid_resolved` (K2),
      `check_valid(presort=True)`, `check(two_phase=True)` and
      `ChunkedMegaKernelChecker` with `compact=True` (K2 and K5), each set to
-     0 just before; (d) K2 and K5 on hard100k's first 16,384 and all 100,000
-     rows by CUDA events, beside their torch-ops twins and their bounds
-     (`profiling.bounds.pose_rows_work`, `robot_bounds_work`), and
-     `check_valid` with presort off and on on hard100k and easy100k
-     (checks/s, best of 5, verdicts identical). K2's and K5's kernel-table
-     entries carry the [100000] times and the launches of every path above.
+     0 just before; (d) K2 and K5 on hard100k's first 2,048 and 16,384 and
+     all 100,000 rows by their device duration from a trace
+     (`timers.kernel_ms`), beside CUDA events around back-to-back calls,
+     the wrappers' host µs a call, their torch-ops twins and their bounds
+     (`profiling.bounds.pose_rows_work`; `robot_bounds_work`, the vertex
+     bound and the corner bound), and `check_valid` with presort off and
+     on on hard100k and easy100k (checks/s, best of 5, verdicts
+     identical). K2's and K5's kernel-table
+     entries carry the [100000] device times and the launches of every
+     path above.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -1349,86 +1365,134 @@ def phase14_poses(sets: dict, device) -> float:
     return worst
 
 
-def hold_box(poses, rob_base, obs_box) -> dict:
-    """Phase 14 (b) on one table and obstacle box: K5 with and without the
-    box against `robot_bounds_reference` / `mesh_broad_reference` on the
-    same pose rows. Boxes are held as values (the min of -0.0 and +0.0 may
-    be either zero), NaN for NaN; the hit bytes exactly."""
+def hold_box(poses, tables, obs_box) -> dict:
+    """Phase 14 (b) on one robot table (a `MegaKernelPrep` on the card, with
+    its vertex table) and obstacle box: K5 with and without the box against
+    `robot_bounds_reference` / `mesh_broad_reference` over the corner table
+    and `robot_bounds_vertices_reference` over the vertex table, on the same
+    pose rows. Boxes are held as values (the min of -0.0 and +0.0 may be
+    either zero), NaN for NaN; the hit bytes exactly."""
     from robocheck_tpu_torch.kernels import front
     from robocheck_tpu_torch.kernels import megakernel as mk
 
-    box, hit = front.robot_bounds_cuda(poses, rob_base, obs_box)
-    alone = front.robot_bounds_cuda(poses, rob_base)
-    want = mk.robot_bounds_reference(poses, rob_base)
-    want_hit = mk.mesh_broad_reference(poses, rob_base, obs_box)
-    return {"err": max(max_abs_err(box, want), max_abs_err(alone, want)),
+    box, hit = front.robot_bounds_cuda(poses, tables.rob_verts, obs_box,
+                                       padded=tables.rob_padded)
+    alone = front.robot_bounds_cuda(poses, tables.rob_verts, padded=tables.rob_padded)
+    want = mk.robot_bounds_reference(poses, tables.rob_base)
+    want_v = mk.robot_bounds_vertices_reference(poses, tables.rob_verts, tables.rob_padded)
+    want_hit = mk.mesh_broad_reference(poses, tables.rob_base, obs_box)
+    return {"err": max(max_abs_err(box, want), max_abs_err(alone, want),
+                       max_abs_err(box, want_v)),
             "hits": int(hit.sum()), "twin_hits": int(want_hit.sum()),
             "hits_equal": bool(torch.equal(hit, want_hit)),
             "nan": int(want.isnan().sum()), "box": box}
 
 
-def phase14_boxes(checker, data, scenes, chunked_scenes, device) -> float:
+def multi_tile_group(device):
+    """A chunked checker with one robot group whose vertex table spans more
+    than one of K5's 4,096-vertex shared-memory tiles: a soup of 3,000
+    triangles (9,000 vertices, no two shared) against icosphere(4) cut into
+    ten 512-triangle chunks; and 2,048 rows around it (seed 9)."""
+    from robocheck_tpu_torch.kernels.chunked import ChunkedMegaKernelChecker
+    from robocheck_tpu_torch.models.shapes import icosphere, triangle_soup
+
+    robot = triangle_soup(np.random.default_rng(11), 3000, extent=0.5)
+    ck = ChunkedMegaKernelChecker(robot, icosphere(4, radius=1.5), device=device,
+                                  max_rob_tris=4096, max_obs_tris=512)
+    rng = np.random.default_rng(9)
+    confs = np.zeros((2048, 6), np.float32)
+    confs[:, 0:3] = rng.uniform(-2.5, 2.5, (2048, 3))
+    confs[:, 3:6] = rng.uniform(-np.pi, np.pi, (2048, 3))
+    return ck, confs
+
+
+def phase14_boxes(checker, data, big, scenes, chunked_scenes, device) -> float:
     """Phase 14 (b): K5 against its twins on the alpha tables, the phase-3
-    scenes, every robot group of phase 7's chunked scenes, tables whose Tr is
-    not a multiple of 32, an all-padding table, and non-finite rows through
+    scenes, every robot group of phase 7's chunked scenes and of a robot
+    group past one shared-memory tile, tables whose Tr is not a multiple of
+    32, an all-padding table, all of hard100k, and non-finite rows through
     `broad_block`. Returns the max abs err."""
+    import dataclasses
+
     from robocheck_tpu_torch.core.types import Mesh
     from robocheck_tpu_torch.io.datagen import adversarial_confs
     from robocheck_tpu_torch.kernels import megakernel as mk
 
     worst = 0.0
 
-    def held(name, poses, rob_base, obs_box) -> dict:
+    def held(name, poses, tables, obs_box) -> dict:
         nonlocal worst
-        r = hold_box(poses, rob_base, obs_box)
+        r = hold_box(poses, tables, obs_box)
         worst = max(worst, r["err"])
         require(r["err"] == 0 and r["hits_equal"],
-                f"(b) {name}: K5 differs from its twin (max abs err {r['err']}, hits "
+                f"(b) {name}: K5 differs from its twins (max abs err {r['err']}, hits "
                 f"{r['hits']}/{r['twin_hits']})")
         return r
 
-    def line(name, poses, rob_base, r):
-        real = int((rob_base[9] > 0).sum())
-        print(f"  (b) {name}: {poses.shape[0]} rows, Tr {rob_base.shape[1]} ({real} real): boxes "
-              f"equal as values ({r['nan']} NaN entries, NaN for NaN), hits {r['hits']} / twin "
+    def line(name, poses, tables, r):
+        real = int((tables.rob_base[9] > 0).sum())
+        print(f"  (b) {name}: {poses.shape[0]} rows, Tr {tables.rob_base.shape[1]} ({real} real, "
+              f"{tables.rob_verts.shape[1]} vertices, padded {tables.rob_padded}): boxes equal "
+              f"as values ({r['nan']} NaN entries, NaN for NaN), hits {r['hits']} / twin "
               f"{r['twin_hits']}, max abs err {r['err']}")
 
-    rob, obs_mesh = checker.tables.rob_base, checker.tables.obs_mesh
+    alpha_t, obs_mesh = checker.tables, checker.tables.obs_mesh
+    rob = alpha_t.rob_base.cpu()
     alpha = {key: data[key].confs for key in ("hard10k", "easy10k")}
     alpha["adversarial"] = adversarial_confs()
     one = np.array([[0, 1, 2]], np.int32)
     tri = mk.MegaKernelPrep.build(Mesh(np.eye(3, dtype=np.float32), one),
-                                  Mesh(np.eye(3, dtype=np.float32) + 0.5, one)).to(device)
+                                  Mesh(np.eye(3, dtype=np.float32) + 0.5, one)).rob_base
     padding = rob.clone()
     padding[9] = 0.0
-    tables = {"alpha": rob, "alpha Tr 1008 (its real triangles)": rob[:, :1008].contiguous(),
-              "alpha Tr 1": rob[:, :1].contiguous(), "alpha Tr 77": rob[:, :77].contiguous(),
-              "one-triangle robot (Tr 128)": tri.rob_base, "all padding": padding}
+    cuts = {"alpha Tr 1008 (its real triangles)": rob[:, :1008], "alpha Tr 1": rob[:, :1],
+            "alpha Tr 77": rob[:, :77], "one-triangle robot (Tr 128)": tri,
+            "all padding": padding}
+    tables = {"alpha": alpha_t}
+    tables.update({k: dataclasses.replace(alpha_t, rob_base=torch.as_tensor(v).to(device)
+                                          .contiguous()) for k, v in cuts.items()})
+    require(alpha_t.rob_verts.shape[1] == 792, "the alpha robot's vertex table is not 792 "
+            f"vertices: {tuple(alpha_t.rob_verts.shape)}")
     for key, confs in alpha.items():
         poses = mk.poses_from_confs_reference(torch.from_numpy(confs).to(device))
-        for name, table in tables.items():
-            r = held(f"{name}, {key}", poses, table, obs_mesh)
-            line(f"{name}, {key}", poses, table, r)
+        for name, t in tables.items():
+            r = held(f"{name}, {key}", poses, t, obs_mesh)
+            line(f"{name}, {key}", poses, t, r)
             if name == "all padding":
                 sentinel = torch.tensor([3.0e38] * 3 + [-3.0e38] * 3, device=device)
                 require(bool((r["box"] == sentinel).all()),
                         "(b) an all-padding table does not give the 3.0e38 sentinel box")
     for name, prep, poses in scenes:
-        line(name, poses, prep.rob_base, held(name, poses, prep.rob_base, prep.obs_mesh))
-    for name, ck, confs in chunked_scenes:
+        line(name, poses, prep, held(name, poses, prep, prep.obs_mesh))
+    ck_tiles, confs_tiles = multi_tile_group(device)
+    groups = [*chunked_scenes, ("soup of 3,000 triangles x icosphere(4)", ck_tiles, confs_tiles)]
+    for name, ck, confs in groups:
         poses = mk.poses_from_confs_reference(torch.from_numpy(confs).to(device))
-        n_groups, n_boxes, hits = 0, 0, 0
+        n_groups, n_boxes, hits, most = 0, 0, 0, 0
         for lo in range(0, ck.num_chunk_pairs, ck._n_obs_chunks):
             group = ck.checkers[lo : lo + ck._n_obs_chunks]
             n_groups += 1
+            most = max(most, group[0].tables.rob_verts.shape[1])
             for c in group:
-                hits += held(f"{name}, robot group {n_groups}", poses, group[0].tables.rob_base,
+                hits += held(f"{name}, robot group {n_groups}", poses, group[0].tables,
                              c.tables.obs_mesh)["hits"]
                 n_boxes += 1
         print(f"  (b) {name}: {n_groups} robot groups x their {n_boxes} obstacle-chunk boxes, "
-              f"{len(confs)} rows each: equal to the twin, {hits} hits in all")
+              f"{len(confs)} rows each (at most {most} vertices a group): equal to the twins, "
+              f"{hits} hits in all")
+    most = ck_tiles.checkers[0].tables.rob_verts.shape[1]
+    require(most > 4096, f"the multi-tile robot group has {most} vertices, not over 4,096")
+    on, off = (ck_tiles.check_packed(confs_tiles, compact=c) for c in (True, False))
+    print(f"  (b) its compact=True bytes (K5 over {most} vertices, {-(-most // 4096)} tiles) "
+          f"identical to compact=False: {bool(np.array_equal(on, off))} "
+          f"({int((on & 1).sum())} valid of {len(on)})")
+    require(np.array_equal(on, off), "(b) the multi-tile group's compact= bytes differ")
+    # All 100,000 rows of hard100k on the alpha table.
+    poses = mk.poses_from_confs_reference(torch.from_numpy(big["hard100k"]).to(device))
+    line("alpha, hard100k", poses, alpha_t, held("alpha, hard100k", poses, alpha_t, obs_mesh))
     # Non-finite rows, which broad_block takes as they are (check_packed
-    # filters them): K2 then K5 against both twins.
+    # filters them): K2 then K5 against the twins, on the alpha table and on
+    # its cut to Tr 1008, which has no padding column to fold 3.0e38 in.
     bad = np.array(data["hard10k"].confs[:4096])
     rng = np.random.default_rng(14)
     for col in range(6):
@@ -1437,14 +1501,30 @@ def phase14_boxes(checker, data, scenes, chunked_scenes, device) -> float:
     x = torch.from_numpy(bad).to(device)
     got = checker.broad_block(bad)
     twin_poses = mk.poses_from_confs_reference(x)
-    want = mk.mesh_broad_reference(twin_poses, rob, obs_mesh)
-    r = held("non-finite rows", twin_poses, rob, obs_mesh)
+    want = mk.mesh_broad_reference(twin_poses, alpha_t.rob_base, obs_mesh)
+    r = held("non-finite rows", twin_poses, alpha_t, obs_mesh)
+    cut = tables["alpha Tr 1008 (its real triangles)"]
+    line("non-finite rows, alpha Tr 1008", twin_poses, cut,
+         held("non-finite rows, alpha Tr 1008", twin_poses, cut, obs_mesh))
     print(f"  (b) broad_block on {len(bad)} hard10k rows with NaN / +-inf entries "
           f"({int((~np.isfinite(bad).all(1)).sum())} non-finite rows): {int(got.sum())} hits, "
           f"twin {int(want.sum())}, equal {bool(torch.equal(got, want))}; boxes NaN for NaN "
           f"({r['nan']} NaN entries), max abs err {r['err']}")
     require(torch.equal(got, want), "(b) broad_block differs from the twin on non-finite rows")
     return worst
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host µs of one ``fn()`` call (its issue: checks, allocation, launch),
+    over ``reps`` calls started after a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase14(checker, data, scenes, chunked_scenes, card: str, device) -> list:
@@ -1458,7 +1538,7 @@ def phase14(checker, data, scenes, chunked_scenes, card: str, device) -> list:
     from robocheck_tpu_torch.kernels import front
     from robocheck_tpu_torch.kernels import megakernel as mk
     from robocheck_tpu_torch.profiling import bounds
-    from robocheck_tpu_torch.profiling.timers import benchmark, event_ms
+    from robocheck_tpu_torch.profiling.timers import benchmark, event_ms, kernel_ms
 
     print("[14] front end: K2 (pose rows) and K5 (robot box), csrc/front.cu")
     t_start = time.perf_counter()
@@ -1468,7 +1548,7 @@ def phase14(checker, data, scenes, chunked_scenes, card: str, device) -> list:
     sets.update(big)
     sets["adversarial"] = adversarial_confs()
     err2 = phase14_poses(sets, device)
-    err5 = phase14_boxes(checker, data, scenes, chunked_scenes, device)
+    err5 = phase14_boxes(checker, data, big, scenes, chunked_scenes, device)
 
     # (c) each path with the counters set to 0 just before it.
     hard = data["hard10k"].confs
@@ -1485,24 +1565,46 @@ def phase14(checker, data, scenes, chunked_scenes, card: str, device) -> list:
         got = read_front(f"(14 (c)) {name}", k5)
         print(f"  (c) {name}: K2 {got['pose_rows']} launches, K5 {got['robot_bounds']}")
 
-    # (d) times at the bench's shapes, beside the twins and the bounds.
-    rob, obs_mesh = checker.tables.rob_base, checker.tables.obs_mesh
-    rob_np = rob.cpu().numpy()
+    # (d) times at the bench's shapes: each kernel's device duration from a
+    # trace (`kernel_ms`), beside CUDA events around 20 back-to-back calls
+    # (which read the wrapper's issue time where it exceeds the kernel's),
+    # the wrapper's host µs a call, the twins and the bounds; K5 against its
+    # vertex bound and its corner bound.
+    tables = checker.tables
+    rob_np, nv = tables.rob_base.cpu().numpy(), tables.rob_verts.shape[1]
     times = {}
-    for n in (16384, 100000):
+    for n in (2048, 16384, 100000):
         x = torch.from_numpy(big["hard100k"][:n]).to(device)
         poses = mk.poses_from_confs_reference(x)
-        k2 = (event_ms(lambda: front.poses_from_confs_cuda(x), 20),
-              event_ms(lambda: mk.poses_from_confs_reference(x), 20),
-              *bounds.bound_ms(*bounds.pose_rows_work(len(x))))
-        k5 = (event_ms(lambda: front.robot_bounds_cuda(poses, rob, obs_mesh), 20),
-              event_ms(lambda: mk.mesh_broad_reference(poses, rob, obs_mesh), 3),
-              *bounds.bound_ms(*bounds.robot_bounds_work(rob_np, len(x), True)))
+
+        def k2_run():
+            return front.poses_from_confs_cuda(x)
+
+        def k5_run():
+            return front.robot_bounds_cuda(poses, tables.rob_verts, tables.obs_mesh,
+                                           padded=tables.rob_padded)
+
+        k2 = {"ms": kernel_ms(k2_run), "event_ms": event_ms(k2_run, 20),
+              "host_us": host_us(k2_run),
+              "plain_ms": event_ms(lambda: mk.poses_from_confs_reference(x), 20)}
+        k2["bound_ms"], k2["bound_by"] = bounds.bound_ms(*bounds.pose_rows_work(n))
+        k5 = {"ms": kernel_ms(k5_run), "event_ms": event_ms(k5_run, 20),
+              "host_us": host_us(k5_run),
+              "plain_ms": event_ms(lambda: mk.mesh_broad_reference(poses, tables.rob_base,
+                                                                   tables.obs_mesh), 3)}
+        k5["bound_ms"], k5["bound_by"] = bounds.bound_ms(
+            *bounds.robot_bounds_work(rob_np, n, True, nv=nv))
+        k5["corner_bound_ms"], _ = bounds.bound_ms(*bounds.robot_bounds_work(rob_np, n, True))
         times[n] = (k2, k5)
-        for what, (ms, plain, b_ms, b_by) in (("K2 pose rows", k2),
-                                              ("K5 robot box + mesh-box test", k5)):
-            print(f"  (d) [{card}] {what}, hard100k[:{n}]: {ms} ms; torch-ops twin {plain} ms; "
-                  f"bound {b_ms} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+        print(f"  (d) [{card}] K2 pose rows, hard100k[:{n}]: {k2['ms']} ms device (trace), "
+              f"{k2['event_ms']} ms by events, wrapper {k2['host_us']} us of host time a call; "
+              f"torch-ops twin {k2['plain_ms']} ms; bound {k2['bound_ms']} ms "
+              f"({k2['bound_by']}), {100 * k2['bound_ms'] / k2['ms']:.1f}% of it")
+        print(f"  (d) [{card}] K5 robot box + mesh-box test, hard100k[:{n}], {nv} vertices: "
+              f"{k5['ms']} ms device (trace), {k5['event_ms']} ms by events, wrapper "
+              f"{k5['host_us']} us a call; torch-ops twin {k5['plain_ms']} ms; vertex bound {k5['bound_ms']} ms "
+              f"({k5['bound_by']}), {100 * k5['bound_ms'] / k5['ms']:.1f}% of it; corner "
+              f"bound {k5['corner_bound_ms']} ms, {100 * k5['corner_bound_ms'] / k5['ms']:.1f}%")
     for key, confs in big.items():
         plain, sorted_ = (checker.check_valid(confs), checker.check_valid(confs, presort=True))
         same = all(np.array_equal(a, b) for a, b in zip(plain, sorted_))
@@ -1514,17 +1616,56 @@ def phase14(checker, data, scenes, chunked_scenes, card: str, device) -> list:
         require(same, f"(d) {key}: presort changes a verdict")
     total = {k: sum(v[k] for v in FRONT_LAUNCHES.values()) for k in ("pose_rows", "robot_bounds")}
     print(f"  K2 / K5 launches by path: {json.dumps(FRONT_LAUNCHES)}")
+    print(f"  traces retaken by kernel_ms for a lost kernel record, phases 6 and 14: "
+          f"{kernel_ms.lost}")
     print(f"  [{card}] phase 14: {time.perf_counter() - t_start} s")
-    (k2_ms, k2_plain, k2_b, k2_by), (k5_ms, k5_plain, k5_b, k5_by) = times[100000]
-    # No single PyTorch call computes either function: library_ms null.
+    k2, k5 = times[100000]
+    # No single PyTorch call computes either function: library_ms null. ms is
+    # the device duration by trace; event_ms the CUDA-event figure beside it.
     return [{"name": "pose_rows", "route": "cuda", "source": FRONT_SOURCE,
              "replaces": POSE_REPLACES, "launches": total["pose_rows"], "max_abs_err": err2,
-             "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_b, "bound_by": k2_by,
-             "library_ms": None},
+             "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+             "bound_by": k2["bound_by"], "library_ms": None, "event_ms": k2["event_ms"]},
             {"name": "robot_bounds", "route": "cuda", "source": FRONT_SOURCE,
              "replaces": BOX_REPLACES, "launches": total["robot_bounds"],
-             "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_b,
-             "bound_by": k5_by, "library_ms": None}]
+             "max_abs_err": err5, "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+             "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"], "library_ms": None,
+             "event_ms": k5["event_ms"], "corner_bound_ms": k5["corner_bound_ms"]}]
+
+
+def phase2_native(native, hard10k) -> None:
+    """Phase 2, the native parsers and writer against the io modules: the
+    native `parse_obj` of both alpha-1.0 meshes against `io.obj.load_obj`,
+    and hard10k through the native `write_conf`, whose file must hold the
+    bytes of `io.conf.write_conf_file`'s and parse back (native `parse_conf`
+    and `io.conf.read_conf_file`) to hard10k's rows and tags."""
+    import filecmp
+
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.io.conf import read_conf_file, write_conf_file
+    from robocheck_tpu_torch.io.obj import load_obj
+
+    for path in (assets.alpha_robot_path(), assets.alpha_obstacle_path()):
+        verts, tris = native.parse_obj(str(path))
+        mesh = load_obj(path)
+        same = np.array_equal(verts, mesh.vertices) and np.array_equal(tris, mesh.triangles)
+        print(f"  native parse_obj on {os.path.basename(str(path))}: {len(verts)} vertices, "
+              f"{len(tris)} triangles, identical to io.obj's: {same}")
+        require(same, f"the native parse_obj differs from io.obj on {path}")
+    with tempfile.TemporaryDirectory() as tmp:
+        mine, ref = os.path.join(tmp, "native.conf"), os.path.join(tmp, "io.conf")
+        native.write_conf(mine, hard10k.confs, hard10k.valid)
+        write_conf_file(ref, hard10k.confs, hard10k.valid)
+        same_bytes = filecmp.cmp(mine, ref, shallow=False)
+        n_confs, n_valid = native.parse_conf(mine)
+        back = read_conf_file(mine)
+        same = all(np.array_equal(a, b) for a, b in (
+            (n_confs, hard10k.confs), (n_valid, hard10k.valid), (back.confs, hard10k.confs),
+            (back.valid, hard10k.valid)))
+    print(f"  native write_conf of hard10k: the bytes of io.conf's {same_bytes}; parsed back "
+          f"(native parse_conf, io.conf) to its rows and tags: {same}")
+    require(same_bytes and same, "the native write_conf / parse_conf round trip of hard10k "
+            "differs from io.conf")
 
 
 def main() -> None:
@@ -1536,7 +1677,7 @@ def main() -> None:
     from robocheck_tpu_torch.kernels import _build
     from robocheck_tpu_torch.kernels import megakernel as mk
     from robocheck_tpu_torch.models.shapes import box, icosphere, tetrahedron, triangle_soup
-    from robocheck_tpu_torch.profiling import bounds, probes
+    from robocheck_tpu_torch.profiling import bounds, probes, timers
     from robocheck_tpu_torch.profiling.timers import benchmark, card_line, event_ms
     from robocheck_tpu_torch.runtime import native
 
@@ -1566,6 +1707,9 @@ def main() -> None:
             if any(w in line for w in ("Compiling entry", "registers", "spill", "smem",
                                        "stack frame")):
                 print(f"    {line.strip()}")
+    spills = [ln.strip() for ln in built["front"][1].splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    require(not spills, f"the front end's kernels spill registers: {spills}")
     lib = _build.library()
     per_sm = lib.rc_megakernel_blocks_per_sm(1024, 8)
     require(per_sm > 0, f"the fused kernel fits no block on an SM ({per_sm})")
@@ -1582,6 +1726,7 @@ def main() -> None:
             and np.array_equal(n_valid, data["hard10k"].valid))
     print(f"  native parse_conf on hard10k: {len(n_confs)} rows, identical to io.conf's: {same}")
     require(same, "the native parse_conf differs from io.conf on hard10k")
+    phase2_native(native, data["hard10k"])
 
     # ---- 3. Kernel against its twin, same pose rows. ----
     print("[3] kernel vs twin on the card (exact: valid on every row, "
@@ -1829,20 +1974,24 @@ def main() -> None:
         worst, timing = 0, None
         for piece in pieces[st]:
             err = int((piece_out[piece.name].long() - piece.plain().long()).abs().max())
-            k_ms = event_ms(piece.kernel, 20)
+            # The device duration by trace (the share's figure), and CUDA
+            # events around back-to-back calls beside it (at µs scale they
+            # read the wrapper's issue time).
+            k_ms = timers.kernel_ms(piece.kernel, 20)
+            e_ms = event_ms(piece.kernel, 20)
             p_ms = event_ms(piece.plain, 2)
-            print(f"  [{card}] {name} {piece.name} [{piece.n}]: {k_ms} ms, plain {p_ms} ms, "
-                  f"max abs err {err}")
+            print(f"  [{card}] {name} {piece.name} [{piece.n}]: {k_ms} ms device (trace), "
+                  f"{e_ms} ms by events, plain {p_ms} ms, max abs err {err}")
             require(err == 0, f"{name} {piece.name}: differs from its plain version")
             worst = max(worst, err)
             if piece.name == timed:
-                timing = (k_ms, p_ms, piece.n)
+                timing = (k_ms, p_ms, piece.n, e_ms)
         b_ms, b_by = bounds.bound_ms(*bounds.probe_work(timed, timing[2]))
         entries.append({"name": name, "route": "cuda", "source": PROBE_SOURCE,
                         "replaces": replaces, "launches": probe_launches[st],
                         "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                        "piece": timed})
+                        "piece": timed, "event_ms": timing[3]})
 
     # ---- 7-10. The oversized-mesh path, the planners, the certifier, the
     # gradient planners. ----

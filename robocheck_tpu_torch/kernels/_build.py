@@ -126,10 +126,10 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
         _bind(lib.rc_clearance_smem_bytes, i64, [i32])
         _bind(lib.rc_clearance_error_string, ctypes.c_char_p, [i32])
     elif name == "front":
-        # confs, n, out, stream; poses, n, rob_base, tr, obs_box, out_box,
-        # out_hit, stream
+        # confs, n, out, stream; poses, n, verts, nv, padded, obs_box,
+        # out_box, out_hit, stream
         _bind(lib.rc_pose_rows, i32, [ptr, i64, ptr, ptr])
-        _bind(lib.rc_robot_bounds, i32, [ptr, i64, ptr, i32, ptr, ptr, ptr, ptr])
+        _bind(lib.rc_robot_bounds, i32, [ptr, i64, ptr, i32, i32, ptr, ptr, ptr, ptr])
         _bind(lib.rc_front_error_string, ctypes.c_char_p, [i32])
     return lib
 

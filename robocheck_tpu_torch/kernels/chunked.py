@@ -142,14 +142,15 @@ class ChunkedMegaKernelChecker:
         """[num_chunk_pairs, N] bool: each chunk pair's broad phase, bit for
         bit its kernel's stage 1. The robot box of every row is computed on
         the device once per robot chunk and tested there against each of
-        its obstacle chunks' boxes; one fetch per robot chunk."""
+        its obstacle chunks' boxes (on the card by K5 over the robot chunk's
+        vertex table, built with its tables); one fetch per robot chunk."""
         out = np.empty((self.num_chunk_pairs, confs.shape[0]), dtype=bool)
         if not confs.shape[0]:
             return out
         poses = poses_from_confs(torch.from_numpy(confs).to(self.device))
         for lo in range(0, self.num_chunk_pairs, self._n_obs_chunks):
             group = self.checkers[lo : lo + self._n_obs_chunks]
-            bounds = robot_bounds(poses, group[0].tables.rob_base)
+            bounds = robot_bounds(poses, group[0].tables)
             boxes = torch.stack([ck.tables.obs_mesh for ck in group])
             out[lo : lo + len(group)] = boxes_overlap(bounds, boxes).cpu().numpy()
         return out

@@ -4,12 +4,14 @@
     `megakernel.py:1099`): [B,6] configurations -> [B,16] pose rows, bit
     for bit `megakernel.poses_from_confs_reference` on the same card;
   * ``robot_bounds_cuda`` (K5, `_robot_bounds` / `_broad_overlap`,
-    `megakernel.py:1209-1248`): [B,16] pose rows and a robot table
-    rob_base [10, Tr] -> the [B,6] box (lo x,y,z, hi x,y,z) of the posed
-    robot's real triangles and, given an obstacle box [6], the [B] bool
-    closed-interval overlap with it; `robot_bounds_reference` /
-    `mesh_broad_reference` as values (a min of -0.0 and +0.0 may be either
-    zero), NaN for NaN. Nothing of size [B, Tr] is stored.
+    `megakernel.py:1209-1248`): [B,16] pose rows and the robot's vertex
+    table [3, nv] (`megakernel.robot_vertices`, built once per robot table
+    by `MegaKernelPrep.to`) -> the [B,6] box (lo x,y,z, hi x,y,z) of the
+    posed robot's real triangles and, given an obstacle box [6], the [B]
+    bool closed-interval overlap with it; `robot_bounds_vertices_reference`
+    and `robot_bounds_reference` / `mesh_broad_reference` as values (a min
+    of -0.0 and +0.0 may be either zero), NaN for NaN. Nothing of size
+    [B, nv] is stored.
 
 Each takes CUDA tensors only: it raises on a CPU tensor, on inputs the
 kernel does not take and on a refused launch, launches on the tensor's
@@ -64,22 +66,25 @@ def poses_from_confs_cuda(confs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def robot_bounds_cuda(poses: torch.Tensor, rob_base: torch.Tensor,
-                      obs_box: torch.Tensor | None = None):
-    """Launch K5 on the current stream: [B,16] pose rows and rob_base
-    [10, Tr] (Tr >= 1, any multiple) -> [B,6] box; with ``obs_box`` [6]
-    (lo, hi) returns (box, [B] bool overlap), without it the box alone."""
+def robot_bounds_cuda(poses: torch.Tensor, rob_verts: torch.Tensor,
+                      obs_box: torch.Tensor | None = None, *, padded: bool):
+    """Launch K5 on the current stream: [B,16] pose rows and the vertex
+    table ``rob_verts`` [3, nv] (nv >= 0) of a corner table with or without
+    padding columns (``padded``: the box folds in the 3.0e38 sentinel, as
+    the corner twin's masked reduction does) -> [B,6] box; with ``obs_box``
+    [6] (lo, hi) returns (box, [B] bool overlap), without it the box
+    alone."""
     from . import _build
 
     if not poses.is_cuda:
         raise ValueError(f"poses must be a CUDA tensor, got {poses.device}")
     dev = poses.device
     n = poses.shape[0] if poses.dim() == 2 else -1
-    tr = rob_base.shape[1] if rob_base.dim() == 2 else -1
-    if tr < 1:
-        raise ValueError(f"rob_base must be [10, Tr] with Tr >= 1, got {tuple(rob_base.shape)}")
+    nv = rob_verts.shape[1] if rob_verts.dim() == 2 else -1
+    if nv < 0:
+        raise ValueError(f"rob_verts must be [3, nv], got {tuple(rob_verts.shape)}")
     _require(poses, "poses", (n, 16), dev)
-    _require(rob_base, "rob_base", (10, tr), dev)
+    _require(rob_verts, "rob_verts", (3, nv), dev)
     if obs_box is not None:
         _require(obs_box, "obs_box", (6,), dev)
     box = torch.empty((n, 6), dtype=torch.float32, device=dev)
@@ -88,7 +93,7 @@ def robot_bounds_cuda(poses: torch.Tensor, rob_base: torch.Tensor,
         lib = _build.library("front")
         with torch.cuda.device(dev):
             err = lib.rc_robot_bounds(
-                poses.data_ptr(), n, rob_base.data_ptr(), tr,
+                poses.data_ptr(), n, rob_verts.data_ptr(), nv, int(padded),
                 None if obs_box is None else obs_box.data_ptr(), box.data_ptr(),
                 None if hit is None else hit.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -41,10 +41,16 @@ Host tables (``MegaKernelPrep``), Morton-ordered like the JAX package's:
                 vectors). Padding rows carry the empty box (+inf, -inf).
   * obs_mesh   [6]: box of the referenced obstacle vertices (lo, hi).
   * obs_groups [To / GROUP, 6]: box of each group of GROUP obstacle triangles.
+  * rob_verts  [3, nv]: the robot's vertex table (``robot_vertices``: the
+                distinct corners of the real triangles) and rob_padded,
+                whether rob_base has a padding column: derived from rob_base
+                (built by ``to`` on the tables' device), K5's input
+                (`csrc/front.cu`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -153,11 +159,31 @@ class MegaKernelPrep:
                               obs_groups)
 
     def to(self, device: torch.device | str) -> "MegaKernelPrep":
-        """The same tables as contiguous float32 tensors on ``device``."""
-        return MegaKernelPrep(*(
+        """The same tables as contiguous float32 tensors on ``device`` (from
+        host arrays or CPU tensors), with the robot's vertex table
+        (``rob_verts``) built there once."""
+        prep = MegaKernelPrep(*(
             torch.as_tensor(np.asarray(a, np.float32)).to(device).contiguous()
             for a in (self.rob_base, self.obs, self.obs_mesh, self.obs_groups)
         ))
+        _ = prep.rob_verts, prep.rob_padded  # built here, never on a call
+        return prep
+
+    @functools.cached_property
+    def rob_verts(self) -> torch.Tensor:
+        """[3, nv] f32 on rob_base's device: the robot's vertex table
+        (``robot_vertices``), K5's input. Derived from rob_base at first use
+        (``to`` builds it) and kept with it; a prep is frozen, so the table
+        cannot go stale (``dataclasses.replace`` makes a new prep, which
+        derives its own)."""
+        return robot_vertices(torch.as_tensor(np.asarray(self.rob_base, np.float32))
+                              if isinstance(self.rob_base, np.ndarray) else self.rob_base)
+
+    @functools.cached_property
+    def rob_padded(self) -> bool:
+        """Whether rob_base has a non-real column (row 9 <= 0): K5 then folds
+        the 3.0e38 sentinel into the box, as the corner twin does."""
+        return bool((self.rob_base[9] <= 0.0).any())
 
 
 def prep_from_arrays(rob_base: np.ndarray, obs_t: np.ndarray,
@@ -331,21 +357,40 @@ def _pair_flags(r: dict, o: dict) -> PairFlags:
                      isect & ~coplanar)
 
 
-def robot_bounds(poses: torch.Tensor, rob_base: torch.Tensor) -> torch.Tensor:
+def robot_vertices(rob_base: torch.Tensor) -> torch.Tensor:
+    """The robot's vertex table [3, nv] float32 (X, Y, Z rows) on
+    ``rob_base``'s device: the corners of the real triangles (row 9 > 0),
+    each distinct (X, Y, Z) bit pattern once (-0.0 and +0.0 kept apart), in
+    ascending order of the patterns as int32, so a table always gives the
+    same vertex table. K5's input (`front.robot_bounds_cuda`), built once
+    per robot table (``MegaKernelPrep.to``); the alpha-1.0 robot's 3,024
+    corners give 792 vertices."""
+    real = rob_base[9] > 0.0
+    corners = rob_base[0:9][:, real].reshape(3, 3, -1)  # [corner, axis, triangle]
+    pts = corners.permute(0, 2, 1).reshape(-1, 3).contiguous()
+    if not pts.shape[0]:
+        return torch.zeros((3, 0), dtype=torch.float32, device=rob_base.device)
+    bits = torch.unique(pts.view(torch.int32), dim=0)
+    return bits.view(torch.float32).T.contiguous()
+
+
+def robot_bounds(poses: torch.Tensor, tables: MegaKernelPrep) -> torch.Tensor:
     """[B,16] pose rows -> [B,6] box (lo x,y,z, hi x,y,z) of the posed robot's
-    real triangles: the JAX package's `_robot_bounds`
-    (`megakernel.py:1209-1228`). K5 (`front.robot_bounds_cuda`) for a CUDA
-    tensor, the twin ``robot_bounds_reference`` for a CPU one. Any number of
-    obstacle boxes can be tested against it (``boxes_overlap``)."""
+    real triangles in ``tables`` (on the rows' device, from ``to``): the JAX
+    package's `_robot_bounds` (`megakernel.py:1209-1228`). K5
+    (`front.robot_bounds_cuda`) over the vertex table for a CUDA tensor, the
+    twin ``robot_bounds_reference`` over the corner table for a CPU one. Any
+    number of obstacle boxes can be tested against it (``boxes_overlap``)."""
     if poses.is_cuda:
-        return robot_bounds_cuda(poses, rob_base)
-    return robot_bounds_reference(poses, rob_base)
+        return robot_bounds_cuda(poses, tables.rob_verts, padded=tables.rob_padded)
+    return robot_bounds_reference(poses, tables.rob_base)
 
 
 def robot_bounds_reference(poses: torch.Tensor, rob_base: torch.Tensor) -> torch.Tensor:
-    """K5's plain PyTorch twin (any device), in the operation order of K1's
-    stage 1: each corner posed as r0*x + r1*y + r2*z + t, masked min / max
-    (3.0e38 / -3.0e38 where no triangle is real)."""
+    """The robot box's plain PyTorch twin over the corner table (any device),
+    in the operation order of K1's stage 1: each corner posed as
+    r0*x + r1*y + r2*z + t, masked min / max (3.0e38 / -3.0e38 where no
+    triangle is real)."""
     real = rob_base[9] > 0.0
     lo_hi = [], []
     for k in range(3):
@@ -360,6 +405,31 @@ def robot_bounds_reference(poses: torch.Tensor, rob_base: torch.Tensor) -> torch
     return torch.stack(lo_hi[0] + lo_hi[1], dim=1)
 
 
+def robot_bounds_vertices_reference(poses: torch.Tensor, rob_verts: torch.Tensor,
+                                    padded: bool = True) -> torch.Tensor:
+    """K5's plain PyTorch twin over the vertex table [3, nv] (any device), in
+    the kernel's operation order (`csrc/front.cu`): s = r0*X + r1*Y + r2*Z a
+    vertex, its min and max over the vertices (NaN-propagating), the
+    translation added to the extreme that stands for every vertex
+    (`finish_axis`: rounding is monotone), then, where the corner table has
+    padding (``padded``), the 3.0e38 sentinel folded in as the corner twin's
+    masked reduction folds it. Equal as values, NaN for NaN, to
+    ``robot_bounds_reference`` over the table the vertices came from; a
+    table with no real triangle gives the sentinel box."""
+    n = poses.shape[0]
+    if not rob_verts.shape[1]:
+        return poses.new_tensor([_BIG] * 3 + [-_BIG] * 3).expand(n, 6).clone()
+    big = poses.new_tensor(_BIG if padded else torch.inf)
+    lo_hi = [], []
+    for k in range(3):
+        r0, r1, r2, t = (poses[:, 4 * k + j : 4 * k + j + 1] for j in range(4))
+        s = r0 * rob_verts[0] + r1 * rob_verts[1] + r2 * rob_verts[2]
+        lo_s, hi_s = s.amin(dim=1, keepdim=True), s.amax(dim=1, keepdim=True)
+        lo_hi[0].append(torch.minimum(torch.where(t == -torch.inf, hi_s, lo_s) + t, big))
+        lo_hi[1].append(torch.maximum(torch.where(t == torch.inf, lo_s, hi_s) + t, -big))
+    return torch.cat(lo_hi[0] + lo_hi[1], dim=1)
+
+
 def boxes_overlap(bounds: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """[B,6] robot boxes x [K,6] obstacle boxes -> [K,B] bool overlap on
     closed intervals (the kernel's mesh-box test)."""
@@ -367,16 +437,17 @@ def boxes_overlap(bounds: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
             & (boxes[:, None, :3] <= bounds[None, :, 3:])).all(-1)
 
 
-def mesh_broad(poses: torch.Tensor, rob_base: torch.Tensor,
-               obs_mesh: torch.Tensor) -> torch.Tensor:
+def mesh_broad(poses: torch.Tensor, tables: MegaKernelPrep) -> torch.Tensor:
     """[B,16] pose rows -> [B] bool: the posed robot's mesh box (real
-    triangles only) overlaps the obstacle's on closed intervals. The JAX
-    package's `_broad_overlap` (`megakernel.py:1232-1248`), which is the
-    kernel's stage 1 bit for bit: K5 with the obstacle box for a CUDA
-    tensor, the twin ``mesh_broad_reference`` for a CPU one."""
+    triangles only) overlaps the obstacle's (``tables.obs_mesh``) on closed
+    intervals. The JAX package's `_broad_overlap` (`megakernel.py:1232-1248`),
+    which is the kernel's stage 1 bit for bit: K5 over the vertex table with
+    the obstacle box for a CUDA tensor, the twin ``mesh_broad_reference``
+    over the corner table for a CPU one."""
     if poses.is_cuda:
-        return robot_bounds_cuda(poses, rob_base, obs_mesh)[1]
-    return mesh_broad_reference(poses, rob_base, obs_mesh)
+        return robot_bounds_cuda(poses, tables.rob_verts, tables.obs_mesh,
+                                 padded=tables.rob_padded)[1]
+    return mesh_broad_reference(poses, tables.rob_base, tables.obs_mesh)
 
 
 def mesh_broad_reference(poses: torch.Tensor, rob_base: torch.Tensor,
@@ -697,7 +768,7 @@ class MegaKernelChecker:
         `_broad_sort` (a stable partition by cumsums and one scatter) and
         `_unpermute` (`megakernel.py:1176-1206`) as torch ops."""
         n = poses.shape[0]
-        hits = mesh_broad(poses, self.tables.rob_base, self.tables.obs_mesh)
+        hits = mesh_broad(poses, self.tables)
         n_hit = torch.cumsum(hits, 0)
         n_miss = torch.cumsum(~hits, 0)
         dest = torch.where(hits, n_hit - 1, n_hit[-1] + n_miss - 1)
@@ -735,8 +806,7 @@ class MegaKernelChecker:
         (True = needs the narrow phase), bit for bit the kernel's stage-1
         broad phase (`megakernel.py:1297-1302`)."""
         confs = torch.as_tensor(confs, dtype=torch.float32, device=self.device)
-        return mesh_broad(poses_from_confs(confs), self.tables.rob_base,
-                          self.tables.obs_mesh)
+        return mesh_broad(poses_from_confs(confs), self.tables)
 
     def check(self, confs: np.ndarray, two_phase: bool = True):
         """[N,6] configurations -> (valid, coplanar, num_pairs, broad) numpy

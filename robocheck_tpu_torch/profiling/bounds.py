@@ -1,6 +1,6 @@
 """The least time an H100 could take for a kernel's work (its bound): the
 fused check's, the clearance scan's and the check front end's (the pose
-rows, K2, and the robot box, K5).
+rows, K2, and the robot box, K5, by its vertex bound and its corner bound).
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate, and
@@ -56,6 +56,10 @@ REGION_OPS = (
 )
 # Posing one vertex: 9 multiplies and 6 adds, and the translation (3).
 POSE_VERTEX_OPS = 18
+# Rotating one vertex without its translation: 9 multiplies and 6 adds. A box
+# of posed vertices needs the translation once a row (6 adds to its extremes:
+# rounding is monotone), not once a vertex.
+ROTATE_VERTEX_OPS = 15
 # The culled clearance scan's own work (`csrc/clearance.cu`): a posed
 # vertex's share of its unit's box (3 min, 3 max); one box distance (per
 # axis two differences, two gap selects and their sum; then 3 multiplies
@@ -120,13 +124,24 @@ def pose_rows_work(n: int) -> tuple[float, float]:
     return float(n * (24 + 64)), float(n * (POSE_ROW_OPS + 6 * TRIG_OPS))
 
 
-def robot_bounds_work(rob_base: np.ndarray, n: int, hit: bool) -> tuple[float, float]:
+def robot_bounds_work(rob_base: np.ndarray, n: int, hit: bool,
+                      nv: int | None = None) -> tuple[float, float]:
     """(bytes, operations) of K5 over ``n`` pose rows against ``rob_base``
-    [10, Tr], with the obstacle-box test where ``hit``. Bytes: the pose rows
-    (64 B), the table, the [n,6] box and, with the test, the obstacle box and
-    one byte a row. Operations: POSE_OPS per real robot triangle of every
-    row (its posed corners, its box and its share of the row's box: the
-    posed-corner work), and 6 compares a row for the test."""
+    [10, Tr], with the obstacle-box test where ``hit``.
+
+    With ``nv``, the vertex bound, the least work that gives the box
+    exactly: each of the robot's ``nv`` distinct real vertices (its vertex
+    table, `kernels.megakernel.robot_vertices`) rotated once a row. Bytes of
+    the pose rows (64 B), the vertex table (12 B a vertex), the [n,6] box
+    and, with the test, the obstacle box and one byte a row;
+    ROTATE_VERTEX_OPS to rotate a vertex and BOX_VERTEX_OPS to fold it into
+    the row's box, 6 adds a row for the translation and 6 compares a row for
+    the test. Without it, the corner bound, the posed-corner work: the
+    table's bytes and POSE_OPS per real robot triangle of every row."""
+    if nv is not None:
+        n_bytes = n * (64 + 24) + 12 * nv + hit * (24 + n)
+        n_ops = n * nv * (ROTATE_VERTEX_OPS + BOX_VERTEX_OPS) + (nv > 0) * n * 6 + hit * n * 6
+        return float(n_bytes), float(n_ops)
     n_real = int((np.asarray(rob_base)[9] > 0).sum())
     n_bytes = n * (64 + 24) + 4 * np.asarray(rob_base).size + hit * (24 + n)
     return float(n_bytes), float(n * n_real * POSE_OPS + hit * n * 6)

@@ -11,7 +11,8 @@
   * ``event_ms``: a call's device time by CUDA events (back-to-back calls,
     so a kernel shorter than its launch's host overhead reads as that
     overhead); ``kernel_ms``: the summed durations of the kernels a call
-    launches, from a ``trace`` (the device's own time, with no gaps);
+    launches, from a ``trace`` (the device's own time, with no gaps; a trace
+    that lost a record of one of them is taken again, never summed);
     ``device_intervals``: the device spans of a written trace, which both
     ``kernel_ms`` and ``busy_us`` (the union of the spans: the device's busy
     time) read;
@@ -132,18 +133,75 @@ def busy_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
+# Tiny kernels launched at the start of every `kernel_ms` trace: late in a
+# long process every other trace on an H100 missed its first records
+# (padding the window with idle time did not help), so the measured calls
+# come after these.
+_PRIME_KERNELS = 64
+_MARK = "kernel_ms"
+# Traces `kernel_ms` takes of a call before it gives up.
+_TRIES = 3
+
+
+def _marked_kernels(path: str) -> tuple[list[tuple[float, float]], int, int]:
+    """(sorted (start, end) µs of the kernels launched inside the trace's
+    `_MARK` span, the kernel launches made inside it, the records lost
+    there) in the trace at ``path``. Launches and kernels match by
+    correlation id, wherever the kernel's record lies on the trace's clock.
+    Lost: a launch in the span without its kernel record, and a kernel
+    record in the span whose launch is nowhere in the trace (a kernel
+    launched before the span, such as a primer, is not the span's)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    marks = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == _MARK and e.get("cat") in ("user_annotation", "cpu_op")]
+    lo, hi = marks[0] if marks else (float("inf"), float("-inf"))
+    launch_ts = {e.get("args", {}).get("correlation"): e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and ("LaunchKernel" in e.get("name", "")
+                      or "LaunchCooperativeKernel" in e.get("name", ""))}
+    launches = {c for c, ts in launch_ts.items() if lo <= ts <= hi}
+    kernels = {e.get("args", {}).get("correlation"): (e["ts"], e["ts"] + e["dur"])
+               for e in events if e.get("cat") == "kernel"}
+    spans = sorted(kernels[c] for c in launches & kernels.keys())
+    orphans = [c for c, (ts, _) in kernels.items() if lo <= ts <= hi and c not in launch_ts]
+    return spans, len(launches), len(launches - kernels.keys()) + len(orphans)
+
+
 def kernel_ms(fn, reps: int = 20) -> float:
     """Mean summed duration (ms) of the device kernels one ``fn()`` launches,
     over ``reps`` calls under ``trace`` after one warm-up call. Needs a CUDA
-    device."""
+    device.
+
+    Each trace first launches `_PRIME_KERNELS` tiny kernels, then marks the
+    measured calls and a synchronize with a `record_function` span: every
+    kernel launch in the span must have its kernel's record (matched by
+    correlation id), every kernel record in the span a launch in the trace,
+    and the launches must be a multiple of ``reps``. A trace that fails
+    this (``kernel_ms.lost`` counts them) is taken again, up to `_TRIES`
+    times, then this raises rather than under-read."""
     fn()
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with trace(tmp) as path:
-            for _ in range(reps):
-                fn()
-        spans = device_intervals(path)
-    return sum(hi - lo for lo, hi in spans) / 1e3 / reps
+    for _ in range(_TRIES):
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as path:
+                primer = torch.empty((1,), device="cuda")
+                for _ in range(_PRIME_KERNELS):
+                    primer.fill_(0.0)
+                torch.cuda.synchronize()
+                with torch.profiler.record_function(_MARK):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+            spans, launched, lost = _marked_kernels(path)
+        if launched and not lost and launched % reps == 0:
+            return sum(hi - lo for lo, hi in spans) / 1e3 / reps
+        kernel_ms.lost += 1
+    raise RuntimeError(f"kernel_ms: {_TRIES} traces of {reps} calls each lost records "
+                       f"(the last: {launched} launches, {lost} without their counterpart)")
+
+
+kernel_ms.lost = 0
 
 
 def card_line() -> str:

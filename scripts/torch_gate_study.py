@@ -42,7 +42,7 @@ def gate_counts(poses: torch.Tensor, tables: mk.MegaKernelPrep) -> dict:
     real = rob[9] > 0.0
     n_tiles, n_groups = rob.shape[1] // mk.ROB_TILE, obs.shape[0] // mk.GROUP
     f = mk._posed_robot(poses, rob)
-    broad = mk.mesh_broad(poses, rob, tables.obs_mesh)
+    broad = mk.mesh_broad(poses, tables)
     b = poses.shape[0]
     t_lo = torch.stack([torch.where(real, f[f"lo{k}"], mk._BIG)
                         .view(b, n_tiles, mk.ROB_TILE).amin(-1) for k in range(3)], -1)

@@ -87,8 +87,7 @@ def layers(checker, confs, runs: int) -> dict:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        ms["broad"], _ = host_ms(lambda: mk.mesh_broad(poses, checker.tables.rob_base,
-                                                       checker.tables.obs_mesh))
+        ms["broad"], _ = host_ms(lambda: mk.mesh_broad(poses, checker.tables))
         end.record()
         end.synchronize()
         ms["broad_events"] = start.elapsed_time(end)

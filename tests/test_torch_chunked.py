@@ -8,6 +8,8 @@ phase 7 runs the same path through the CUDA kernel. Verdicts are compared
 exactly; the coplanar bit on valid rows (a colliding row's flags depend on
 which pairs the any-hit exit visited).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,17 +75,18 @@ def test_robot_bounds_is_the_kernel_broad_phase(hard10k):
     far = rng.uniform(-400, 400, (256, 6)).astype(np.float32)
     confs = np.concatenate([hard10k.confs[:512], far])
     poses = mk.poses_from_confs(torch.from_numpy(confs))
-    bounds = mk.robot_bounds(poses, prep.rob_base)
+    bounds = mk.robot_bounds(poses, prep)
     assert bounds.shape == (len(confs), 6) and bounds.dtype == torch.float32
     # Bit for bit the twin's (and so the kernel's) stage-1 comparison, for
     # the obstacle's box and for shifted boxes that cut through the rows'.
-    broad = mk.mesh_broad(poses, prep.rob_base, prep.obs_mesh)
+    broad = mk.mesh_broad(poses, prep)
     assert broad.any() and not broad.all()
     boxes = torch.stack([prep.obs_mesh, prep.obs_mesh + 7.5, bounds[0], bounds[600]])
     hits = mk.boxes_overlap(bounds, boxes)
     assert torch.equal(hits[0], broad)
     for k in range(4):
-        assert torch.equal(hits[k], mk.mesh_broad(poses, prep.rob_base, boxes[k]))
+        shifted = dataclasses.replace(prep, obs_mesh=boxes[k])
+        assert torch.equal(hits[k], mk.mesh_broad(poses, shifted))
     # The JAX package's `_robot_bounds` on the same corner table, within
     # the pose tolerance times the corners' magnitude.
     rb = prep.rob_base.numpy()

@@ -59,7 +59,7 @@ def test_port_imports_no_jax():
             "'torch_k1_compare', 'torch_gate_study', 'torch_demo_planner', "
             "'torch_bench_chunked', 'torch_certify_alpha', 'torch_clearance_study', "
             "'torch_multihost_worker', 'torch_bench_scaling', 'torch_bench', "
-            "'torch_make_datasets', 'torch_tile_sweep')]; "
+            "'torch_make_datasets', 'torch_tile_sweep', 'torch_front_compare')]; "
             "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "

@@ -9,6 +9,8 @@ its own pose rows (XLA on the CPU fuses multiply-adds, the port does not), so
 verdicts and counts are compared exactly and a box test that such rounding
 decided differently would be a fault to log, not a tolerance to widen.
 """
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +27,7 @@ from robocheck_tpu_torch.core.types import Mesh
 from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.obj import load_obj
 from robocheck_tpu_torch.kernels import megakernel as mk
-from robocheck_tpu_torch.profiling import bounds, counters
+from robocheck_tpu_torch.profiling import bounds, counters, timers
 from robocheck_tpu_torch.profiling.timers import (StageTimer, benchmark, busy_us,
                                                   device_intervals, trace)
 
@@ -454,3 +456,47 @@ def test_bounds_of_the_check_and_the_probes():
     assert bounds.probe_work("mini_level3", 1, tr=128)[1] == 128 * bounds.POSE_OPS
     with pytest.raises(ValueError, match="probe piece"):
         bounds.probe_work("all_inputs", 10)
+    # K5: the vertex bound rotates each distinct vertex once a row and adds
+    # the translation once a row; the corner bound poses every real triangle.
+    n_bytes, n_ops = bounds.robot_bounds_work(rob, 2, True, nv=7)
+    assert n_bytes == 2 * (64 + 24) + 12 * 7 + 24 + 2
+    assert n_ops == 2 * 7 * (bounds.ROTATE_VERTEX_OPS + bounds.BOX_VERTEX_OPS) + 2 * 6 + 2 * 6
+    assert bounds.robot_bounds_work(rob, 2, False, nv=0)[1] == 0
+    assert bounds.robot_bounds_work(rob, 2, True)[1] == pose + 2 * 6
+
+
+@pytest.mark.parametrize("launched,kernels,lost", [
+    ((1, 2, 3), (1, 2, 3, 7), 0), ((1, 2, 3), (1, 3), 1), ((1, 2, 3), (), 3),
+    ((2, 3), (1, 2, 3), 1)])
+def test_kernel_trace_counts_lost_kernels(tmp_path, launched, kernels, lost):
+    # `kernel_ms` sums the kernels inside its marked span (7, a primer before
+    # it, is not counted) only if launches and kernel records there match by
+    # correlation id: a lost kernel record or a lost launch record shows.
+    events = [{"cat": "user_annotation", "name": timers._MARK, "ts": 5.0, "dur": 40.0}]
+    events += [{"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 10.0 * c, "dur": 1.0,
+                "args": {"correlation": c}} for c in launched]
+    events.append({"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 1.0, "dur": 1.0,
+                   "args": {"correlation": 7}})
+    events.append({"cat": "cuda_runtime", "name": "cudaDeviceSynchronize", "ts": 36.0,
+                   "dur": 1.0, "args": {"correlation": 9}})
+    events += [{"cat": "kernel", "name": "k", "ts": 10.0 * c + 2 if c != 7 else 2.0,
+                "dur": 4.0, "args": {"correlation": c}} for c in kernels]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    spans, got_launched, got_lost = timers._marked_kernels(str(path))
+    assert got_launched == len(launched) and got_lost == lost
+    assert spans == [(10.0 * c + 2, 10.0 * c + 6) for c in kernels if c in launched]
+
+
+def test_kernel_trace_ignores_kernels_launched_before_its_span(tmp_path):
+    # A kernel launched before the marked span (a primer) whose record lands
+    # inside it on the trace's clock is not counted and is not lost; a
+    # measured kernel whose record lands just before the span still is.
+    events = [{"cat": "user_annotation", "name": timers._MARK, "ts": 5.0, "dur": 40.0}]
+    events += [{"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts, "dur": 1.0,
+                "args": {"correlation": c}} for c, ts in ((7, 1.0), (1, 6.0), (2, 20.0))]
+    events += [{"cat": "kernel", "name": "k", "ts": ts, "dur": 4.0, "args": {"correlation": c}}
+               for c, ts in ((7, 6.0), (1, 4.5), (2, 22.0))]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert timers._marked_kernels(str(path)) == ([(4.5, 8.5), (22.0, 26.0)], 2, 0)
