@@ -112,8 +112,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      of `certify_alpha.py:104-128`), which must certify, and its output
      through `certify_multires` on 2:8,4:10,6:12 with 0 uncertified steps,
      the check count beside ALPHA_CCD.json's 1,390 (the TPU run's own SQP
-     output: another run's trajectory); (b) the wall scene's
-     `plan_and_smooth` with `swept_certify` (`scripts/torch_demo_planner.py
+     output: another run's trajectory) and its outer iterations, with the
+     96^3 grid's own time (`grid_s`, K4) inside `construct_s`; (b) the wall
+     scene's `plan_and_smooth` with `swept_certify` (`scripts/torch_demo_planner.py
      --wall --ccd`), certified discretely and continuously; K1 and the scan
      kernel launched in (a)-(b); (c) the card against the CPU on the alpha
      init of (a): the SQP constraint blocks (g, J, penalty total) and the
@@ -121,7 +122,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `tests/test_torch_{sqp,trajopt}.py`; (d) times: an SQP outer iteration
      split into constraint blocks, subproblem, merit and certification, one
      Adam step and one TrajOpt round of the wall scene, and the card's idle
-     share over (a) from a `torch.profiler` trace;
+     share over (a) from a `torch.profiler` trace; K4's launches in (a)-(d)
+     (every grid they build), which must be above 0;
  11. the dense reference pipeline, `CollisionWorld(..., device="cuda")`
      (torch ops, no kernel): 0 golden mismatches on all 10,000 rows of
      hard10k and easy10k, 7296 valid on 10,000samples, the same verdicts at
@@ -190,6 +192,22 @@ and fail if K2 (and K5 in 4b) did not launch.
      identical). K2's and K5's kernel-table
      entries carry the [100000] device times and the launches of every
      path above.
+ 15. the gradient planners' distance grid, K4 (`csrc/clearance.cu`
+     `grid_kernel`): (a) its ptxas lines (0 spills required) and K4 against
+     its twin `kernels/sdf.grid_values_reference` as float32 bits (the sign
+     of zero included, NaN for NaN), signed and unsigned, on the alpha
+     obstacle at 64^3 and 96^3 (phase 10 (a)'s grid), icosphere(2) and
+     box(0.4, 2, 1) at 32^3, the 16x obstacle (16,128 triangles: 63 shared-
+     memory tiles) at 32^3, the box with a zero-area and a ray-parallel
+     triangle (the flat path), the box with an a = b != c triangle (NaN
+     nodes required) and box(2, 2, 2) at 25^3, whose faces hold nodes
+     (-0.0 required); (b) on the alpha obstacle at 64^3 and 96^3 K4's
+     time by CUDA events (signed and unsigned; the kernel table's figure)
+     and by trace (`timers.kernel_ms`), the twin's time, the bound of this run's work
+     (`profiling.bounds.grid_work` from `kernels/sdf.grid_work_counts`) and
+     the share, and the nodes whose sign the build before K4 (torch ops
+     summing by `.sum(-1)`) gave otherwise. K4's kernel-table entry carries
+     the 96^3 times and the launches of phases 10 and 12.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -217,6 +235,9 @@ CLEARANCE_REPLACES = "robocheck_tpu/planner/clearance.py:312"
 FRONT_SOURCE = "robocheck_tpu_torch/csrc/front.cu"
 POSE_REPLACES = "robocheck_tpu/kernels/megakernel.py:1099"
 BOX_REPLACES = "robocheck_tpu/kernels/megakernel.py:1209"
+GRID_REPLACES = "robocheck_tpu/planner/sdf.py:127,148"
+# K4's launches in each path's run, by path (phases 10 and 12).
+GRID_LAUNCHES = {}
 # K2's and K5's launches in each path's run, by path (`read_front`).
 FRONT_LAUNCHES = {}
 # The rows of `scripts/torch_bench.py`'s latency batch.
@@ -816,6 +837,7 @@ def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
     from robocheck_tpu_torch import make_checker
     from robocheck_tpu_torch.kernels import clearance as kc
     from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.kernels import sdf as ks
     from robocheck_tpu_torch.models.shapes import box
     from robocheck_tpu_torch.planner.ccd import certify_multires
 
@@ -824,10 +846,13 @@ def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
     checker = make_checker(robot, obstacle, device="cuda")
     mk.check_poses_cuda.launches = 0
     kc.pair_min_cuda.launches = 0
+    ks.sdf_grid_cuda.launches = 0
     zero_front()
     records = [cert_alpha["certify_leg"](leg, robot, obstacle, checker) for leg in CERTIFY_LEGS]
     torch.cuda.synchronize()
     k1, scans = mk.check_poses_cuda.launches, kc.pair_min_cuda.launches
+    # certify_multires measures exact distances (the engine): no grid.
+    GRID_LAUNCHES["certifier (9 (d))"] = ks.sdf_grid_cuda.launches
     read_front("certifier (9 (d))")
     for rec in records:
         print(f"  (d) [{card}] {json.dumps(rec)}")
@@ -842,7 +867,8 @@ def phase9_certify(robot, obstacle, card: str) -> tuple[int, int]:
               f"{stats['exact_s']}, pairs {stats['pairs']}")
         require(rec["num_checks"] == CERTIFY_CHECKS[rec["leg"]],
                 f"(d) the {rec['leg']} leg took {rec['num_checks']} checks")
-    print(f"  (d) launches in the legs' run: K1 {k1}, scan kernel {scans}")
+    print(f"  (d) launches in the legs' run: K1 {k1}, scan kernel {scans}, K4 "
+          f"{GRID_LAUNCHES['certifier (9 (d))']} (exact distances, no grid)")
     require(k1 > 0 and scans > 0, "(d) the legs did not launch both kernels")
 
     robot_box, wall = box(extent=(0.1, 0.1, 0.1), name="r"), box(extent=(0.4, 4.0, 4.0))
@@ -1002,6 +1028,7 @@ def phase10(robot, obstacle, card: str) -> tuple[int, int, dict]:
     from robocheck_tpu_torch.io.parasol import read_query
     from robocheck_tpu_torch.kernels import clearance as kc
     from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.kernels import sdf as ks
     from robocheck_tpu_torch.planner import resample
 
     cert_alpha = runpy.run_path(os.path.join(ROOT, "scripts", "torch_certify_alpha.py"),
@@ -1017,6 +1044,7 @@ def phase10(robot, obstacle, card: str) -> tuple[int, int, dict]:
     t_start = time.perf_counter()
     mk.check_poses_cuda.launches = 0
     kc.pair_min_cuda.launches = 0
+    ks.sdf_grid_cuda.launches = 0
     zero_front()
     res, opt, rec = cert_alpha["smooth_alpha"](robot, obstacle, checker)
     print(f"  (a) [{card}] SQP smoothing of the alpha RRT path: {json.dumps(rec)}")
@@ -1027,8 +1055,10 @@ def phase10(robot, obstacle, card: str) -> tuple[int, int, dict]:
             "(a) the smoothed path is not certified with 0 uncertified steps")
     diff = float(np.abs(res.trajectory - stored["smoothed"]).max())
     print(f"  (a) smoothed path: {leg['num_checks']} checks (ALPHA_CCD.json: "
-          f"{leg['reference_num_checks']}, {leg['reference_of']}); largest abs difference "
-          f"from data/alpha_smoothed_path.npy {diff}")
+          f"{leg['reference_num_checks']}, {leg['reference_of']}); {rec['outer_iters']} outer "
+          f"iterations (12 since PR 7); largest abs difference from "
+          f"data/alpha_smoothed_path.npy {diff}; the 96^3 grid (K4) {rec['grid_s']} s of "
+          f"construct_s {rec['construct_s']} s")
     wall = demo["wall_demo"]("cuda", ccd=True)
     print(f"  (b) [{card}] wall scene, plan_and_smooth with swept_certify: {json.dumps(wall)}")
     require(wall["found"] and wall["certified"] and wall["swept"]["certified"],
@@ -1045,6 +1075,10 @@ def phase10(robot, obstacle, card: str) -> tuple[int, int, dict]:
                   ("certify_multires", lambda: cert_alpha["certify_leg"](
                       "sqp", robot, obstacle, checker, verbose=False, path=res.trajectory),
                    leg["wall_s"])), card)
+    torch.cuda.synchronize()
+    grids = GRID_LAUNCHES["gradient planners (10 (a)-(d))"] = ks.sdf_grid_cuda.launches
+    print(f"  K4 launches in (a)-(d): {grids}")
+    require(grids > 0, "(a)-(d) built no distance grid with K4")
     print(f"  [{card}] phase 10: {time.perf_counter() - t_start} s, of which (a)-(b) {t_ab} s "
           f"((a) SQP {rec['sqp_smooth_wall_s']} s and its certificate {leg['wall_s']} s, (b) "
           f"{wall['wall_s']} s)")
@@ -1101,6 +1135,7 @@ def phase12_rank() -> dict:
     from robocheck_tpu_torch.kernels import clearance as kc
     from robocheck_tpu_torch.kernels import front
     from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.kernels import sdf as ks
     from robocheck_tpu_torch.parallel.sharding import ShardedChecker, make_mesh
     from robocheck_tpu_torch.planner.ccd import subdivide_mesh
     from robocheck_tpu_torch.planner.clearance import ClearanceEngine, clearance_queries
@@ -1139,6 +1174,7 @@ def phase12_rank() -> dict:
                        "clearance": kc.pair_min_cuda.launches}
     out["front"] = {"pose_rows": front.poses_from_confs_cuda.launches,
                     "robot_bounds": front.robot_bounds_cuda.launches}
+    out["sdf_grid"] = ks.sdf_grid_cuda.launches
     out["check_s"] = benchmark(checker.check_valid_resolved, hard)
     out["engine_s"] = benchmark(eng.min_distances, queries, runs=3)
     return out
@@ -1231,6 +1267,9 @@ def phase12(robot, obstacle, data, checker, card: str, sqp_ref: dict) -> dict:
     print(f"  launches in the ranks (a)-(d): {launches}; K2 and K5 in (a)-(c): {front12}")
     require(all(launches.values()), "phase 12 did not launch every kernel of its path")
     require(front12["pose_rows"] > 0, "phase 12's ranks did not launch K2")
+    grids = GRID_LAUNCHES["scale-out (12), ranks (c)"] = sum(r["sdf_grid"] for r in ranks)
+    print(f"  K4 launches in the ranks: {grids}")
+    require(grids > 0, "phase 12's ranks built no distance grid with K4")
     print(f"  [{card}] phase 12: {time.perf_counter() - t_start} s")
     return launches
 
@@ -1633,6 +1672,162 @@ def phase14(checker, data, scenes, chunked_scenes, card: str, device) -> list:
              "event_ms": k5["event_ms"], "corner_bound_ms": k5["corner_bound_ms"]}]
 
 
+def same_f32(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Entries whose float32 bits differ (the sign of zero included), a NaN
+    matching a NaN (the twin's -NaN may carry another payload)."""
+    ok = (got.view(torch.int32) == want.view(torch.int32)) | (torch.isnan(got) & torch.isnan(want))
+    return int((~ok).sum())
+
+
+def grid_scenes(obstacle):
+    """Phase 15 (a)'s meshes and lattices: (name, mesh, nodes per axis)."""
+    from robocheck_tpu_torch.core.types import Mesh
+    from robocheck_tpu_torch.kernels.sdf import RAY_DIR
+    from robocheck_tpu_torch.models.shapes import box, icosphere
+    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
+
+    slab = box(extent=(0.4, 2.0, 1.0))
+
+    def plus(extra, name):
+        n = len(slab.vertices)
+        tris = [[n + 3 * i, n + 3 * i + 1, n + 3 * i + 2] for i in range(len(extra) // 3)]
+        return Mesh(np.concatenate([slab.vertices, np.array(extra, np.float32)]),
+                    np.concatenate([slab.triangles, tris]).astype(np.int32), name)
+
+    # Three collinear corners (zero area), an edge c - a along the ray (det
+    # exactly 0): both flat; a = b != c gives 0 / 0 on part of its edge region.
+    degenerate = plus([[0.0, -0.5, 0.0], [0.125, -0.5, 0.0], [0.25, -0.5, 0.0],
+                       [0.0, 0.0, 0.0], [0.0, 0.3, 0.1], list(0.125 * RAY_DIR)], "degenerate")
+    nan = plus([[0.1, 0.0, 0.0], [0.1, 0.0, 0.0], [0.1, 0.4, 0.0]], "a = b != c")
+    return [("alpha", obstacle, 64), ("alpha", obstacle, 96), ("icosphere(2)", icosphere(2), 32),
+            ("box(0.4, 2, 1)", slab, 32), ("16x alpha", subdivide_mesh(obstacle, 2), 32),
+            ("box + zero-area + ray-parallel", degenerate, 32), ("box + a = b != c", nan, 32),
+            ("box(2, 2, 2), nodes on its faces", box(extent=(2.0, 2.0, 2.0)), 25)]
+
+
+def grid_inputs(mesh, res: int, device):
+    """(axes on ``device``, the grid table) of `build_distance_grid`."""
+    from robocheck_tpu_torch.kernels import sdf as ks
+    from robocheck_tpu_torch.planner.sdf import grid_axes
+
+    tris = torch.from_numpy(mesh.triangle_vertices.astype(np.float32).reshape(-1, 9))
+    return [a.to(device) for a in grid_axes(mesh, res)[0]], ks.grid_table(tris.to(device))
+
+
+def pr11_inside(points, table) -> torch.Tensor:
+    """The parity of the grid build before K4 (its torch ops, each 3-term
+    sum by `.sum(-1)`, torch's reduction order): bool [N]."""
+    from robocheck_tpu_torch.kernels.sdf import RAY_DIR
+
+    d = torch.as_tensor(RAY_DIR).to(points.device)
+    v0, e1, e2 = table[:, 0:3], table[:, 9:12], table[:, 12:15]
+    pvec = torch.stack([d[1] * e2[:, 2] - d[2] * e2[:, 1], d[2] * e2[:, 0] - d[0] * e2[:, 2],
+                        d[0] * e2[:, 1] - d[1] * e2[:, 0]], dim=-1)
+    det = (e1 * pvec).sum(-1)
+    flat = det.abs() < 1e-12
+    inv_det = torch.where(flat, 0.0, 1.0 / torch.where(flat, 1.0, det))
+    out = torch.empty(points.shape[0], dtype=torch.bool, device=points.device)
+    for lo in range(0, points.shape[0], 2048):
+        tv = points[lo : lo + 2048, None, :] - v0[None]
+        u = (tv * pvec[None]).sum(-1) * inv_det[None]
+        e = e1[None].expand_as(tv)
+        q = torch.stack([tv[..., 1] * e[..., 2] - tv[..., 2] * e[..., 1],
+                         tv[..., 2] * e[..., 0] - tv[..., 0] * e[..., 2],
+                         tv[..., 0] * e[..., 1] - tv[..., 1] * e[..., 0]], dim=-1)
+        v = (q * d).sum(-1) * inv_det[None]
+        t = (q * e2[None]).sum(-1) * inv_det[None]
+        crossing = ~flat[None] & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+        out[lo : lo + 2048] = crossing.sum(1) % 2 == 1
+    return out
+
+
+def phase15(obstacle, log: str, card: str, device) -> dict:
+    """The gradient planners' distance grid, K4 (phase 15): (a) K4 against
+    its twin as float32 bits on every scene of `grid_scenes`, signed and
+    unsigned, and its ptxas lines; (b) on the alpha obstacle at 64^3 and
+    96^3 K4's device time (trace and events) beside the twin's, the bound of
+    this run's work and the share, and the nodes whose sign the build before
+    K4 gave otherwise. Returns K4's kernel-table entry."""
+    from robocheck_tpu_torch.kernels import sdf as ks
+    from robocheck_tpu_torch.planner.sdf import build_distance_grid
+    from robocheck_tpu_torch.profiling import bounds, timers
+
+    print("[15] the distance grid, K4 (csrc/clearance.cu grid_kernel), against its twin")
+    t_start = time.perf_counter()
+    grid_lines = runpy.run_path(os.path.join(ROOT, "scripts", "torch_grid_compare.py"),
+                                run_name="imported")["grid_ptxas"](log)
+    print("  " + "; ".join(grid_lines))
+    require(sum("registers" in ln for ln in grid_lines) == 2
+            and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                    for ln in grid_lines if "spill" in ln),
+            f"(a) K4's two instances spill or are missing from the build log: {grid_lines}")
+    ks.sdf_grid_cuda.launches = 0
+    max_err, launched = 0.0, 0
+    for name, mesh, res in grid_scenes(obstacle):
+        axes, table = grid_inputs(mesh, res, device)
+        pts = ks.grid_points(axes)
+        for signed in (True, False):
+            want = ks.grid_values_reference(pts, table, signed).view(res, res, res)
+            got = ks.sdf_grid_cuda(axes, table, signed)
+            launched += 1
+            torch.cuda.synchronize()
+            n_diff = same_f32(got, want)
+            ok = torch.isfinite(want) & torch.isfinite(got)
+            err = float((got[ok].double() - want[ok].double()).abs().max())
+            max_err = max(max_err, err)
+            neg_zero = int(((got == 0) & torch.signbit(got)).sum())
+            n_nan = int(torch.isnan(got).sum())
+            print(f"  (a) {name} ({len(table)} triangles, {res}^3, signed {signed}): "
+                  f"{n_diff} of {got.numel()} entries differ from the twin as float32 bits; "
+                  f"{int((got < 0).sum())} negative, {neg_zero} -0.0, {n_nan} NaN; max abs err "
+                  f"{err}")
+            require(n_diff == 0, f"(a) {name} {res}^3 signed {signed}: K4 differs from its twin")
+            if signed and name.startswith("box(2"):
+                require(neg_zero > 0, "(a) no node on the box's faces reads -0.0")
+            if name.endswith("!= c"):
+                require(n_nan > 0, "(a) the a = b != c triangle gave no NaN")
+    require(ks.sdf_grid_cuda.launches == launched, "(a) K4's count is not one per call")
+    print(f"  (a) [{card}] {launched} grids bit-equal to the twin in "
+          f"{time.perf_counter() - t_start} s")
+
+    out = {}
+    for res in (64, 96):
+        axes, table = grid_inputs(obstacle, res, device)
+        pts = ks.grid_points(axes)
+        # A K4 launch takes ms, so CUDA events around back-to-back calls read
+        # the kernel (the wrapper issues in ~30 us); the trace's figure is
+        # printed beside them: late in this process traces have read K4 at
+        # half the events' time (PERF.md section 7).
+        e_ms = timers.event_ms(lambda: ks.sdf_grid_cuda(axes, table), 5)
+        k_ms = timers.kernel_ms(lambda: ks.sdf_grid_cuda(axes, table), 5)
+        u_ms = timers.event_ms(lambda: ks.sdf_grid_cuda(axes, table, False), 5)
+        p_ms = timers.benchmark(ks.grid_values_reference, pts, table, runs=1, warmup=0) * 1e3
+        regions, ray = ks.grid_work_counts(pts, table)
+        b_ms, b_by = bounds.bound_ms(*bounds.grid_work(len(pts), len(table), True, regions, ray))
+        ub_ms = bounds.bound_ms(*bounds.grid_work(len(pts), len(table), False, regions))[0]
+        flips = int((pr11_inside(pts, table)
+                     != torch.signbit(ks.grid_values_reference(pts, table))).sum())
+        build_s = timers.benchmark(build_distance_grid, obstacle, res, runs=3)
+        print(f"  (b) [{card}] alpha {res}^3 ({len(pts)} nodes x {len(table)} triangles): K4 "
+              f"{e_ms} ms by events ({k_ms} ms device by trace); unsigned {u_ms} ms; twin "
+              f"{p_ms} ms; bound {b_ms} ms ({b_by}; unsigned {ub_ms} ms), share {b_ms / e_ms} "
+              f"(unsigned {ub_ms / u_ms}); distances by region {regions.tolist()}, ray-test "
+              f"stages {ray.tolist()}; nodes whose sign the build before K4 gave otherwise: "
+              f"{flips}; build_distance_grid warm, best of 3 (host clock) {build_s * 1e3} ms")
+        out[res] = {"ms": e_ms, "trace_ms": k_ms, "unsigned_ms": u_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "flips": flips, "build_s": build_s}
+    launches = sum(GRID_LAUNCHES.values())
+    print(f"  K4 launches by path: {GRID_LAUNCHES}")
+    print(f"  [{card}] phase 15: {time.perf_counter() - t_start} s")
+    big = out[96]
+    return {"name": "sdf_grid", "route": "cuda", "source": CLEARANCE_SOURCE,
+            "replaces": GRID_REPLACES, "launches": launches, "max_abs_err": max_err,
+            "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": None, "shape": [96, 96, 96, 1008],
+            "trace_ms": big["trace_ms"], "ms_64": out[64]["ms"],
+            "plain_ms_64": out[64]["plain_ms"], "bound_ms_64": out[64]["bound_ms"]}
+
+
 def phase2_native(native, hard10k) -> None:
     """Phase 2, the native parsers and writer against the io modules: the
     native `parse_obj` of both alpha-1.0 meshes against `io.obj.load_obj`,
@@ -2021,6 +2216,7 @@ def main() -> None:
           f"{kernel_ms} ms, bound {bound(hard_rows)['bound_ms']} ms")
     entries[1]["launches"] = stats_launches + launches12["megakernel_stats"]
     entries += phase14(checker, data, scenes, chunked_scenes, card, device)
+    entries.append(phase15(obstacle, built["clearance"][1], card, device))
     print(f"  megakernel launches by path: main {launches}, oversized meshes {launches7}, "
           f"planners {launches8}, certifier {launches9}, gradient planners {launches10}, "
           f"scale-out {launches12['megakernel']}, bench {launches13}; counter kernel: stats "

@@ -82,6 +82,11 @@
 // and add rounds on its own, divides and the sqrt are IEEE, as in the twin.
 // A NaN distance wins the min and stays (torch.minimum's rule), so a
 // degenerate triangle can only make a pair's answer NaN, never drop it.
+//
+// The file also holds K4, the gradient planners' distance grid
+// (`grid_kernel`, `rc_sdf_grid`), which shares `point_tri_d2` and `min_nan`
+// with the scan: one device function, held bit for bit by both kernels'
+// twins.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -245,17 +250,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-// Copy the table (nt rows of 72 bytes, 16-byte aligned) into shared `dst`
-// with cp.async and wait for this thread's copies; the caller's
+// Copy `bytes` (a multiple of 4, both ends 16-byte aligned) into shared
+// `dst` with cp.async and wait for this thread's copies; the caller's
 // __syncthreads publishes them.
-__device__ __forceinline__ void stage_table(float* dst, const float* src, int nt, int tid) {
+__device__ __forceinline__ void stage_bytes(float* dst, const float* src, size_t bytes, int tid) {
   char* d = reinterpret_cast<char*>(dst);
   const char* s = reinterpret_cast<const char*>(src);
-  const size_t bytes = size_t(nt) * 72, n16 = bytes / 16;
+  const size_t n16 = bytes / 16;
   for (size_t i = tid; i < n16; i += kThreads) cp_async16(d + 16 * i, s + 16 * i);
   for (size_t i = 4 * n16 + tid; i < bytes / 4; i += kThreads) cp_async4(d + 4 * i, s + 4 * i);
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The scan's table: nt rows of 72 bytes.
+__device__ __forceinline__ void stage_table(float* dst, const float* src, int nt, int tid) {
+  stage_bytes(dst, src, size_t(nt) * 72, tid);
 }
 
 // R v + t in the twin's order.
@@ -539,6 +549,138 @@ __global__ void finish_kernel(const Args a) {
   a.out[i] = nan ? f32_nan() : sqrtf(__uint_as_float(pair_min_bits(a)[i]));
 }
 
+// ---- K4, the gradient planners' distance grid: for every node of the
+// lattice ax x ay x az (node (i, j, k) at (i * ny + j) * nz + k), the
+// distance to the nearest obstacle triangle, negated where a ray from the
+// node along `dir` crosses the mesh an odd number of times.
+//
+// Replaces the XLA of `robocheck_tpu/planner/sdf.py`: `_grid_distances`
+// (lines 127-139, the min over every triangle of the point-triangle
+// distance) and `_grid_inside` (148-178, the parity of Moller-Trumbore
+// crossings along `_RAY_DIR`), which `build_distance_grid` runs once per
+// obstacle for every `SQPOptimizer`, `TrajectoryOptimizer` and grid-backed
+// `SweptCertifier`.
+//
+// Inputs, float32 on one device:
+//   ax, ay, az [nx], [ny], [nz]  the lattice's axes
+//   gtab [nt, 24]  per triangle (`kernels/sdf.grid_table`): the scan
+//                  table's 18 columns (corners a, b, c; edges ab, ac, bc),
+//                  pvec = dir x ac, inv_det (0 where flat), flat (1.0 / 0.0)
+//                  and a zero; 16-byte aligned
+//   out [nx * ny * nz]
+//
+// Bound: operations. The alpha obstacle's 96^3 grid is 8.9e8 node-triangle
+// pairs of a distance (21 to 79 operations by region) and a ray test (1 to
+// 34); bytes are a few MB. The design keeps every operation on registers
+// and a triangle table in shared memory:
+//   * One pass gives each node its min squared distance and its crossing
+//     parity, so both share each triangle read and p - a.
+//   * The table is staged kGridTile rows at a time with cp.async (96-byte
+//     rows, read by the whole warp at once: six 16-byte broadcasts a row),
+//     tile after tile with a barrier between them (the alpha obstacle's
+//     1,008 triangles take 4 tiles, the 16x obstacle's 16,128 take 63).
+//   * A thread owns kGridNodes nodes kThreads apart, so a warp's lanes are
+//     neighbours along z: they mostly end in the same region of a far
+//     triangle and the distance's early returns (`point_tri_d2`, K3's, in
+//     the twin's priority) seldom diverge.
+//   * The sqrt is taken once, of the node's min: sqrt is correctly rounded
+//     and monotone, so sqrt(min d2) is min sqrt(d2), NaN for NaN.
+//   * The ray test ends at the first condition that fails; the parity is
+//     an XOR, which no order changes. `signed_` 0 skips it.
+// Every value is the twin's (`kernels/sdf.grid_values_reference`): the same
+// operations in the same order, each rounded on its own (-fmad=false).
+//
+// Nodes a thread and tile size are tuned on the H100 (`scripts/torch_grid_compare.py`): one node a
+// thread and 256-triangle tiles (24 KB) keep five blocks of 48 registers a
+// thread resident per SM; the signed 96^3 alpha grid ran 1.29x faster than
+// at two nodes and 1,024-triangle tiles.
+#ifndef RC_GRID_NODES
+#define RC_GRID_NODES 1
+#endif
+#ifndef RC_GRID_TILE
+#define RC_GRID_TILE 256
+#endif
+constexpr int kGridNodes = RC_GRID_NODES;  // nodes a thread holds
+constexpr int kGridTile = RC_GRID_TILE;    // triangles staged at once
+constexpr int kGridRow = 24;               // floats per table row
+
+struct GridArgs {
+  const float *ax, *ay, *az;
+  int nx, ny, nz;
+  const float* tab;
+  int nt, signed_;
+  float dx, dy, dz;
+  float* out;
+};
+
+// Whether the ray from p along d crosses the triangle: the twin's
+// Moller-Trumbore test with its per-triangle terms (pvec, inv_det, flat)
+// from the table; tvec = p - a.
+__device__ __forceinline__ bool ray_crosses(float tx, float ty, float tz, const Tri& t,
+                                            const float4& ray, float flat, const GridArgs& g) {
+  if (flat != 0.f) return false;
+  const float u = dot3(tx, ty, tz, ray.x, ray.y, ray.z) * ray.w;
+  if (!(u >= 0.f)) return false;
+  const float qx = ty * t.abz - tz * t.aby;
+  const float qy = tz * t.abx - tx * t.abz;
+  const float qz = tx * t.aby - ty * t.abx;
+  const float v = dot3(qx, qy, qz, g.dx, g.dy, g.dz) * ray.w;
+  if (!(v >= 0.f) || !(u + v <= 1.f)) return false;
+  return dot3(qx, qy, qz, t.acx, t.acy, t.acz) * ray.w > 0.f;
+}
+
+template <bool kSigned>
+__global__ void __launch_bounds__(kThreads, 2) grid_kernel(const GridArgs g) {
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x;
+  const int64_t n_nodes = int64_t(g.nx) * g.ny * g.nz;
+  const int64_t base = int64_t(blockIdx.x) * kThreads * kGridNodes + tid;
+  float px[kGridNodes], py[kGridNodes], pz[kGridNodes], m[kGridNodes];
+  unsigned odd[kGridNodes];
+#pragma unroll
+  for (int j = 0; j < kGridNodes; ++j) {
+    // A node past the lattice repeats the last one and is not written.
+    const int64_t n = min(base + int64_t(j) * kThreads, n_nodes - 1);
+    const int64_t plane = int64_t(g.ny) * g.nz;
+    const int i = int(n / plane), r = int(n % plane);
+    px[j] = __ldg(g.ax + i);
+    py[j] = __ldg(g.ay + r / g.nz);
+    pz[j] = __ldg(g.az + r % g.nz);
+    m[j] = f32_inf();
+    odd[j] = 0u;
+  }
+  for (int t0 = 0; t0 < g.nt; t0 += kGridTile) {
+    const int rows = min(kGridTile, g.nt - t0);
+    if (t0 > 0) __syncthreads();  // every thread is done with the last tile
+    stage_bytes(reinterpret_cast<float*>(smem4), g.tab + size_t(t0) * kGridRow,
+                size_t(rows) * kGridRow * 4, tid);
+    __syncthreads();
+    for (int t = 0; t < rows; ++t) {
+      const float4* row = smem4 + t * (kGridRow / 4);
+      const float4 r0 = row[0], r1 = row[1], r2 = row[2], r3 = row[3], r4 = row[4];
+      const Tri T{r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x,
+                  r2.y, r2.z, r2.w, r3.x, r3.y, r3.z, r3.w, r4.x, r4.y};
+#pragma unroll
+      for (int j = 0; j < kGridNodes; ++j)
+        m[j] = min_nan(point_tri_d2(px[j], py[j], pz[j], T), m[j]);
+      if (kSigned) {
+        const float4 r5 = row[5];
+        const float4 ray = make_float4(r4.z, r4.w, r5.x, r5.y);  // pvec, inv_det
+#pragma unroll
+        for (int j = 0; j < kGridNodes; ++j)
+          odd[j] ^= unsigned(ray_crosses(px[j] - T.ax, py[j] - T.ay, pz[j] - T.az, T, ray,
+                                         r5.z, g));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kGridNodes; ++j) {
+    const int64_t n = base + int64_t(j) * kThreads;
+    if (n < n_nodes)  // the sign by its bit: -d of the twin, NaN and 0 included
+      g.out[n] = __int_as_float(__float_as_int(sqrtf(m[j])) ^ int(odd[j] << 31));
+  }
+}
+
 // Threads per pair for blocks of `block` vertices: the least power of two
 // that holds them kVpt to a thread, at most kThreads.
 int lanes_for(int block) {
@@ -628,6 +770,36 @@ int rc_clearance_pair_min(const float* rows, const int32_t* ids, int64_t k,
                : launch_persistent(task_kernel<false>, a, 1 << 30, 0, sms, st);
   if (err != cudaSuccess) return int(err);
   finish_kernel<<<int((k + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
+  return int(cudaGetLastError());
+}
+
+// K4 on `stream`: the grid over the axes ax [nx], ay [ny], az [nz] against
+// the grid table gtab [nt, 24] (16-byte aligned), signed by the parity of
+// the ray along (dx, dy, dz) where `signed_`; out [nx * ny * nz]. Returns
+// the cudaError_t of the launch (0 = launched).
+int rc_sdf_grid(const float* ax, const float* ay, const float* az, int nx, int ny, int nz,
+                const float* gtab, int nt, int signed_, float dx, float dy, float dz,
+                float* out, void* stream) {
+  if (nx <= 0 || ny <= 0 || nz <= 0 || nt <= 0 ||
+      (reinterpret_cast<uintptr_t>(gtab) & 15) != 0)
+    return int(cudaErrorInvalidValue);
+  const int64_t n_nodes = int64_t(nx) * ny * nz, per_block = int64_t(kThreads) * kGridNodes;
+  const int64_t blocks = (n_nodes + per_block - 1) / per_block;
+  if (blocks > (int64_t(1) << 31) - 1) return int(cudaErrorInvalidValue);
+  const GridArgs g{ax, ay, az, nx, ny, nz, gtab, nt, signed_, dx, dy, dz, out};
+  const size_t smem = size_t(nt < kGridTile ? nt : kGridTile) * kGridRow * 4;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = signed_ ? cudaFuncSetAttribute(grid_kernel<true>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   int(smem))
+                            : cudaFuncSetAttribute(grid_kernel<false>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   int(smem));
+  if (err != cudaSuccess) return int(err);
+  if (signed_)
+    grid_kernel<true><<<unsigned(blocks), kThreads, smem, st>>>(g);
+  else
+    grid_kernel<false><<<unsigned(blocks), kThreads, smem, st>>>(g);
   return int(cudaGetLastError());
 }
 

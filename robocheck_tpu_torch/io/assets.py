@@ -57,6 +57,18 @@ def alpha_obstacle_path() -> Path:
     return find_asset("models/alpha1.0/obstacle.obj")
 
 
+# The sets that are not tracked, and the command that makes them (the
+# native float64 oracle first: with the NumPy one hard100k takes hours).
+UNTRACKED = ("easy100k", "hard100k")
+MAKE_UNTRACKED = "make -C native && python3 scripts/torch_make_datasets.py"
+
+
 def dataset_path(key: str) -> Path:
-    """Resolve one of the named benchmark datasets (see DATASET_FILES)."""
-    return find_asset(DATASET_FILES[key])
+    """Resolve one of the named benchmark datasets (see DATASET_FILES). A
+    missing UNTRACKED set raises FileNotFoundError naming its command."""
+    try:
+        return find_asset(DATASET_FILES[key])
+    except FileNotFoundError as e:
+        if key not in UNTRACKED:
+            raise
+        raise FileNotFoundError(f"{e}; {key} is made by `{MAKE_UNTRACKED}`") from None

@@ -1,9 +1,9 @@
 """Build the CUDA sources of `csrc/` with nvcc and bind them with ctypes.
 
 Each source (`megakernel.cu`, the fused check; `stage_probes.cu`, its probe
-kernels; `clearance.cu`, the clearance engine's exact scan; `front.cu`, the
-check's pose rows and robot box) is compiled
-at first use into ``build/robocheck_tpu_torch/`` at the repository root,
+kernels; `clearance.cu`, the clearance engine's exact scan and the distance
+grid; `front.cu`, the check's pose rows and robot box) is compiled at first
+use into ``build/robocheck_tpu_torch/`` at the repository root,
 all nvcc processes started together, under names keyed by
 every source and the flags, so an edited source is never served from a stale
 build. Plain ``extern "C"`` interfaces keep each build to seconds (no PyTorch
@@ -124,6 +124,10 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
               [ptr, ptr, i64, ptr, i32, i32, ptr, i32, ptr, ptr, i32, i32, ctypes.c_float,
                ptr, ptr, ptr, ptr, ptr])
         _bind(lib.rc_clearance_smem_bytes, i64, [i32])
+        # ax, ay, az, nx, ny, nz, gtab, nt, signed_, dx, dy, dz, out, stream
+        f32 = ctypes.c_float
+        _bind(lib.rc_sdf_grid, i32,
+              [ptr, ptr, ptr, i32, i32, i32, ptr, i32, i32, f32, f32, f32, ptr, ptr])
         _bind(lib.rc_clearance_error_string, ctypes.c_char_p, [i32])
     elif name == "front":
         # confs, n, out, stream; poses, n, verts, nv, padded, obs_box,

@@ -1,6 +1,7 @@
 """The least time an H100 could take for a kernel's work (its bound): the
-fused check's, the clearance scan's and the check front end's (the pose
-rows, K2, and the robot box, K5, by its vertex bound and its corner bound).
+fused check's, the clearance scan's, the check front end's (the pose rows,
+K2, and the robot box, K5, by its vertex bound and its corner bound) and the
+distance grid's (K4).
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate, and
@@ -76,6 +77,15 @@ CULL_TEST_OPS = BOX_DIST_OPS + 2
 # selects). K2 moves 88 bytes a row, so bytes bound it whatever TRIG_OPS is.
 POSE_ROW_OPS = 21
 TRIG_OPS = 20
+# K4 (`csrc/clearance.cu` grid_kernel), per node-triangle pair beyond its
+# distance (REGION_OPS by region; the ray test's p - a is the distance's
+# ap): the flat test (1); where the triangle is not flat, u (a dot product
+# 5, the multiply by inv_det 1, u >= 0 1); where u >= 0, qvec (6 multiplies,
+# 3 subtractions), v (5 + 1), v >= 0, u + v and its test (3); where those
+# pass, t (5 + 1), t > 0 and the parity's XOR (2). Per node: the sqrt of its
+# minimum (1) and, signed, the sign (1).
+RAY_FLAT_OPS = 1
+RAY_STAGE_OPS = (7, 18, 8)
 # Stage of the fused check -> whether it includes (gate, box tests, planes).
 STAGE_WORK = {"nosweep": (True, False, False), "maskonly": (True, True, False),
               "planesonly": (True, True, True), "nodiv": (True, True, True),
@@ -192,3 +202,30 @@ def clearance_work(k: int, block: int, nt: int, blocks_read: int, regions,
         live = int(plan.any(axis=(1, 2)).sum())
         n_ops += live * (block * BOX_VERTEX_OPS + ng * BOX_DIST_OPS + units * ng * CULL_TEST_OPS)
     return float(n_bytes), float(n_ops)
+
+
+def grid_work(nodes: int, tris: int, signed: bool, regions=None,
+              ray=None) -> tuple[float, float]:
+    """(bytes, operations) of K4 over ``nodes`` grid nodes against ``tris``
+    obstacle triangles, with the ray test where ``signed``.
+
+    Bytes: the triangles' corners (36 B each) and the grid (4 B a node); the
+    lattice's axes (12 B per node along one axis) are left out, which only
+    lowers the bound. Operations, per node-triangle pair: its distance by
+    the region it ends in, REGION_OPS (from ``regions``,
+    `kernels/sdf.grid_work_counts`' [len(REGION_OPS)] counts of the same
+    inputs; without it every pair is charged the least region's, vertex a:
+    21); signed, RAY_FLAT_OPS and RAY_STAGE_OPS[s] for each pair that reaches
+    stage s of the ray test (from ``ray``, `grid_work_counts`' [3] counts;
+    without it every pair is charged the first stage only: 1 + 7). Per
+    node: the sqrt (1) and, signed, the sign (1)."""
+    pairs = nodes * tris
+    if regions is None:
+        n_ops = pairs * min(REGION_OPS)
+    else:
+        n_ops = int((np.asarray(regions, dtype=np.int64) * np.asarray(REGION_OPS)).sum())
+    if signed:
+        stages = np.asarray([pairs, 0, 0] if ray is None else ray, dtype=np.int64)
+        n_ops += pairs * RAY_FLAT_OPS + int((stages * np.asarray(RAY_STAGE_OPS)).sum())
+    n_ops += nodes * (1 + signed)
+    return float(tris * 36 + nodes * 4), float(n_ops)

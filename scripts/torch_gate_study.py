@@ -2,10 +2,13 @@
 """Counts of the fused kernel's gates on real configurations: the port's
 counterpart of `scripts/gate_study.py`, for the CUDA kernel's tiling.
 
-    python3 scripts/torch_gate_study.py [--n 10000] [--device cpu]
+    python3 scripts/torch_gate_study.py [--dataset hard100k ...] [--n 10000] [--device cpu]
 
-For the alpha-1.0 pair and each of hard10k, easy10k and 10,000samples (the
-first ``--n`` rows), with the twins' torch ops (`kernels/megakernel.py`), it
+For the alpha-1.0 pair and each ``--dataset`` (default hard100k, as
+`gate_study.py:51`; any of `io.assets.DATASET_FILES`, a missing 100k set
+raising with the command that makes it; the first ``--n`` rows), with the
+twins' torch ops (`kernels/megakernel.py`) on ``--device`` (default the
+card; it raises without one, ``--device cpu`` runs them on the host), it
 prints one JSON line with, per broad-phase hit:
   * gated tile pairs (32-triangle robot tile box x 128-triangle obstacle
     group box);
@@ -58,14 +61,18 @@ def gate_counts(poses: torch.Tensor, tables: mk.MegaKernelPrep) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", nargs="+", default=["hard100k"],
+                    choices=sorted(assets.DATASET_FILES))
     ap.add_argument("--n", type=int, default=10000)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("torch_gate_study: no CUDA device")
     checker = MegaKernelChecker(load_obj(assets.alpha_robot_path()),
                                 load_obj(assets.alpha_obstacle_path()), device=device)
     tables = checker.tables
-    for key in ("hard10k", "easy10k", "samples10k"):
+    for key in dict.fromkeys(args.dataset):
         confs = read_conf_file(assets.dataset_path(key)).confs[: args.n]
         poses = mk.poses_from_confs(torch.from_numpy(confs).to(device))
         sums = dict.fromkeys(("broad", "gated", "survivors", "pairs", "unc_valid",

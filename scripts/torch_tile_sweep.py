@@ -3,6 +3,7 @@
 `scripts/tile_sweep_exp.py`, which sweeps the Pallas kernel's tiles).
 
     python3 scripts/torch_tile_sweep.py [--variants 4,4,1 8,4,1 ...] [--reps 20]
+        [--dataset hard100k] [--chunk 16384] [--valid-only | --invalid-only] [--counters]
 
 A variant W,R,B defines `RC_WARPS` (warps sharing one row), `RC_ROWS` (rows
 in flight per block, one per team of W warps) and `RC_MIN_BLOCKS` (the
@@ -13,13 +14,19 @@ and `copy_library`). The robot tile (`kRobTile`) and the obstacle group
 (`kGroup`) are not swept: the host's tables and shared-memory budget depend
 on them (`kernels/megakernel.py` ROB_TILE, GROUP and `smem_bytes`).
 
-For each variant, on the alpha-1.0 pair and hard10k, it prints one JSON
-line: the ptxas registers and spill bytes of every instance of the kernel,
-the resident blocks per SM, the golden mismatches of its verdicts after the
-float64 resolution of bits 1-2 (must be 0, or the script fails), and the
-CUDA-event µs per configuration (mean of ``--reps`` launches) on all 10,000
-rows, on the valid rows only and on the invalid rows only
-(`tile_sweep_exp.py:63-77`), each set as one launch. The default variant
+For each variant, on the alpha-1.0 pair and ``--dataset`` (default hard100k,
+as `tile_sweep_exp.py:61`; a missing 100k set raises with the command that
+makes it), it prints one JSON line: the ptxas registers and spill bytes of
+every instance of the kernel, the resident blocks per SM, the golden
+mismatches of its verdicts after the float64 resolution of bits 1-2 (must be
+0, or the script fails), and the CUDA-event µs per configuration (mean of
+``--reps`` launches) on the set's first ``--chunk`` rows (default 16,384),
+on its first ``--chunk`` valid rows and on its first ``--chunk`` invalid
+rows (`tile_sweep_exp.py:63-77`), each as one launch; ``--valid-only`` or
+``--invalid-only`` keeps that one. ``--counters`` adds, per row set, the
+counter kernel's line of `tile_sweep_exp.py:104-113` (broad-phase hit rate,
+pairs, gated, plane and interval tile pairs per hit) once: the variants
+change the block geometry, not the tiles those count. The default variant
 (4,4,1, the shipped geometry) is timed first and again last, for the drift
 between the two, and its SASS (`cuobjdump -sass`) is compared with the
 package's own build: it must be the same kernel. Every line carries the
@@ -109,6 +116,12 @@ def main() -> int:
     ap.add_argument("--variants", nargs="+", default=VARIANTS,
                     help="warps,rows,min_blocks per variant")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--dataset", default="hard100k", choices=sorted(assets.DATASET_FILES))
+    ap.add_argument("--chunk", type=int, default=16384)
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--valid-only", action="store_true")
+    only.add_argument("--invalid-only", action="store_true")
+    ap.add_argument("--counters", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_tile_sweep: no CUDA device")
@@ -130,11 +143,24 @@ def main() -> int:
     obstacle = load_obj(assets.alpha_obstacle_path())
     checker = MegaKernelChecker(robot, obstacle, device=device)
     tables = checker.tables
-    hard = read_conf_file(assets.dataset_path("hard10k"))
-    sets = {"all": np.arange(len(hard.confs)), "valid": np.flatnonzero(hard.valid),
-            "invalid": np.flatnonzero(~hard.valid)}
+    hard = read_conf_file(assets.dataset_path(args.dataset))
+    C = args.chunk
+    sets = {"all": np.arange(min(C, len(hard.confs))),
+            "valid": np.flatnonzero(hard.valid)[:C], "invalid": np.flatnonzero(~hard.valid)[:C]}
+    if args.valid_only or args.invalid_only:
+        sets = {k: v for k, v in sets.items() if k == ("valid" if args.valid_only else "invalid")}
     poses = {k: mk.poses_from_confs(torch.from_numpy(hard.confs[idx]).to(device))
              for k, idx in sets.items()}
+    if args.counters:
+        for k, idx in sets.items():
+            out = checker.check_block(hard.confs[idx]).cpu().numpy()
+            bh = out[:, 3] > 0
+            print(json.dumps({
+                "counters": True, "dataset": args.dataset, "rows": k, "n": len(idx),
+                "broad_hit_rate": float(bh.mean()), "mean_pairs_bh": float(out[bh, 2].mean()),
+                "mean_gated_bh": float((out[bh, 4] + out[bh, 5]).mean()),
+                "mean_plane_bh": float(out[bh, 4].mean()),
+                "mean_interval_bh": float(out[bh, 6].mean()), "card": card}), flush=True)
 
     same = sass(shipped_lib) == sass(_build.copy_path(sources[DEFAULT]))
     print(json.dumps({"default": DEFAULT, "sass_equals_shipped_build": same, "card": card}),
@@ -142,16 +168,19 @@ def main() -> int:
     ok = same
     for spec in [*specs, DEFAULT]:
         lib, log = _build.copy_library(str(sources[spec]))
-        packed = launch(lib, poses["all"], tables).cpu().numpy()
-        valid = resolve_coplanar(robot, obstacle, hard.confs, (packed & 1).astype(bool),
-                                 (packed & 6).astype(bool))
-        mism = int((valid != hard.valid).sum())
+        mism = 0
+        for k, idx in sets.items():
+            packed = launch(lib, poses[k], tables).cpu().numpy()
+            valid = resolve_coplanar(robot, obstacle, hard.confs[idx], (packed & 1).astype(bool),
+                                     (packed & 6).astype(bool))
+            mism += int((valid != hard.valid[idx]).sum())
         us = {k: event_ms(lambda p=p: launch(lib, p, tables), args.reps) * 1e3 / len(p)
               for k, p in poses.items()}
         print(json.dumps({"variant": spec, "warps_rows_min_blocks": parse(spec),
                           "blocks_per_sm": int(lib.rc_megakernel_blocks_per_sm(1024, 8)),
                           "smem_bytes": int(lib.rc_megakernel_smem_bytes(1024, 8)),
-                          "golden_mismatches": mism, "us_per_config": us,
+                          "dataset": args.dataset, "golden_mismatches": mism,
+                          "us_per_config": us,
                           "ptxas": ptxas(log), "card": card}), flush=True)
         ok = ok and mism == 0
     return 0 if ok else 1

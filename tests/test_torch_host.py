@@ -47,6 +47,7 @@ def test_port_imports_no_jax():
             "import robocheck_tpu_torch.planner.knn; "
             "import robocheck_tpu_torch.planner.sdf, robocheck_tpu_torch.planner.clearance; "
             "import robocheck_tpu_torch.planner.ccd, robocheck_tpu_torch.kernels.clearance; "
+            "import robocheck_tpu_torch.kernels.sdf; "
             "import robocheck_tpu_torch.io.datagen, robocheck_tpu_torch.io.parasol; "
             "import robocheck_tpu_torch.io.byu; "
             "import robocheck_tpu_torch.planner.trajopt, robocheck_tpu_torch.planner.sqp; "
@@ -59,7 +60,8 @@ def test_port_imports_no_jax():
             "'torch_k1_compare', 'torch_gate_study', 'torch_demo_planner', "
             "'torch_bench_chunked', 'torch_certify_alpha', 'torch_clearance_study', "
             "'torch_multihost_worker', 'torch_bench_scaling', 'torch_bench', "
-            "'torch_make_datasets', 'torch_tile_sweep', 'torch_front_compare')]; "
+            "'torch_make_datasets', 'torch_tile_sweep', 'torch_front_compare', "
+            "'torch_grid_compare')]; "
             "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "

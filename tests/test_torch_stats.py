@@ -465,6 +465,23 @@ def test_bounds_of_the_check_and_the_probes():
     assert bounds.robot_bounds_work(rob, 2, True)[1] == pose + 2 * 6
 
 
+def test_bounds_of_the_grid():
+    # K4: 36 bytes a triangle read, 4 a node written; per pair its
+    # distance's region and the ray test's stages it reaches, per node the
+    # sqrt and the sign.
+    assert bounds.grid_work(10, 3, False) == (3 * 36 + 40.0, 30 * 21 + 10.0)
+    assert bounds.grid_work(10, 3, True)[1] == 30 * (21 + 1 + 7) + 20
+    regions = [5, 0, 0, 0, 0, 0, 25]
+    ray = [24, 10, 4]  # 6 pairs of a flat triangle stop at the flat test
+    n_ops = 5 * bounds.REGION_OPS[0] + 25 * bounds.REGION_OPS[6]
+    assert bounds.grid_work(10, 3, False, regions)[1] == n_ops + 10
+    assert bounds.grid_work(10, 3, True, regions, ray)[1] == (
+        n_ops + 30 * bounds.RAY_FLAT_OPS + 24 * 7 + 10 * 18 + 4 * 8 + 20)
+    assert bounds.RAY_STAGE_OPS == (7, 18, 8) and min(bounds.REGION_OPS) == 21
+    # The alpha obstacle's 96^3 grid: bytes are not what bounds it.
+    assert bounds.bound_ms(*bounds.grid_work(96 ** 3, 1008, True))[1] == "operations"
+
+
 @pytest.mark.parametrize("launched,kernels,lost", [
     ((1, 2, 3), (1, 2, 3, 7), 0), ((1, 2, 3), (1, 3), 1), ((1, 2, 3), (), 3),
     ((2, 3), (1, 2, 3), 1)])
