@@ -193,21 +193,33 @@ and fail if K2 (and K5 in 4b) did not launch.
      entries carry the [100000] device times and the launches of every
      path above.
  15. the gradient planners' distance grid, K4 (`csrc/clearance.cu`
-     `grid_kernel`): (a) its ptxas lines (0 spills required) and K4 against
-     its twin `kernels/sdf.grid_values_reference` as float32 bits (the sign
-     of zero included, NaN for NaN), signed and unsigned, on the alpha
-     obstacle at 64^3 and 96^3 (phase 10 (a)'s grid), icosphere(2) and
-     box(0.4, 2, 1) at 32^3, the 16x obstacle (16,128 triangles: 63 shared-
-     memory tiles) at 32^3, the box with a zero-area and a ray-parallel
-     triangle (the flat path), the box with an a = b != c triangle (NaN
-     nodes required) and box(2, 2, 2) at 25^3, whose faces hold nodes
-     (-0.0 required); (b) on the alpha obstacle at 64^3 and 96^3 K4's
-     time by CUDA events (signed and unsigned; the kernel table's figure)
-     and by trace (`timers.kernel_ms`), the twin's time, the bound of this run's work
-     (`profiling.bounds.grid_work` from `kernels/sdf.grid_work_counts`) and
-     the share, and the nodes whose sign the build before K4 (torch ops
+     `grid_kernel`, which culls triangle groups per warp brick of nodes,
+     for the distance and for the ray, and stages the groups it keeps by
+     bulk copies): (a) its ptxas lines (0 spills required), K4 against its
+     full twin `kernels/sdf.grid_values_reference` as float32 bits (the
+     sign of zero included, NaN for NaN), signed and unsigned, and its kept
+     (warp, group) distance and ray scans against
+     `kernels/sdf.grid_cull_plan`'s (equal required), on the alpha obstacle
+     at 64^3 and 96^3 (phase 10 (a)'s grid), icosphere(2) and box(0.4, 2,
+     1) at 32^3, the 16x obstacle (16,128 triangles: 504 groups) at 32^3,
+     the box with a zero-area and a ray-parallel triangle (the flat path),
+     the box with an a = b != c triangle (NaN nodes required), box(2, 2,
+     2) at 25^3, whose faces hold nodes (-0.0 required) and whose bricks the
+     lattice's edge cuts, a triangle nearly parallel to the ray whose plane
+     holds lattice nodes (16^3; with its box grown by the distance slack
+     alone K4 must lose the crossings the plan says it loses), and the 256x
+     obstacle (258,048 triangles: 8,064 groups, past a block's shared
+     memory) at 16^3; each grid also through `rc_sdf_grid` with the
+     groups' arrays in device scratch and three blocks a launch; (b) on the
+     alpha obstacle at 64^3 and 96^3 K4's time by CUDA events (signed and
+     unsigned; the kernel table's figure) and by trace
+     (`timers.kernel_ms`), the twin's time, the culled-work bound (the
+     plan's pairs) and the full-scan bound (every pair) of this run's work
+     (`profiling.bounds.grid_work` from `kernels/sdf.grid_work_counts`)
+     and both shares, the kept shares of
+     the pairs, and the nodes whose sign the build before K4 (torch ops
      summing by `.sum(-1)`) gave otherwise. K4's kernel-table entry carries
-     the 96^3 times and the launches of phases 10 and 12.
+     the 96^3 times, both bounds and the launches of phases 10 and 12.
 The line before the last is the kernel table as JSON, each kernel with its
 bound (`profiling.bounds`, from this run's inputs and counter rows); the
 last line is the result as JSON. Without a CUDA device, or without the package beside it, it
@@ -215,6 +227,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import runpy
@@ -1702,16 +1715,71 @@ def grid_scenes(obstacle):
     return [("alpha", obstacle, 64), ("alpha", obstacle, 96), ("icosphere(2)", icosphere(2), 32),
             ("box(0.4, 2, 1)", slab, 32), ("16x alpha", subdivide_mesh(obstacle, 2), 32),
             ("box + zero-area + ray-parallel", degenerate, 32), ("box + a = b != c", nan, 32),
-            ("box(2, 2, 2), nodes on its faces", box(extent=(2.0, 2.0, 2.0)), 25)]
+            ("box(2, 2, 2), nodes on its faces", box(extent=(2.0, 2.0, 2.0)), 25),
+            ("grazing sliver", grazing_sliver(), 16),
+            ("256x alpha", subdivide_mesh(obstacle, 4), 16)]
 
 
-def grid_inputs(mesh, res: int, device):
-    """(axes on ``device``, the grid table) of `build_distance_grid`."""
-    from robocheck_tpu_torch.kernels import sdf as ks
+def grazing_sliver():
+    """A well-shaped triangle nearly parallel to the ray (not thin, |det|
+    ~2.4e-7) whose plane holds two lattice directions, so that the 16^3
+    lattice's nodes in that plane past its box get rounded crossings, in a
+    group with 31 tiny triangles at its middle; 32 tiny triangles at each
+    corner of [0, 10] x [0, 10] x [0, 10 d_z / d_y] fix the lattice."""
+    from robocheck_tpu_torch.core.types import Mesh
+    from robocheck_tpu_torch.kernels.sdf import RAY_DIR
     from robocheck_tpu_torch.planner.sdf import grid_axes
 
-    tris = torch.from_numpy(mesh.triangle_vertices.astype(np.float32).reshape(-1, 9))
-    return [a.to(device) for a in grid_axes(mesh, res)[0]], ks.grid_table(tris.to(device))
+    d = RAY_DIR.astype(np.float64)
+    hi = np.array([10.0, 10.0, 10.0 * d[2] / d[1] * (1 + 1e-7)])
+    small = np.float32([[0, 0, 0], [0.2, 0, 0], [0, 0.2, 0]])
+    corners = np.concatenate([small, hi - small]).astype(np.float32)
+    lattice = grid_axes(Mesh(corners, np.arange(6, dtype=np.int32).reshape(2, 3), "corners"),
+                        16)[0]
+    a, b, c = (np.float32([float(x[n]) for x, n in zip(lattice, ijk)])
+               for ijk in ((4, 4, 4), (8, 4, 4), (4, 8, 8)))
+    tiny = np.float32([[0, 0, 0], [0.01, 0, 0], [0, 0.01, 0]])
+    step = [np.float32([0, 0.001 * i, 0]) for i in range(32)]
+    fill = [a + 0.5 * (b - a) + tiny + step[i] for i in range(31)]
+    low = [small + step[i][[1, 0, 2]] for i in range(32)]
+    high = [corners[3:] - step[i][[1, 0, 2]] for i in range(32)]
+    verts = np.concatenate([np.stack([a, b, c]), *fill, *low, *high]).astype(np.float32)
+    return Mesh(verts, np.arange(len(verts), dtype=np.int32).reshape(-1, 3), "grazing sliver")
+
+
+def k4_scratch_bytes(axes, cull) -> int:
+    """The device scratch `sdf_grid_cuda` gives K4 on this lattice and these
+    groups (`rc_sdf_grid_scratch_bytes`; 0 where they fit a block's shared
+    memory)."""
+    from robocheck_tpu_torch.kernels import _build
+
+    need = _build.library("clearance").rc_sdf_grid_scratch_bytes(
+        *(a.shape[0] for a in axes), cull.boxes.shape[0])
+    require(need >= 0, f"rc_sdf_grid_scratch_bytes failed: {need}")
+    return int(need)
+
+
+def k4_in_scratch(axes, table, cull, signed, counts, blocks: int) -> torch.Tensor:
+    """K4 through `rc_sdf_grid` with the groups' arrays in device scratch
+    for ``blocks`` blocks, so in launches of ``blocks`` blocks each: the
+    path of groups past a block's shared memory, on any scene. A
+    comparison's launch: the wrapper's count does not move."""
+    from robocheck_tpu_torch.kernels import _build
+    from robocheck_tpu_torch.kernels import sdf as ks
+
+    lib = _build.library("clearance")
+    ng = cull.boxes.shape[0]
+    per_block = (ng * 4 + 15) // 16 * 16 * 2 + (ng + 15) // 16 * 16  # grid_block_scratch
+    scratch = torch.empty(per_block * blocks, dtype=torch.uint8, device=table.device)
+    out = torch.empty(tuple(a.shape[0] for a in axes), dtype=torch.float32, device=table.device)
+    err = lib.rc_sdf_grid(*(a.data_ptr() for a in axes), *out.shape, table.data_ptr(),
+                          table.shape[0], cull.boxes.data_ptr(), cull.always.data_ptr(),
+                          cull.ray_slack.data_ptr(), ng, float(cull.slack), int(signed),
+                          *(float(x) for x in ks.RAY_DIR), out.data_ptr(),
+                          None if counts is None else counts.data_ptr(), scratch.data_ptr(),
+                          scratch.numel(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"rc_sdf_grid through scratch failed: cudaError {err}")
+    return out
 
 
 def pr11_inside(points, table) -> torch.Tensor:
@@ -1743,13 +1811,14 @@ def pr11_inside(points, table) -> torch.Tensor:
 
 def phase15(obstacle, log: str, card: str, device) -> dict:
     """The gradient planners' distance grid, K4 (phase 15): (a) K4 against
-    its twin as float32 bits on every scene of `grid_scenes`, signed and
-    unsigned, and its ptxas lines; (b) on the alpha obstacle at 64^3 and
-    96^3 K4's device time (trace and events) beside the twin's, the bound of
-    this run's work and the share, and the nodes whose sign the build before
-    K4 gave otherwise. Returns K4's kernel-table entry."""
+    its full twin as float32 bits and its kept scans against
+    `grid_cull_plan`'s on every scene of `grid_scenes`, signed and unsigned,
+    and its ptxas lines; (b) on the alpha obstacle at 64^3 and 96^3 K4's
+    device time (events and trace) beside the twin's, its culled-work and
+    full-scan bounds and shares, the kept shares, and the nodes whose sign
+    the build before K4 gave otherwise. Returns K4's kernel-table entry."""
     from robocheck_tpu_torch.kernels import sdf as ks
-    from robocheck_tpu_torch.planner.sdf import build_distance_grid
+    from robocheck_tpu_torch.planner.sdf import build_distance_grid, grid_inputs
     from robocheck_tpu_torch.profiling import bounds, timers
 
     print("[15] the distance grid, K4 (csrc/clearance.cu grid_kernel), against its twin")
@@ -1764,58 +1833,103 @@ def phase15(obstacle, log: str, card: str, device) -> dict:
     ks.sdf_grid_cuda.launches = 0
     max_err, launched = 0.0, 0
     for name, mesh, res in grid_scenes(obstacle):
-        axes, table = grid_inputs(mesh, res, device)
+        g = grid_inputs(mesh, res, device=device)
+        axes, table, cull = g["axes"], g["table"], g["cull"]
         pts = ks.grid_points(axes)
+        plan = ks.grid_cull_plan(axes, table, cull)
+        cells = plan.dist.numel()
+        scratch = k4_scratch_bytes(axes, cull)
         for signed in (True, False):
             want = ks.grid_values_reference(pts, table, signed).view(res, res, res)
-            got = ks.sdf_grid_cuda(axes, table, signed)
+            counts = torch.zeros(2, dtype=torch.int32, device=device)
+            got = ks.sdf_grid_cuda(axes, table, cull, signed, counts)
             launched += 1
+            counts_s = torch.zeros(2, dtype=torch.int32, device=device)
+            in_scratch = k4_in_scratch(axes, table, cull, signed, counts_s, blocks=3)
             torch.cuda.synchronize()
             n_diff = same_f32(got, want)
+            n_diff_s = same_f32(in_scratch, want)
             ok = torch.isfinite(want) & torch.isfinite(got)
             err = float((got[ok].double() - want[ok].double()).abs().max())
             max_err = max(max_err, err)
             neg_zero = int(((got == 0) & torch.signbit(got)).sum())
             n_nan = int(torch.isnan(got).sum())
-            print(f"  (a) {name} ({len(table)} triangles, {res}^3, signed {signed}): "
-                  f"{n_diff} of {got.numel()} entries differ from the twin as float32 bits; "
-                  f"{int((got < 0).sum())} negative, {neg_zero} -0.0, {n_nan} NaN; max abs err "
-                  f"{err}")
-            require(n_diff == 0, f"(a) {name} {res}^3 signed {signed}: K4 differs from its twin")
+            kept = [int(plan.dist.sum()), int(plan.ray.sum()) if signed else 0]
+            print(f"  (a) {name} ({len(table)} triangles, {cull.boxes.shape[0]} groups, "
+                  f"{res}^3, signed {signed}; the wrapper's scratch {scratch} bytes): {n_diff} of "
+                  f"{got.numel()} entries differ from the twin as float32 bits ({n_diff_s} "
+                  f"through scratch, 3 blocks a launch); {int((got < 0).sum())} negative, "
+                  f"{neg_zero} -0.0, {n_nan} NaN; max abs err {err}; kept (warp, group) scans "
+                  f"{counts.tolist()} ({counts_s.tolist()} through scratch), grid_cull_plan "
+                  f"{kept} of {cells}")
+            require(n_diff == 0 and n_diff_s == 0,
+                    f"(a) {name} {res}^3 signed {signed}: K4 differs from its twin")
+            require(counts.tolist() == kept and counts_s.tolist() == kept,
+                    f"(a) {name} {res}^3 signed {signed}: K4's kept scans {counts.tolist()} / "
+                    f"{counts_s.tolist()} are not grid_cull_plan's {kept}")
+            if name.startswith("256x"):
+                require(scratch > 0, "(a) the 256x obstacle's groups fit a block's shared memory")
+            if signed and name.startswith("grazing"):
+                # With the boxes grown by the distance slack alone, the plan
+                # loses crossings the full scan counts, and K4 loses them too.
+                flat = dataclasses.replace(cull, ray_slack=torch.full_like(cull.ray_slack,
+                                                                           cull.slack))
+                lost = ks.grid_values_planned(axes, table, ks.grid_cull_plan(axes, table, flat))
+                old = k4_in_scratch(axes, table, flat, True, None, blocks=3)
+                n_lost, n_old = same_f32(lost, want), same_f32(old, lost)
+                print(f"  (a) {name}, boxes grown by the distance slack alone: the plan's grid "
+                      f"differs from the twin on {n_lost} nodes, K4's from the plan's on {n_old}")
+                require(n_lost > 0 and n_old == 0,
+                        "(a) the grazing sliver does not show the distance slack's loss")
             if signed and name.startswith("box(2"):
                 require(neg_zero > 0, "(a) no node on the box's faces reads -0.0")
             if name.endswith("!= c"):
                 require(n_nan > 0, "(a) the a = b != c triangle gave no NaN")
     require(ks.sdf_grid_cuda.launches == launched, "(a) K4's count is not one per call")
-    print(f"  (a) [{card}] {launched} grids bit-equal to the twin in "
-          f"{time.perf_counter() - t_start} s")
+    print(f"  (a) [{card}] {launched} grids bit-equal to the twin, kept scans equal to the plan's, "
+          f"in {time.perf_counter() - t_start} s")
 
     out = {}
     for res in (64, 96):
-        axes, table = grid_inputs(obstacle, res, device)
+        g = grid_inputs(obstacle, res, device=device)
+        axes, table, cull = g["axes"], g["table"], g["cull"]
         pts = ks.grid_points(axes)
-        # A K4 launch takes ms, so CUDA events around back-to-back calls read
-        # the kernel (the wrapper issues in ~30 us); the trace's figure is
-        # printed beside them: late in this process traces have read K4 at
-        # half the events' time (PERF.md section 7).
-        e_ms = timers.event_ms(lambda: ks.sdf_grid_cuda(axes, table), 5)
-        k_ms = timers.kernel_ms(lambda: ks.sdf_grid_cuda(axes, table), 5)
-        u_ms = timers.event_ms(lambda: ks.sdf_grid_cuda(axes, table, False), 5)
+        nodes, nt, ng = len(pts), len(table), cull.boxes.shape[0]
+
+        def k4(signed=True):
+            return ks.sdf_grid_cuda(axes, table, cull, signed)
+
+        # CUDA events around back-to-back calls read the kernel (the wrapper
+        # issues in ~30 us); the trace's figure is printed beside them.
+        e_ms = timers.event_ms(k4, 10)
+        k_ms = timers.kernel_ms(k4, 5)
+        u_ms = timers.event_ms(lambda: k4(False), 10)
         p_ms = timers.benchmark(ks.grid_values_reference, pts, table, runs=1, warmup=0) * 1e3
+        plan = ks.grid_cull_plan(axes, table, cull)
+        d_pairs, r_pairs = plan.pairs(nt)
         regions, ray = ks.grid_work_counts(pts, table)
-        b_ms, b_by = bounds.bound_ms(*bounds.grid_work(len(pts), len(table), True, regions, ray))
-        ub_ms = bounds.bound_ms(*bounds.grid_work(len(pts), len(table), False, regions))[0]
+        c_regions, c_ray = ks.grid_work_counts(pts, table, plan)
+        b_ms, b_by = bounds.bound_ms(*bounds.grid_work(nodes, nt, True, c_regions, c_ray,
+                                                       r_pairs, ng))
+        f_ms, f_by = bounds.bound_ms(*bounds.grid_work(nodes, nt, True, regions, ray))
         flips = int((pr11_inside(pts, table)
                      != torch.signbit(ks.grid_values_reference(pts, table))).sum())
         build_s = timers.benchmark(build_distance_grid, obstacle, res, runs=3)
-        print(f"  (b) [{card}] alpha {res}^3 ({len(pts)} nodes x {len(table)} triangles): K4 "
+        pairs = nodes * nt
+        print(f"  (b) [{card}] alpha {res}^3 ({nodes} nodes x {nt} triangles, {ng} groups): K4 "
               f"{e_ms} ms by events ({k_ms} ms device by trace); unsigned {u_ms} ms; twin "
-              f"{p_ms} ms; bound {b_ms} ms ({b_by}; unsigned {ub_ms} ms), share {b_ms / e_ms} "
-              f"(unsigned {ub_ms / u_ms}); distances by region {regions.tolist()}, ray-test "
-              f"stages {ray.tolist()}; nodes whose sign the build before K4 gave otherwise: "
-              f"{flips}; build_distance_grid warm, best of 3 (host clock) {build_s * 1e3} ms")
+              f"{p_ms} ms; kept pairs: distance {d_pairs / pairs}, ray {r_pairs / pairs} "
+              f"(warp-group cells {int(plan.dist.sum())} / {int(plan.ray.sum())} of "
+              f"{plan.dist.numel()}); culled-work bound {b_ms} ms ({b_by}), share "
+              f"{b_ms / e_ms}; full-scan bound {f_ms} ms ({f_by}), share {f_ms / e_ms}; "
+              f"distances by region {regions.tolist()} (kept {c_regions.tolist()}), ray-test "
+              f"stages {ray.tolist()} (kept {c_ray.tolist()}); nodes whose sign the build "
+              f"before K4 gave otherwise: {flips}; build_distance_grid warm, best of 3 (host "
+              f"clock) {build_s * 1e3} ms")
         out[res] = {"ms": e_ms, "trace_ms": k_ms, "unsigned_ms": u_ms, "plain_ms": p_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "flips": flips, "build_s": build_s}
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_full_ms": f_ms,
+                    "kept_dist": d_pairs / pairs, "kept_ray": r_pairs / pairs, "flips": flips,
+                    "build_s": build_s}
     launches = sum(GRID_LAUNCHES.values())
     print(f"  K4 launches by path: {GRID_LAUNCHES}")
     print(f"  [{card}] phase 15: {time.perf_counter() - t_start} s")
@@ -1824,8 +1938,10 @@ def phase15(obstacle, log: str, card: str, device) -> dict:
             "replaces": GRID_REPLACES, "launches": launches, "max_abs_err": max_err,
             "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": None, "shape": [96, 96, 96, 1008],
-            "trace_ms": big["trace_ms"], "ms_64": out[64]["ms"],
-            "plain_ms_64": out[64]["plain_ms"], "bound_ms_64": out[64]["bound_ms"]}
+            "bound_full_ms": big["bound_full_ms"], "trace_ms": big["trace_ms"],
+            "kept_dist": big["kept_dist"], "kept_ray": big["kept_ray"], "ms_64": out[64]["ms"],
+            "plain_ms_64": out[64]["plain_ms"], "bound_ms_64": out[64]["bound_ms"],
+            "bound_full_ms_64": out[64]["bound_full_ms"]}
 
 
 def phase2_native(native, hard10k) -> None:

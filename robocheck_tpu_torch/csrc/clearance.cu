@@ -250,22 +250,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-// Copy `bytes` (a multiple of 4, both ends 16-byte aligned) into shared
-// `dst` with cp.async and wait for this thread's copies; the caller's
+// Copy the table (nt rows of 72 bytes, 16-byte aligned) into shared `dst`
+// with cp.async and wait for this thread's copies; the caller's
 // __syncthreads publishes them.
-__device__ __forceinline__ void stage_bytes(float* dst, const float* src, size_t bytes, int tid) {
+__device__ __forceinline__ void stage_table(float* dst, const float* src, int nt, int tid) {
   char* d = reinterpret_cast<char*>(dst);
   const char* s = reinterpret_cast<const char*>(src);
-  const size_t n16 = bytes / 16;
+  const size_t bytes = size_t(nt) * 72, n16 = bytes / 16;
   for (size_t i = tid; i < n16; i += kThreads) cp_async16(d + 16 * i, s + 16 * i);
   for (size_t i = 4 * n16 + tid; i < bytes / 4; i += kThreads) cp_async4(d + 4 * i, s + 4 * i);
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The scan's table: nt rows of 72 bytes.
-__device__ __forceinline__ void stage_table(float* dst, const float* src, int nt, int tid) {
-  stage_bytes(dst, src, size_t(nt) * 72, tid);
 }
 
 // R v + t in the twin's order.
@@ -561,48 +556,93 @@ __global__ void finish_kernel(const Args a) {
 // obstacle for every `SQPOptimizer`, `TrajectoryOptimizer` and grid-backed
 // `SweptCertifier`.
 //
-// Inputs, float32 on one device:
+// Inputs, on one device, float32 unless said:
 //   ax, ay, az [nx], [ny], [nz]  the lattice's axes
 //   gtab [nt, 24]  per triangle (`kernels/sdf.grid_table`): the scan
 //                  table's 18 columns (corners a, b, c; edges ab, ac, bc),
 //                  pvec = dir x ac, inv_det (0 where flat), flat (1.0 / 0.0)
-//                  and a zero; 16-byte aligned
+//                  and a zero; in the Morton order of the centroids
+//                  (`kernels/sdf.grid_groups`); 16-byte aligned
+//   gbox [ng, 6]   conservative boxes (lo xyz, hi xyz) of the groups of
+//                  kGroup consecutive rows, ng = ceil(nt / kGroup)
+//   always [ng] uint8  groups measured and tested whatever their box says
+//                  (a thin or non-finite triangle)
+//   rslack [ng]    what the ray cull grows each box by
+//                  (`kernels/sdf.grid_ray_slack`)
+//   slack          2 x err_bound (`kernels/sdf.grid_slack`)
 //   out [nx * ny * nz]
+//   counts [2] int32 or null: the kept (warp, group) distance scans and
+//                  ray scans are added to it
+//   scratch        device memory for the groups' per-block arrays where
+//                  they do not fit a block's shared memory, or null
 //
-// Bound: operations. The alpha obstacle's 96^3 grid is 8.9e8 node-triangle
-// pairs of a distance (21 to 79 operations by region) and a ray test (1 to
-// 34); bytes are a few MB. The design keeps every operation on registers
-// and a triangle table in shared memory:
-//   * One pass gives each node its min squared distance and its crossing
-//     parity, so both share each triangle read and p - a.
-//   * The table is staged kGridTile rows at a time with cp.async (96-byte
-//     rows, read by the whole warp at once: six 16-byte broadcasts a row),
-//     tile after tile with a barrier between them (the alpha obstacle's
-//     1,008 triangles take 4 tiles, the 16x obstacle's 16,128 take 63).
-//   * A thread owns kGridNodes nodes kThreads apart, so a warp's lanes are
-//     neighbours along z: they mostly end in the same region of a far
-//     triangle and the distance's early returns (`point_tri_d2`, K3's, in
-//     the twin's priority) seldom diverge.
-//   * The sqrt is taken once, of the node's min: sqrt is correctly rounded
-//     and monotone, so sqrt(min d2) is min sqrt(d2), NaN for NaN.
-//   * The ray test ends at the first condition that fails; the parity is
-//     an XOR, which no order changes. `signed_` 0 skips it.
-// Every value is the twin's (`kernels/sdf.grid_values_reference`): the same
-// operations in the same order, each rounded on its own (-fmad=false).
+// Bound: operations. A full scan of the alpha obstacle's 96^3 grid is
+// 8.9e8 node-triangle pairs of a distance (21 to 79 operations by region)
+// and a ray test (1 to 34); bytes are a few MB. Most of those pairs cannot
+// move a node's value: a far triangle is not the nearest, and a ray meets
+// few triangles. So the kernel does less of that work instead of doing it
+// faster:
+//   * A block is a brick of kBx x kBy x kBz nodes and a warp a brick of
+//     kWx x kWy x kWz (a run of the flat index would be a sliver, whose box
+//     no test could cull against). A brick cut by the lattice's edge
+//     repeats the edge's nodes and writes only its own.
+//   * Culling for the distance, by the clearance engine's rule (K3's). A
+//     block orders the groups by the squared distance of their boxes to
+//     its brick's box (ties to the lower index), so it starts with its
+//     nearest (the scan's g0). Each warp keeps M, the largest running min
+//     of its nodes (a NaN node, final already, left out), and measures
+//     group g unless sqrt(box_d2(warp brick, g)) > sqrt(M) + slack and g is
+//     not `always`. M only falls, so a test on the running value is
+//     conservative: a skipped triangle's distance exceeds every node's min
+//     by more than the rounding err_bound covers, and the min, an exact
+//     operation, is the full scan's, bit for bit.
+//   * Culling for the ray, on its own: a warp tests g's triangles for
+//     crossings only where g's box grown by rslack[g] meets the sweep of
+//     the warp's brick along +dir (the slab test over s >= 0; every
+//     component of dir is positive), or g is `always`. rslack is slack plus
+//     a bound on how far from its triangle the rounded test can declare a
+//     crossing (`kernels/sdf.ray_error`: it grows as a triangle turns
+//     parallel to dir, to inf). A pair that both rules skip costs nothing;
+//     one that both keep shares p - a.
+//   * Staging by the copy engine. A group's rows are 3 KB, contiguous in
+//     the Morton-ordered table. Thread 0 copies the groups the block may
+//     need, one `cp.async.bulk` each, into a ring of kRing shared-memory
+//     slots, each with a full mbarrier (the copy completes it) and an empty
+//     one (every warp arrives when done with the slot), so the copy of a
+//     later group overlaps the scan of this one. A group is staged once for
+//     the block where it is `always`, the block brick's sweep meets it, or
+//     it passes some warp's distance test on the threshold that warp last
+//     published (a stale one is larger: conservative); a warp that needs
+//     nothing of a staged group passes it by.
+//   * The groups' boxes, ray slacks and flags, their distances to the
+//     block's brick and their order (38 bytes a group) live in shared
+//     memory; past what a block can hold (~5,700 groups), the distances,
+//     order and flags go to `scratch` (9 bytes a group per resident block)
+//     and the rest is read from global memory, in launches of as many
+//     blocks as the scratch holds. The order is ranked in tiles staged in
+//     the ring before any group is: O(ng^2 / 256) a thread, under a full
+//     scan's O(ng x 32 x 54) for any ng below ~400,000.
+//   * The rules read only the inputs and the minima they produce, so
+//     `kernels/sdf.grid_cull_plan` reproduces every (warp, group) scan on
+//     the host, and `counts` must equal its.
+// The arithmetic is the full scan's: a node's min squared distance over
+// `point_tri_d2` (K3's, in the twin's priority) and its crossing parity in
+// one pass over a triangle (both share the row and p - a); the sqrt once,
+// of the min (sqrt is correctly rounded and monotone, so sqrt(min d2) is
+// min sqrt(d2), NaN for NaN); the sign by its bit; each multiply and add
+// rounded on its own (-fmad=false). Every value is the full twin's
+// (`kernels/sdf.grid_values_reference`).
 //
-// Nodes a thread and tile size are tuned on the H100 (`scripts/torch_grid_compare.py`): one node a
-// thread and 256-triangle tiles (24 KB) keep five blocks of 48 registers a
-// thread resident per SM; the signed 96^3 alpha grid ran 1.29x faster than
-// at two nodes and 1,024-triangle tiles.
-#ifndef RC_GRID_NODES
-#define RC_GRID_NODES 1
-#endif
-#ifndef RC_GRID_TILE
-#define RC_GRID_TILE 256
-#endif
-constexpr int kGridNodes = RC_GRID_NODES;  // nodes a thread holds
-constexpr int kGridTile = RC_GRID_TILE;    // triangles staged at once
-constexpr int kGridRow = 24;               // floats per table row
+// The brick shapes, the ring depth and the blocks an SM must hold are
+// build-time macros, tuned on the H100 by `scripts/torch_grid_compare.py`
+// (which also times the full scan before the cull, from an older copy of
+// this file): with 8 x 4 x 8 blocks of 2 x 4 x 4 warps, 4 slots and 5
+// blocks (48 registers) the alpha grids ran within 2% of the fastest shape
+// swept, and the 16x obstacle's 32^3 grid 14% faster than with 8 x 8 x 4
+// blocks (8 slots gain 4% more there, for twice the shared memory); warp
+// bricks flat along one axis (4 x 4 x 2, 1 x 8 x 4) keep more scans and
+// run slower.
+constexpr int kGridRow = 24;  // floats per table row
 
 struct GridArgs {
   const float *ax, *ay, *az;
@@ -611,6 +651,16 @@ struct GridArgs {
   int nt, signed_;
   float dx, dy, dz;
   float* out;
+  const float* gbox;
+  const uint8_t* always;
+  const float* rslack;
+  int ng;
+  float slack;
+  float rx, ry, rz;  // 1 / dx, 1 / dy, 1 / dz
+  int32_t* counts;
+  uint8_t* scratch;     // null: the groups' arrays in shared memory
+  int nbx, nby, nbz;    // bricks along each axis
+  int64_t first;        // the launch's first brick (z fastest, then y, x)
 };
 
 // Whether the ray from p along d crosses the triangle: the twin's
@@ -629,56 +679,334 @@ __device__ __forceinline__ bool ray_crosses(float tx, float ty, float tz, const 
   return dot3(qx, qy, qz, t.acx, t.acy, t.acz) * ray.w > 0.f;
 }
 
-template <bool kSigned>
-__global__ void __launch_bounds__(kThreads, 2) grid_kernel(const GridArgs g) {
-  extern __shared__ float4 smem4[];
-  const int tid = threadIdx.x;
-  const int64_t n_nodes = int64_t(g.nx) * g.ny * g.nz;
-  const int64_t base = int64_t(blockIdx.x) * kThreads * kGridNodes + tid;
-  float px[kGridNodes], py[kGridNodes], pz[kGridNodes], m[kGridNodes];
-  unsigned odd[kGridNodes];
+#ifndef RC_GRID_BX
+#define RC_GRID_BX 8
+#endif
+#ifndef RC_GRID_BY
+#define RC_GRID_BY 4
+#endif
+#ifndef RC_GRID_BZ
+#define RC_GRID_BZ 8
+#endif
+#ifndef RC_GRID_WX
+#define RC_GRID_WX 2
+#endif
+#ifndef RC_GRID_WY
+#define RC_GRID_WY 4
+#endif
+#ifndef RC_GRID_WZ
+#define RC_GRID_WZ 4
+#endif
+#ifndef RC_GRID_RING
+#define RC_GRID_RING 4
+#endif
+constexpr int kBx = RC_GRID_BX, kBy = RC_GRID_BY, kBz = RC_GRID_BZ;  // a block's brick
+constexpr int kWx = RC_GRID_WX, kWy = RC_GRID_WY, kWz = RC_GRID_WZ;  // a warp's brick
+constexpr int kRing = RC_GRID_RING;  // shared-memory slots of one group each
+constexpr int kGroup = 32;           // triangles a group
+constexpr int kGroupFloats = kGroup * kGridRow;
+static_assert(kBx * kBy * kBz == kThreads, "a block's brick holds one node a thread");
+static_assert(kWx * kWy * kWz == 32, "a warp's brick holds one node a lane");
+static_assert(kBx % kWx == 0 && kBy % kWy == 0 && kBz % kWz == 0,
+              "warp bricks tile the block's brick");
+static_assert(kRing >= 2 && kRing <= 8, "a ring of 2 to 8 slots");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return unsigned(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Arrive and expect `bytes` of copies to complete the phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// past 2^35 cycles (~17 s) traps, a launch failure the wrapper raises,
+// rather than hold the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 35)) __trap();
+  } while (!done);
+}
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global memory into shared `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Whether the sweep of the box [lo, hi] along +dir (s >= 0) meets group box
+// `gb` (lo xyz, hi xyz) grown by `rs`: per axis the sweep is inside the
+// slab for s in [a, b], a = ((glo - rs) - hi) / d, b = ((ghi + rs) - lo) / d
+// (as products with 1 / d); it meets where 0 <= every b and every a <=
+// every b. A NaN term meets (`kernels/sdf._sweep_meets`).
+__device__ __forceinline__ bool sweep_meets(const float lo[3], const float hi[3],
+                                            const float* gb, float rs, const GridArgs& g) {
+  const float inv[3] = {g.rx, g.ry, g.rz};
+  float a[3], b[3];
 #pragma unroll
-  for (int j = 0; j < kGridNodes; ++j) {
-    // A node past the lattice repeats the last one and is not written.
-    const int64_t n = min(base + int64_t(j) * kThreads, n_nodes - 1);
-    const int64_t plane = int64_t(g.ny) * g.nz;
-    const int i = int(n / plane), r = int(n % plane);
-    px[j] = __ldg(g.ax + i);
-    py[j] = __ldg(g.ay + r / g.nz);
-    pz[j] = __ldg(g.az + r % g.nz);
-    m[j] = f32_inf();
-    odd[j] = 0u;
+  for (int c = 0; c < 3; ++c) {
+    a[c] = ((gb[c] - rs) - hi[c]) * inv[c];
+    b[c] = ((gb[3 + c] + rs) - lo[c]) * inv[c];
   }
-  for (int t0 = 0; t0 < g.nt; t0 += kGridTile) {
-    const int rows = min(kGridTile, g.nt - t0);
-    if (t0 > 0) __syncthreads();  // every thread is done with the last tile
-    stage_bytes(reinterpret_cast<float*>(smem4), g.tab + size_t(t0) * kGridRow,
-                size_t(rows) * kGridRow * 4, tid);
-    __syncthreads();
-    for (int t = 0; t < rows; ++t) {
-      const float4* row = smem4 + t * (kGridRow / 4);
-      const float4 r0 = row[0], r1 = row[1], r2 = row[2], r3 = row[3], r4 = row[4];
-      const Tri T{r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x,
-                  r2.y, r2.z, r2.w, r3.x, r3.y, r3.z, r3.w, r4.x, r4.y};
+  bool miss = false;
 #pragma unroll
-      for (int j = 0; j < kGridNodes; ++j)
-        m[j] = min_nan(point_tri_d2(px[j], py[j], pz[j], T), m[j]);
-      if (kSigned) {
-        const float4 r5 = row[5];
-        const float4 ray = make_float4(r4.z, r4.w, r5.x, r5.y);  // pvec, inv_det
+  for (int c = 0; c < 3; ++c) {
+    miss = miss || 0.f > b[c];
 #pragma unroll
-        for (int j = 0; j < kGridNodes; ++j)
-          odd[j] ^= unsigned(ray_crosses(px[j] - T.ax, py[j] - T.ay, pz[j] - T.az, T, ray,
-                                         r5.z, g));
-      }
+    for (int e = 0; e < 3; ++e) miss = miss || a[c] > b[e];
+  }
+  return !miss;
+}
+
+#ifndef RC_GRID_MIN_BLOCKS
+#define RC_GRID_MIN_BLOCKS 5
+#endif
+// Blocks an SM must hold at once: 5 leave 48 registers a thread.
+constexpr int kGridMinBlocks = RC_GRID_MIN_BLOCKS;
+
+// What lives in shared memory rather than registers, which bound how many
+// blocks an SM holds: per warp its brick box, threshold and scan counts,
+// per thread its output index, and thread 0's place in the order.
+struct GridShared {
+  uint64_t full[kRing], empty[kRing];
+  int slot[kRing];     // the group in each slot, -1 past the last
+  float thr[kWarps];   // each warp's threshold (the staging reads it)
+  float wbox[kWarps][6];
+  int count[kWarps][2];
+  int64_t dst[kThreads];  // each thread's output index, -1 past the lattice
+  int cursor, done;
+};
+
+// Bytes of `scratch` a block takes for `ng` groups: their distances to its
+// brick, their order and their staging flags, each 16-byte aligned.
+__host__ __device__ inline size_t grid_block_scratch(int ng) {
+  const size_t words = (size_t(ng) * 4 + 15) / 16 * 16;
+  return 2 * words + (size_t(ng) + 15) / 16 * 16;
+}
+
+template <bool kSigned>
+__global__ void __launch_bounds__(kThreads, kGridMinBlocks) grid_kernel(const GridArgs g) {
+  extern __shared__ float4 smem4[];
+  __shared__ GridShared sh;
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // The groups' arrays: in shared memory after the ring, or (g.scratch) the
+  // inputs in global memory and this block's slot of the scratch.
+  const float *gbox = g.gbox, *rslack = g.rslack;
+  const uint8_t* always = g.always;
+  float* bd;       // box_d2 to the block's brick
+  int* order;      // groups by ascending bd
+  uint8_t* fixed;  // staged whatever the minima
+  if (g.scratch == nullptr) {
+    float* gb = ring + kRing * kGroupFloats;
+    float* rs = gb + 6 * g.ng;
+    bd = rs + g.ng;
+    order = reinterpret_cast<int*>(bd + g.ng);
+    uint8_t* al = reinterpret_cast<uint8_t*>(order + g.ng);
+    fixed = al + g.ng;
+    for (int x = tid; x < 6 * g.ng; x += kThreads) gb[x] = __ldg(g.gbox + x);
+    for (int x = tid; x < g.ng; x += kThreads) {
+      rs[x] = __ldg(g.rslack + x);
+      al[x] = __ldg(g.always + x);
+    }
+    gbox = gb;
+    rslack = rs;
+    always = al;
+  } else {
+    uint8_t* mine = g.scratch + size_t(blockIdx.x) * grid_block_scratch(g.ng);
+    const size_t words = (size_t(g.ng) * 4 + 15) / 16 * 16;
+    bd = reinterpret_cast<float*>(mine);
+    order = reinterpret_cast<int*>(mine + words);
+    fixed = mine + 2 * words;
+  }
+
+  // This lane's node: warp bricks in the block's brick, lanes in the warp's,
+  // z fastest; past the lattice it repeats the edge's node.
+  constexpr int kNwy = kBy / kWy, kNwz = kBz / kWz;
+  const int64_t brick = g.first + blockIdx.x;
+  const int bk = int(brick % g.nbz), bj = int(brick / g.nbz % g.nby);
+  const int bi = int(brick / (int64_t(g.nbz) * g.nby));
+  const int i0 = bi * kBx + warp / (kNwy * kNwz) * kWx;
+  const int j0 = bj * kBy + warp / kNwz % kNwy * kWy;
+  const int k0 = bk * kBz + warp % kNwz * kWz;
+  const bool live = i0 < g.nx && j0 < g.ny && k0 < g.nz;  // the warp holds a node of its own
+  const int i = i0 + lane / (kWy * kWz), j = j0 + lane / kWz % kWy, k = k0 + lane % kWz;
+  const float px = __ldg(g.ax + min(i, g.nx - 1));
+  const float py = __ldg(g.ay + min(j, g.ny - 1));
+  const float pz = __ldg(g.az + min(k, g.nz - 1));
+  sh.dst[tid] = i < g.nx && j < g.ny && k < g.nz ? (int64_t(i) * g.ny + j) * g.nz + k : -1;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&sh.full[s], 1);
+      mbar_init(&sh.empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sh.cursor = sh.done = 0;
+  }
+  {
+    // The warp's brick box (NaN coordinates stay out).
+    float lo[3] = {px == px ? px : f32_inf(), py == py ? py : f32_inf(),
+                   pz == pz ? pz : f32_inf()};
+    float hi[3] = {px == px ? px : -f32_inf(), py == py ? py : -f32_inf(),
+                   pz == pz ? pz : -f32_inf()};
+    team_box(lo, hi, 32);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) { sh.wbox[warp][c] = lo[c]; sh.wbox[warp][3 + c] = hi[c]; }
+      sh.thr[warp] = live ? f32_inf() : -f32_inf();
+      sh.count[warp][0] = sh.count[warp][1] = 0;
     }
   }
+  __syncthreads();
+  {
+    // The block's brick box (a repeated node is one of the block's), each
+    // group's distance to it and whether it is staged whatever the minima.
+    float lo[3], hi[3];
 #pragma unroll
-  for (int j = 0; j < kGridNodes; ++j) {
-    const int64_t n = base + int64_t(j) * kThreads;
-    if (n < n_nodes)  // the sign by its bit: -d of the twin, NaN and 0 included
-      g.out[n] = __int_as_float(__float_as_int(sqrtf(m[j])) ^ int(odd[j] << 31));
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = sh.wbox[0][c];
+      hi[c] = sh.wbox[0][3 + c];
+      for (int w = 1; w < kWarps; ++w) {
+        lo[c] = fminf(lo[c], sh.wbox[w][c]);
+        hi[c] = fmaxf(hi[c], sh.wbox[w][3 + c]);
+      }
+    }
+    for (int x = tid; x < g.ng; x += kThreads) {
+      bd[x] = box_d2(lo, hi, gbox + 6 * x);
+      fixed[x] = always[x] != 0 || (kSigned && sweep_meets(lo, hi, gbox + 6 * x, rslack[x], g));
+    }
   }
+  // Rank by (bd, index), never NaN, against tiles of bd staged in the ring
+  // (no group is staged yet).
+  constexpr int kTile = kRing * kGroupFloats;
+  for (int x0 = 0; x0 < g.ng; x0 += kThreads) {
+    const int x = x0 + tid;
+    const float d = x < g.ng ? bd[x] : 0.f;
+    int rank = 0;
+    for (int t0 = 0; t0 < g.ng; t0 += kTile) {
+      const int n = min(kTile, g.ng - t0);
+      __syncthreads();
+      for (int y = tid; y < n; y += kThreads) ring[y] = bd[t0 + y];
+      __syncthreads();
+      for (int h = 0; h < n; ++h) rank += ring[h] < d || (ring[h] == d && t0 + h < x);
+    }
+    if (x < g.ng) order[rank] = x;
+  }
+  __syncthreads();
+
+  // Thread 0 stages the next group the block may need into `slot`, or marks
+  // the end there.
+  auto stage = [&](int slot) {
+    const volatile float* thr_of = sh.thr;
+    while (sh.cursor < g.ng) {
+      const int grp = order[sh.cursor++];
+      bool want = fixed[grp] != 0;
+      const float d = sqrtf(bd[grp]);
+      for (int w = 0; w < kWarps && !want; ++w) want = !(d > thr_of[w]);
+      if (want) {
+        const unsigned bytes = unsigned(min(kGroup, g.nt - grp * kGroup) * kGridRow * 4);
+        sh.slot[slot] = grp;
+        mbar_arrive_tx(&sh.full[slot], bytes);
+        bulk_copy(ring + slot * kGroupFloats, g.tab + size_t(grp) * kGroupFloats, bytes,
+                  &sh.full[slot]);
+        return;
+      }
+    }
+    sh.slot[slot] = -1;
+    sh.done = 1;
+    mbar_arrive(&sh.full[slot]);
+  };
+  if (tid == 0) {
+    // The rank tiles' generic accesses to the ring come before the copies'.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int s = 0; s < kRing && !sh.done; ++s) stage(s);
+  }
+
+  float m = f32_inf();
+  unsigned odd = 0u;
+  for (int step = 0;; ++step) {
+    const int slot = step % kRing;
+    const unsigned parity = unsigned(step / kRing) & 1u;
+    mbar_wait(&sh.full[slot], parity);
+    const int grp = sh.slot[slot];
+    if (grp < 0) break;
+    if (live) {
+      const float* gb = gbox + 6 * grp;
+      const float wlo[3] = {sh.wbox[warp][0], sh.wbox[warp][1], sh.wbox[warp][2]};
+      const float whi[3] = {sh.wbox[warp][3], sh.wbox[warp][4], sh.wbox[warp][5]};
+      const bool forced = always[grp] != 0;
+      const bool keep_d = forced || !(sqrtf(box_d2(wlo, whi, gb)) > sh.thr[warp]);
+      const bool keep_r = kSigned && (forced || sweep_meets(wlo, whi, gb, rslack[grp], g));
+      if (keep_d || keep_r) {
+        const float4* rows = reinterpret_cast<const float4*>(ring + slot * kGroupFloats);
+        const int n = min(kGroup, g.nt - grp * kGroup);
+        for (int t = 0; t < n; ++t) {  // a row is six 16-byte broadcasts
+          const float4* row = rows + t * (kGridRow / 4);
+          const float4 r0 = row[0], r1 = row[1], r2 = row[2], r3 = row[3], r4 = row[4];
+          const Tri T{r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x,
+                      r2.y, r2.z, r2.w, r3.x, r3.y, r3.z, r3.w, r4.x, r4.y};
+          if (keep_d) m = min_nan(point_tri_d2(px, py, pz, T), m);
+          if (keep_r) {
+            const float4 r5 = row[5];
+            const float4 ray = make_float4(r4.z, r4.w, r5.x, r5.y);  // pvec, inv_det
+            odd ^= unsigned(ray_crosses(px - T.ax, py - T.ay, pz - T.az, T, ray, r5.z, g));
+          }
+        }
+        if (keep_d) {  // M over the warp's nodes, a NaN node left out
+          const unsigned big = __reduce_max_sync(kAll, m != m ? 0u : __float_as_uint(m));
+          if (lane == 0) sh.thr[warp] = sqrtf(__uint_as_float(big)) + g.slack;
+        }
+      }
+      if (lane == 0) {
+        sh.count[warp][0] += keep_d;
+        sh.count[warp][1] += keep_r;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sh.empty[slot]);
+    if (tid == 0 && !sh.done) {
+      mbar_wait(&sh.empty[slot], parity);  // every warp is done with the slot
+      stage(slot);
+    }
+    __syncwarp();
+  }
+  if (g.counts != nullptr && live && lane == 0) {
+    atomicAdd(g.counts, sh.count[warp][0]);
+    if (kSigned) atomicAdd(g.counts + 1, sh.count[warp][1]);
+  }
+  const int64_t dst = sh.dst[tid];
+  if (dst >= 0)  // the sign by its bit: -d of the twin, NaN and 0 included
+    g.out[dst] = __int_as_float(__float_as_int(sqrtf(m)) ^ int(odd << 31));
+}
+
+// The dynamic shared memory of a block on `ng` groups: the ring, and where
+// the groups' arrays live there (not in scratch), their boxes, ray slacks,
+// distances and order and two flags a group.
+size_t grid_smem(int ng, bool local) {
+  const size_t ring = size_t(kRing) * kGroupFloats * 4;
+  return local ? (ring + size_t(ng) * (24 + 4 + 4 + 4 + 2) + 15) / 16 * 16 : ring;
 }
 
 // Threads per pair for blocks of `block` vertices: the least power of two
@@ -773,34 +1101,72 @@ int rc_clearance_pair_min(const float* rows, const int32_t* ids, int64_t k,
   return int(cudaGetLastError());
 }
 
+// K4's scratch for a lattice nx x ny x nz over `ng` groups: 0 where a
+// block holds the groups' arrays in shared memory; else the bytes that
+// give one block's arrays to each of the blocks the card holds at once
+// (SMs x kGridMinBlocks), or to every brick if there are fewer. A negative
+// cudaError_t on failure.
+int64_t rc_sdf_grid_scratch_bytes(int nx, int ny, int nz, int ng) {
+  int sms = 0, optin = 0;
+  const int err = device_limits(&sms, &optin);
+  if (err != 0) return -int64_t(err);
+  if (nx <= 0 || ny <= 0 || nz <= 0 || ng <= 0) return -int64_t(cudaErrorInvalidValue);
+  if (grid_smem(ng, true) <= size_t(optin)) return 0;
+  const int64_t bricks = int64_t((nx + kBx - 1) / kBx) * ((ny + kBy - 1) / kBy) *
+                         ((nz + kBz - 1) / kBz);
+  const int64_t resident = int64_t(sms) * kGridMinBlocks;
+  return int64_t(grid_block_scratch(ng)) * (bricks < resident ? bricks : resident);
+}
+
 // K4 on `stream`: the grid over the axes ax [nx], ay [ny], az [nz] against
-// the grid table gtab [nt, 24] (16-byte aligned), signed by the parity of
-// the ray along (dx, dy, dz) where `signed_`; out [nx * ny * nz]. Returns
-// the cudaError_t of the launch (0 = launched).
+// the grid table gtab [nt, 24] (16-byte aligned) and its groups' boxes
+// gbox [ng, 6], flags always [ng] and ray slacks rslack [ng] (ng =
+// ceil(nt / 32)), culled with `slack`, signed by the parity of the ray
+// along (dx, dy, dz) where `signed_`; out [nx * ny * nz]; the kept scans
+// added to counts [2] unless it is null. With `scratch` null a block keeps
+// the groups' arrays in shared memory (refused where they do not fit; see
+// `rc_sdf_grid_scratch_bytes`) and one launch covers the lattice; with
+// `scratch_bytes` of scratch, they live there and each launch takes as
+// many blocks as it holds, one after another on `stream`. Returns the
+// cudaError_t of the launches (0 = launched).
 int rc_sdf_grid(const float* ax, const float* ay, const float* az, int nx, int ny, int nz,
-                const float* gtab, int nt, int signed_, float dx, float dy, float dz,
-                float* out, void* stream) {
-  if (nx <= 0 || ny <= 0 || nz <= 0 || nt <= 0 ||
+                const float* gtab, int nt, const float* gbox, const uint8_t* always,
+                const float* rslack, int ng, float slack, int signed_, float dx, float dy,
+                float dz, float* out, int32_t* counts, void* scratch, int64_t scratch_bytes,
+                void* stream) {
+  if (nx <= 0 || ny <= 0 || nz <= 0 || nt <= 0 || gbox == nullptr || always == nullptr ||
+      rslack == nullptr || ng != (nt + kGroup - 1) / kGroup ||
       (reinterpret_cast<uintptr_t>(gtab) & 15) != 0)
     return int(cudaErrorInvalidValue);
-  const int64_t n_nodes = int64_t(nx) * ny * nz, per_block = int64_t(kThreads) * kGridNodes;
-  const int64_t blocks = (n_nodes + per_block - 1) / per_block;
-  if (blocks > (int64_t(1) << 31) - 1) return int(cudaErrorInvalidValue);
-  const GridArgs g{ax, ay, az, nx, ny, nz, gtab, nt, signed_, dx, dy, dz, out};
-  const size_t smem = size_t(nt < kGridTile ? nt : kGridTile) * kGridRow * 4;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = signed_ ? cudaFuncSetAttribute(grid_kernel<true>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   int(smem))
-                            : cudaFuncSetAttribute(grid_kernel<false>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   int(smem));
+  const int nbx = (nx + kBx - 1) / kBx, nby = (ny + kBy - 1) / kBy, nbz = (nz + kBz - 1) / kBz;
+  const int64_t bricks = int64_t(nbx) * nby * nbz;
+  const bool local = scratch == nullptr;
+  const int64_t per_launch = local ? bricks : scratch_bytes / int64_t(grid_block_scratch(ng));
+  if (per_launch < 1 || bricks > (int64_t(1) << 31) - 1) return int(cudaErrorInvalidValue);
+  int sms = 0, optin = 0;
+  cudaError_t err = cudaError_t(device_limits(&sms, &optin));
   if (err != cudaSuccess) return int(err);
-  if (signed_)
-    grid_kernel<true><<<unsigned(blocks), kThreads, smem, st>>>(g);
-  else
-    grid_kernel<false><<<unsigned(blocks), kThreads, smem, st>>>(g);
-  return int(cudaGetLastError());
+  const size_t smem = grid_smem(ng, local);
+  if (smem > size_t(optin)) return int(cudaErrorInvalidValue);  // too many groups to hold
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = signed_ ? cudaFuncSetAttribute(grid_kernel<true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))
+                : cudaFuncSetAttribute(grid_kernel<false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  GridArgs g{ax, ay, az, nx, ny, nz, gtab, nt, signed_, dx, dy, dz, out,
+             gbox, always, rslack, ng, slack, 1.f / dx, 1.f / dy, 1.f / dz, counts,
+             static_cast<uint8_t*>(scratch), nbx, nby, nbz, 0};
+  for (; g.first < bricks; g.first += per_launch) {
+    const int64_t rest = bricks - g.first;
+    const unsigned blocks = unsigned(rest < per_launch ? rest : per_launch);
+    if (signed_)
+      grid_kernel<true><<<blocks, kThreads, smem, st>>>(g);
+    else
+      grid_kernel<false><<<blocks, kThreads, smem, st>>>(g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  }
+  return 0;
 }
 
 // The dynamic shared memory of a scanning block (nocull, or culled pass 2)

@@ -124,10 +124,13 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
               [ptr, ptr, i64, ptr, i32, i32, ptr, i32, ptr, ptr, i32, i32, ctypes.c_float,
                ptr, ptr, ptr, ptr, ptr])
         _bind(lib.rc_clearance_smem_bytes, i64, [i32])
-        # ax, ay, az, nx, ny, nz, gtab, nt, signed_, dx, dy, dz, out, stream
+        # ax, ay, az, nx, ny, nz, gtab, nt, gbox, always, rslack, ng, slack,
+        # signed_, dx, dy, dz, out, counts, scratch, scratch_bytes, stream
         f32 = ctypes.c_float
         _bind(lib.rc_sdf_grid, i32,
-              [ptr, ptr, ptr, i32, i32, i32, ptr, i32, i32, f32, f32, f32, ptr, ptr])
+              [ptr, ptr, ptr, i32, i32, i32, ptr, i32, ptr, ptr, ptr, i32, f32, i32, f32, f32,
+               f32, ptr, ptr, ptr, i64, ptr])
+        _bind(lib.rc_sdf_grid_scratch_bytes, i64, [i32, i32, i32, i32])
         _bind(lib.rc_clearance_error_string, ctypes.c_char_p, [i32])
     elif name == "front":
         # confs, n, out, stream; poses, n, verts, nv, padded, obs_box,

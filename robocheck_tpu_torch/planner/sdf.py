@@ -15,7 +15,7 @@ import torch
 
 from ..core.types import Mesh
 from ..kernels.clearance import point_tri_d2
-from ..kernels.sdf import grid_table, grid_values
+from ..kernels.sdf import grid_cull, grid_order, grid_table, grid_values
 from ..runtime.device import resolve as resolve_device
 
 
@@ -82,16 +82,29 @@ def build_distance_grid(obstacle: Mesh, resolution: int = 64, padding: float = 0
     negates the distances of nodes inside by the parity of crossings along
     `kernels.sdf.RAY_DIR`: with an unsigned field the interior of a solid
     looks far from the surface and becomes a false haven for an optimizer.
-    The per-triangle terms are formed once (`kernels.sdf.grid_table`); every
-    node against every triangle is one K4 launch on a CUDA device and the
-    twin `grid_values_reference` on the CPU."""
+    The grid is one K4 launch on a CUDA device over ``grid_inputs``, which
+    skips the triangle groups that cannot move a node, and the full twin
+    `grid_values_reference` on the CPU: the same bits."""
+    g = grid_inputs(obstacle, resolution, padding, device)
+    dev = g["table"].device
+    return DistanceGrid(values=grid_values(g["axes"], g["table"], g["cull"], signed),
+                        origin=torch.as_tensor(g["origin"].astype(np.float32)).to(dev),
+                        spacing=torch.as_tensor(g["spacing"].astype(np.float32)).to(dev))
+
+
+def grid_inputs(obstacle: Mesh, resolution: int = 64, padding: float = 0.25,
+                device="cuda") -> dict:
+    """What K4 reads for ``obstacle``'s grid, formed once on the host and
+    moved to ``device``: the lattice's "axes" (``grid_axes``), the triangles'
+    grid "table" in their Morton order and its "cull" (`kernels.sdf.
+    grid_order`, `grid_table`, `grid_cull`), with the lattice's "origin"
+    and "spacing" (float64)."""
     dev = resolve_device(device)
     axes, lo, spacing = grid_axes(obstacle, resolution, padding)
-    tri = obstacle.triangle_vertices.astype(np.float32).reshape(-1, 9)
-    table = grid_table(torch.as_tensor(tri).to(dev))
-    return DistanceGrid(values=grid_values([a.to(dev) for a in axes], table, signed),
-                        origin=torch.as_tensor(lo.astype(np.float32)).to(dev),
-                        spacing=torch.as_tensor(spacing.astype(np.float32)).to(dev))
+    tri = torch.as_tensor(obstacle.triangle_vertices.astype(np.float32).reshape(-1, 9))
+    table = grid_table(grid_order(tri).to(dev))
+    return {"axes": [a.to(dev) for a in axes], "table": table, "cull": grid_cull(axes, table),
+            "origin": lo, "spacing": spacing}
 
 
 def grid_axes(obstacle: Mesh, resolution: int = 64, padding: float = 0.25):

@@ -1,7 +1,7 @@
 """The least time an H100 could take for a kernel's work (its bound): the
 fused check's, the clearance scan's, the check front end's (the pose rows,
 K2, and the robot box, K5, by its vertex bound and its corner bound) and the
-distance grid's (K4).
+distance grid's (K4, by its culled-work and its full-scan bound).
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate, and
@@ -204,28 +204,36 @@ def clearance_work(k: int, block: int, nt: int, blocks_read: int, regions,
     return float(n_bytes), float(n_ops)
 
 
-def grid_work(nodes: int, tris: int, signed: bool, regions=None,
-              ray=None) -> tuple[float, float]:
+def grid_work(nodes: int, tris: int, signed: bool, regions=None, ray=None,
+              ray_pairs: int | None = None, groups: int = 0) -> tuple[float, float]:
     """(bytes, operations) of K4 over ``nodes`` grid nodes against ``tris``
     obstacle triangles, with the ray test where ``signed``.
 
-    Bytes: the triangles' corners (36 B each) and the grid (4 B a node); the
+    Bytes: the triangles' corners (36 B each), the grid (4 B a node) and,
+    culled, the ``groups``' boxes, ray slacks and flags (29 B each); the
     lattice's axes (12 B per node along one axis) are left out, which only
     lowers the bound. Operations, per node-triangle pair: its distance by
-    the region it ends in, REGION_OPS (from ``regions``,
-    `kernels/sdf.grid_work_counts`' [len(REGION_OPS)] counts of the same
-    inputs; without it every pair is charged the least region's, vertex a:
-    21); signed, RAY_FLAT_OPS and RAY_STAGE_OPS[s] for each pair that reaches
-    stage s of the ray test (from ``ray``, `grid_work_counts`' [3] counts;
-    without it every pair is charged the first stage only: 1 + 7). Per
-    node: the sqrt (1) and, signed, the sign (1)."""
+    the region it ends in, REGION_OPS (from ``regions``, `kernels/sdf.grid_work_counts`'
+    [len(REGION_OPS)] counts of the same inputs; without it every pair is
+    charged the least region's, vertex a: 21); signed, RAY_FLAT_OPS for each
+    of the ``ray_pairs`` pairs that take the ray test (every pair unless
+    given) and RAY_STAGE_OPS[s] for each pair that reaches stage s (from
+    ``ray``, `grid_work_counts`' [3] counts; without it every such pair is
+    charged the first stage only: 1 + 7). Per node: the sqrt (1) and,
+    signed, the sign (1).
+
+    The full-scan bound counts every pair; the culled-work bound, the least
+    work, the pairs of a `kernels/sdf.grid_cull_plan` (its counts, its
+    ``ray_pairs`` and ``groups``). The cull's own tests and the ray-only
+    pairs' p - a are left out of it, which only lowers it."""
     pairs = nodes * tris
+    tested = pairs if ray_pairs is None else ray_pairs
     if regions is None:
         n_ops = pairs * min(REGION_OPS)
     else:
         n_ops = int((np.asarray(regions, dtype=np.int64) * np.asarray(REGION_OPS)).sum())
     if signed:
-        stages = np.asarray([pairs, 0, 0] if ray is None else ray, dtype=np.int64)
-        n_ops += pairs * RAY_FLAT_OPS + int((stages * np.asarray(RAY_STAGE_OPS)).sum())
+        stages = np.asarray([tested, 0, 0] if ray is None else ray, dtype=np.int64)
+        n_ops += tested * RAY_FLAT_OPS + int((stages * np.asarray(RAY_STAGE_OPS)).sum())
     n_ops += nodes * (1 + signed)
-    return float(tris * 36 + nodes * 4), float(n_ops)
+    return float(tris * 36 + nodes * 4 + groups * 29), float(n_ops)

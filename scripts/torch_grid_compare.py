@@ -1,21 +1,36 @@
 #!/usr/bin/env python3
-"""K4's geometry on one CUDA card: copies of `csrc/clearance.cu` at other
-nodes per thread and triangles per shared-memory tile, timed against the
-package's build on the alpha obstacle's grids.
+"""K4's design on one CUDA card: the culled kernel the package builds against
+the full scan before the cull (an older copy of `csrc/clearance.cu`) and
+against copies of the package's source at other brick shapes, ring depths
+and resident blocks, all timed in turns in one process.
 
-    python3 scripts/torch_grid_compare.py [--variants 1,1024 2,1024 4,1024 2,512 2,2048]
-                                          [--res 64 96] [--reps 10]
+    mkdir -p build/grid_old
+    git show 548e05c:robocheck_tpu_torch/csrc/clearance.cu > build/grid_old/clearance.cu
+    python3 scripts/torch_grid_compare.py [--old build/grid_old/clearance.cu]
+                                          [--variants 8,8,4/2,4,4/2 ...]
+                                          [--res 64 96] [--res16 32 64] [--res256 32]
+                                          [--reps 10]
 
-A variant N,T defines `RC_GRID_NODES` (nodes a thread holds) and
-`RC_GRID_TILE` (triangles staged at once) before the source; every copy is
-built with the package's nvcc flags into `build/grid_variants/`, all at once
-(`kernels/_build.build_copies`). For each variant, and for the package's
-build first and last (the drift between the two), it prints one JSON line:
-the ptxas registers and spill lines of both `grid_kernel` instances, whether
-its grids equal the package's as float32 bits on every resolution (they
-must: the variants reorder no arithmetic), and K4's device ms by trace
-(`timers.kernel_ms`) at each ``--res`` on the alpha obstacle, signed and
-unsigned, with the card's name and power limit. Imports neither JAX nor the
+``--old`` is a copy of clearance.cu whose `rc_sdf_grid` has the full
+scan's C interface (ax, ay, az, nx, ny, nz, gtab, nt, signed_, dx, dy, dz,
+out, stream): every node against every triangle, one node a thread over
+256-triangle tiles. A variant is "BX,BY,BZ/WX,WY,WZ/RING[/MIN]": the culled
+kernel with a block brick of BX x BY x BZ nodes, warp bricks of WX x WY x
+WZ, RING shared-memory slots and MIN blocks an SM in its launch bounds
+(`RC_GRID_BX` ... `RC_GRID_MIN_BLOCKS`, defined before the source). Every
+copy is built with the package's nvcc flags into `build/grid_variants/`,
+all at once (`kernels/_build.build_copies`). The runs go old, shipped, the
+rest of the variants, shipped, old: the shipped build and the old one are
+each timed twice, first and last, so that the drift shows. For each run it
+prints one JSON line: the ptxas register and spill lines of both
+`grid_kernel` instances, whether its grids equal the package's as float32
+bits (they must: no build reorders arithmetic), its kept (warp, group)
+distance and ray scans (the culled builds'), and K4's device ms by CUDA
+events (a launch takes ms) on the alpha obstacle at each ``--res``, on its
+16x subdivision (`planner/ccd.subdivide_mesh(obstacle, 2)`, 16,128
+triangles) at each ``--res16`` and on its 256x one (258,048 triangles,
+whose groups a block's shared memory does not hold) at each ``--res256``,
+signed, with the card's name and power limit. Imports neither JAX nor the
 JAX package.
 """
 import argparse
@@ -34,46 +49,83 @@ from robocheck_tpu_torch import load_obj  # noqa: E402
 from robocheck_tpu_torch.io import assets  # noqa: E402
 from robocheck_tpu_torch.kernels import _build  # noqa: E402
 from robocheck_tpu_torch.kernels import sdf as ks  # noqa: E402
-from robocheck_tpu_torch.planner.sdf import grid_axes  # noqa: E402
-from robocheck_tpu_torch.profiling.timers import card_line, kernel_ms  # noqa: E402
+from robocheck_tpu_torch.planner.ccd import subdivide_mesh  # noqa: E402
+from robocheck_tpu_torch.planner.sdf import grid_inputs  # noqa: E402
+from robocheck_tpu_torch.profiling.timers import card_line, event_ms  # noqa: E402
 
 SHIPPED = "shipped"
-VARIANTS = ["1,1024", "2,1024", "4,1024", "2,512", "2,2048"]
+OLD = "old"
+VARIANTS = ["8,8,4/2,4,4/4", "4,8,8/2,4,4/4", "16,4,4/2,4,4/4", "4,4,16/2,4,4/4",
+            "8,4,8/4,2,4/4", "8,4,8/2,4,4/2", "8,4,8/2,4,4/3", "8,4,8/2,4,4/8", "8,4,8/2,4,4/4/4"]
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 
-def variant_libraries(specs: list[str]) -> dict[str, tuple[ctypes.CDLL, str]]:
+def variant_defines(spec: str) -> str:
+    """The macros a variant defines before the source."""
+    parts = spec.split("/")
+    block, warp = ([int(x) for x in p.split(",")] for p in parts[:2])
+    ring, minb = int(parts[2]), int(parts[3]) if len(parts) > 3 else None
+    if (len(block) != 3 or len(warp) != 3 or np.prod(block) != 256 or np.prod(warp) != 32
+            or any(b % w for b, w in zip(block, warp)) or not 2 <= ring <= 8):
+        raise ValueError(f"variant {spec}: need a 256-node block brick tiled by 32-node warp "
+                         "bricks and a ring of 2-8 slots")
+    names = ("BX", "BY", "BZ", "WX", "WY", "WZ", "RING") + (("MIN_BLOCKS",) if minb else ())
+    values = (*block, *warp, ring) + ((minb,) if minb else ())
+    return "".join(f"#define RC_GRID_{n} {v}\n" for n, v in zip(names, values))
+
+
+def variant_libraries(specs: list[str], old: Path | None) -> dict[str, tuple[ctypes.CDLL, str]]:
     """{spec: (library, nvcc log)}: copies of clearance.cu with the
-    variant's geometry defined first, compiled at once, K4's entry bound."""
+    variant's macros defined first, and ``old`` as it is, compiled at once,
+    K4's entries bound (the old one with the full scan's signature)."""
     out_dir = REPO / "build" / "grid_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     text = _build.SOURCES["clearance"].read_text()
     sources = {}
     for spec in specs:
-        nodes, tile = (int(x) for x in spec.split(","))
-        if not (1 <= nodes <= 8 and 1 <= tile and tile * ks.ROW * 4 <= 227 * 1024):
-            raise ValueError(f"variant {spec}: need 1-8 nodes and a tile within 227 KB")
-        sources[spec] = out_dir / f"clearance_n{nodes}_t{tile}.cu"
-        sources[spec].write_text(f"#define RC_GRID_NODES {nodes}\n#define RC_GRID_TILE {tile}\n"
-                                 + text)
+        name = "clearance_" + "".join(c if c.isalnum() else "_" for c in spec)
+        sources[spec] = out_dir / f"{name}.cu"
+        sources[spec].write_text(variant_defines(spec) + text)
+    if old is not None:
+        sources[OLD] = out_dir / "clearance_old.cu"
+        sources[OLD].write_text(old.read_text())
     _build.build_copies(sources.values())
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs = {}
     for spec, src in sources.items():
         path = _build.copy_path(src.resolve())
         lib = ctypes.CDLL(str(path))
-        lib.rc_sdf_grid.restype = i32
-        lib.rc_sdf_grid.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, i32, i32, f32, f32, f32,
-                                    ptr, ptr]
+        lib.rc_sdf_grid.restype = _I32
+        if spec == OLD:
+            lib.rc_sdf_grid.argtypes = [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _I32,
+                                        _F32, _F32, _F32, _PTR, _PTR]
+        else:
+            lib.rc_sdf_grid.argtypes = [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR, _I32, _PTR,
+                                        _PTR, _PTR, _I32, _F32, _I32, _F32, _F32, _F32, _PTR,
+                                        _PTR, _PTR, _I64, _PTR]
+            lib.rc_sdf_grid_scratch_bytes.restype = _I64
+            lib.rc_sdf_grid_scratch_bytes.argtypes = [_I32, _I32, _I32, _I32]
         libs[spec] = lib, path.with_suffix(".log").read_text()
     return libs
 
 
-def launch(lib, axes, table, signed: bool) -> torch.Tensor:
-    """One launch of a copy's K4 (the package's wrapper's checks aside)."""
+def launch(lib, old: bool, axes, table, cull, counts=None) -> torch.Tensor:
+    """One signed launch of a copy's K4 (the package's wrapper's checks
+    aside)."""
     out = torch.empty(tuple(a.shape[0] for a in axes), dtype=torch.float32, device=table.device)
-    err = lib.rc_sdf_grid(*(a.data_ptr() for a in axes), *out.shape, table.data_ptr(),
-                          table.shape[0], int(signed), *(float(x) for x in ks.RAY_DIR),
-                          out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    ray = (float(x) for x in ks.RAY_DIR)
+    if old:
+        err = lib.rc_sdf_grid(*(a.data_ptr() for a in axes), *out.shape, table.data_ptr(),
+                              table.shape[0], 1, *ray, out.data_ptr(), stream)
+    else:
+        ng = cull.boxes.shape[0]
+        need = lib.rc_sdf_grid_scratch_bytes(*out.shape, ng)
+        scratch = torch.empty(max(need, 0), dtype=torch.uint8, device=table.device)
+        err = lib.rc_sdf_grid(*(a.data_ptr() for a in axes), *out.shape, table.data_ptr(),
+                              table.shape[0], cull.boxes.data_ptr(), cull.always.data_ptr(),
+                              cull.ray_slack.data_ptr(), ng, float(cull.slack), 1, *ray,
+                              out.data_ptr(), None if counts is None else counts.data_ptr(),
+                              scratch.data_ptr() if need > 0 else None, need, stream)
     if err:
         raise RuntimeError(f"rc_sdf_grid of a copy failed: cudaError {err}")
     return out
@@ -93,8 +145,13 @@ def grid_ptxas(log: str) -> list[str]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", nargs="+", default=VARIANTS, help="nodes,tile per variant")
-    ap.add_argument("--res", type=int, nargs="+", default=[64, 96])
+    ap.add_argument("--old", type=Path, default=None,
+                    help="a clearance.cu whose rc_sdf_grid is the full scan")
+    ap.add_argument("--variants", nargs="*", default=VARIANTS,
+                    help="BX,BY,BZ/WX,WY,WZ/RING[/MIN] per variant")
+    ap.add_argument("--res", type=int, nargs="*", default=[64, 96])
+    ap.add_argument("--res16", type=int, nargs="*", default=[32, 64])
+    ap.add_argument("--res256", type=int, nargs="*", default=[32])
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -102,28 +159,36 @@ def main() -> int:
     card = card_line()
     device = torch.device("cuda", 0)
     shipped_log = _build.build()["clearance"][1]
-    libs = {SHIPPED: (None, shipped_log), **variant_libraries(list(dict.fromkeys(args.variants)))}
+    specs = list(dict.fromkeys(args.variants))
+    libs = {SHIPPED: (None, shipped_log), **variant_libraries(specs, args.old)}
     obstacle = load_obj(assets.alpha_obstacle_path())
-    tris = torch.from_numpy(obstacle.triangle_vertices.astype(np.float32).reshape(-1, 9))
-    table = ks.grid_table(tris.to(device))
-    grids = {res: [a.to(device) for a in grid_axes(obstacle, res)[0]] for res in args.res}
-    want = {(res, signed): ks.sdf_grid_cuda(axes, table, signed)
-            for res, axes in grids.items() for signed in (True, False)}
+    scenes = {**{f"alpha {r}^3": grid_inputs(obstacle, r, device=device) for r in args.res},
+              **{f"16x {r}^3": grid_inputs(subdivide_mesh(obstacle, 2), r, device=device)
+                 for r in args.res16},
+              **{f"256x {r}^3": grid_inputs(subdivide_mesh(obstacle, 4), r, device=device)
+                 for r in args.res256}}
+    want = {name: ks.sdf_grid_cuda(s["axes"], s["table"], s["cull"])
+            for name, s in scenes.items()}
+    ends = [OLD] if args.old is not None else []
     ok = True
-    for spec in [SHIPPED, *(k for k in libs if k != SHIPPED), SHIPPED]:
+    for spec in [*ends, SHIPPED, *specs, SHIPPED, *ends]:
         lib, log = libs[spec]
 
-        def run(axes, signed, lib=lib):
-            return (ks.sdf_grid_cuda(axes, table, signed) if lib is None
-                    else launch(lib, axes, table, signed))
+        def run(s, counts=None, lib=lib, spec=spec):
+            if lib is None:
+                return ks.sdf_grid_cuda(s["axes"], s["table"], s["cull"], counts=counts)
+            return launch(lib, spec == OLD, s["axes"], s["table"], s["cull"], counts)
 
-        same = all(torch.equal(run(grids[res], signed).view(torch.int32),
-                               w.view(torch.int32)) for (res, signed), w in want.items())
-        ms = {f"{res}^3 {'signed' if signed else 'unsigned'}":
-              kernel_ms(lambda a=grids[res], s=signed: run(a, s), args.reps)
-              for res in args.res for signed in (True, False)}
+        same, kept, ms = True, {}, {}
+        for name, s in scenes.items():
+            counts = torch.zeros(2, dtype=torch.int32, device=device)
+            got = run(s, counts)
+            same = same and torch.equal(got.view(torch.int32), want[name].view(torch.int32))
+            kept[name] = counts.tolist() if spec != OLD else None
+            ms[name] = event_ms(lambda s=s: run(s), args.reps)
         print(json.dumps({"variant": spec, "bit_equal_to_shipped": same, "kernel_ms": ms,
-                          "ptxas": grid_ptxas(log), "card": card}), flush=True)
+                          "kept_scans": kept, "ptxas": grid_ptxas(log), "card": card}),
+              flush=True)
         ok = ok and same
     return 0 if ok else 1
 
