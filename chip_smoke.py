@@ -56,7 +56,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      0), each launched once with the launch counters set to 0 just before,
      then timed by its device duration from a trace (`timers.kernel_ms`, the
      kernel table's figure) and by CUDA events around back-to-back calls,
-     with its plain version by CUDA events;
+     with its plain version by CUDA events; each P1 and P2 piece's launch
+     shape (block, shared memory, blocks per SM, grid, registers, local
+     bytes) beside K1's packed instance on the same tables, its shared-memory
+     map as built equal to `probes.probe_map`'s, P1 and P2's scratch pieces
+     at K1's shared memory and blocks per SM, 0 spill bytes in every probe
+     instance; K1 and P1 level 2 on 16,384 rows at x = 1e9 (every K1 row a
+     broad-phase miss) by trace;
   7. the oversized-mesh path: `smem_bytes` against the compiled layout's
      `rc_megakernel_smem_bytes` on 8 shapes (the chunk caps among them) and
      the card's opt-in shared memory per block against `SMEM_LIMIT`; then
@@ -1979,6 +1985,59 @@ def phase2_native(native, hard10k) -> None:
             "differs from io.conf")
 
 
+def ptxas_info(log: str, entry: str) -> dict:
+    """Registers and spill bytes of the kernel instance whose mangled name
+    contains ``entry``, from an nvcc -Xptxas -v log."""
+    info, compiling, props = {}, "", ""
+    for line in log.splitlines():
+        parts = line.replace(",", "").split()
+        if "Compiling entry function" in line:
+            compiling = line
+        elif "Function properties for" in line:
+            props = line
+        elif "spill stores" in line and entry in props:
+            info["spill_bytes"] = (int(parts[parts.index("stores") - 3])
+                                   + int(parts[parts.index("loads") - 3]))
+        elif "registers" in line and entry in compiling:
+            info["registers"] = int(parts[parts.index("registers") - 1])
+    return info
+
+
+def phase6_shapes(pieces, lib, built, card: str) -> None:
+    """Phase 6: every P1 and P2 piece's launch shape beside K1's packed
+    instance on the same tables; its shared-memory map against the CPU
+    replay; P1 and P2's scratch pieces at K1's shared memory and blocks per
+    SM; 0 spill bytes in every probe instance."""
+    from robocheck_tpu_torch.profiling import probes
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k1_ptx = ptxas_info(built["megakernel"][1], "megakernelILb0ELi0E")
+    spills = [ln.strip() for ln in built["stage_probes"][1].splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    print(f"  ptxas, every probe instance: {spills or '0 bytes spill stores and loads'}; "
+          f"K1 <false,kFull>: {k1_ptx}")
+    require(not spills, f"a probe instance spills registers: {spills}")
+    for st in (1, 2):
+        for piece in pieces[st]:
+            lay = probes.piece_layout(piece)
+            tr, n_groups = lay["tr"], lay["n_groups"]
+            per_sm = lib.rc_megakernel_blocks_per_sm(tr, n_groups)
+            k1 = {"block": 512, "smem": lib.rc_megakernel_smem_bytes(tr, n_groups),
+                  "blocks_per_sm": per_sm, "grid": min(-(-piece.n // 4), per_sm * sms),
+                  "registers": k1_ptx.get("registers"), "spill_bytes": k1_ptx.get("spill_bytes")}
+            shape = probes.launch_shape(piece)
+            print(f"  [{card}] {piece.name} [{piece.n}]: {shape}; K1 on its tables "
+                  f"({tr}, {n_groups} groups): {k1}")
+            require(shape["local_bytes"] == 0, f"{piece.name}: {shape['local_bytes']} local bytes")
+            regions = [(first, size) for _, first, size in probes.probe_map(piece.probe, **lay)]
+            require(probes.compiled_map(piece) == regions,
+                    f"{piece.name}: the built shared-memory map differs from probes.probe_map")
+            if st == 1 or lay["scratch"]:
+                require(shape["smem"] == k1["smem"] and shape["blocks_per_sm"] == per_sm,
+                        f"{piece.name}: shared memory / blocks per SM {shape['smem']} / "
+                        f"{shape['blocks_per_sm']}, K1's {k1['smem']} / {per_sm}")
+
+
 def main() -> None:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
@@ -2237,7 +2296,8 @@ def main() -> None:
     mk.check_poses_stage_cuda.launches = dict.fromkeys(mk.STAGES, 0)
     probes.reset_launches()
     stage_out = {s: mk.check_poses_stage_cuda(hard_poses, tables, s) for s in mk.STAGES}
-    pieces = {st: probes.stage_pieces(st, device, tables.rob_base) for st in (1, 2, 3)}
+    pieces = {st: probes.stage_pieces(st, device, tables.rob_base,
+                                      n_groups=tables.obs_groups.shape[0]) for st in (1, 2, 3)}
     piece_out = {p.name: p.kernel() for st in pieces for p in pieces[st]}
     torch.cuda.synchronize()
     stage_launches = dict(mk.check_poses_stage_cuda.launches)
@@ -2247,6 +2307,16 @@ def main() -> None:
     print(f"  launches: stage variants {stage_launches}; probes P1 "
           f"{probes.pose_probe_cuda.launches}, P2 {probe_launches[2]}, P3 "
           f"{probes.invariant_probe_cuda.launches}")
+    phase6_shapes(pieces, lib, built, card)
+    # P1 level 2 does what a K1 row that misses in the broad phase does.
+    far = np.zeros((probes.PROBE_BATCH, 6), np.float32)
+    far[:, 0] = 1.0e9
+    far_poses = mk.poses_from_confs(torch.from_numpy(far).to(device))
+    k1_far = timers.kernel_ms(lambda: mk.check_poses_cuda(far_poses, tables), 20)
+    p1_far = timers.kernel_ms(lambda: probes.pose_probe_cuda(
+        far_poses, tables.rob_base, 2, tables.obs_groups.shape[0]), 20)
+    print(f"  [{card}] {probes.PROBE_BATCH} rows at x = 1e9 (all broad-phase misses), device "
+          f"ms by trace: K1 {k1_far}, P1 mini_level2 {p1_far}")
     # Bounds of this run's work on hard10k: the packed and counter kernels
     # from the counter kernel's rows (what their any-hit exit needed), the
     # stage variants (no exit) from the twin's.

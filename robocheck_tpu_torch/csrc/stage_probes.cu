@@ -1,12 +1,11 @@
-// Stage-isolating probe kernels of the fused check, with the launch shape of
-// its first design.
+// Stage-isolating probe kernels of the fused check K1.
 //
 // Replace the Pallas probe kernels of the JAX package's bisection scripts:
 //   P1 `mini_kernel`, `mini_kernel_t` (scripts/bisect_stage1.py:73,117):
-//      K1's stage 1 one piece at a time (`pose_probe`);
-//   P2 `kern` in `run` (scripts/bisect_stage2.py:67): an empty K1-shaped
-//      grid with invariant inputs, scratch, batch and configurations per
-//      block toggled (`empty_probe`);
+//      K1's pose pass one piece at a time (`pose_probe`);
+//   P2 `kern` in `run` (scripts/bisect_stage2.py:67): an empty kernel of K1's
+//      launch shape with its tables, shared memory, batch and rows per warp
+//      toggled (`empty_probe`);
 //   P3 `kern_manual`, `kern_smem`, `kern_auto` (scripts/bisect_stage3.py:
 //      56,81,100): three ways to bring an invariant table into the kernel
 //      (`invariant_dma`, `invariant_const`, `invariant_ldg`).
@@ -14,38 +13,55 @@
 // each probe computes the same float32 operations as its plain version, so the
 // two agree exactly.
 //
-// Launch shape, unless a probe says otherwise: that of the fused kernel K1's
-// first design (one 256-thread block per configuration with the posed robot
-// in shared memory), grid-stride over the batch, with that design's dynamic
-// shared memory (`k1_smem_bytes` in profiling/probes.py, ~78 KB for the
-// alpha-1.0 tables), so two blocks are resident per SM. The probes are
-// instruments of those costs, as the TPU probes are of the TPU kernel's;
-// their shape is that design's on purpose, not the fastest for the little
-// work each does, and stays fixed so that their times stay comparable.
+// P1 and P2 run on K1's launch shape (csrc/megakernel.cu `launch`), so that
+// they split the cost of the kernel that runs: 512-thread blocks, one
+// resident per SM, of 4 teams of 4 warps; a grid of min(row groups,
+// resident blocks x SMs) with the occupancy queried at the shared memory
+// allocated; rows taken one at a time from an atomic counter (zeroed by
+// cudaMemsetAsync in each launch), the next one fetched ahead; the row's 16
+// pose floats read into the team's shared slot between two named team
+// barriers; output rows written as 16-byte stores. P1 and P2's `scratch`
+// pieces allocate exactly K1's shared memory for the tables and hold K1's
+// blocks per SM: K1's one block an SM comes from its registers (126-128 a
+// thread), which the probes do not need, so their launch also sets the
+// shared-memory carveout to the smallest that holds K1's resident blocks.
+// K1's shared-memory layout and device helpers are copied here (namespace
+// k1), operation for operation.
 //
-// What bounds each, and what the design does about it:
-//   * P2 is launch- and scheduling-bound: a block does a 64-byte pose read
-//     and a 512-byte row write, so its time is block dispatch and, with the
-//     table switches on, the per-configuration copy of the tables into
-//     shared memory (float4 loads, whole block, L2-resident after the first
-//     wave). Configurations per block (1 or 8, one warp each) and the
-//     shared-memory allocation (0 or K1's) set how many blocks are resident.
-//   * P3 and P1 levels 0-2 are bound by L2 and L1 latency: each
-//     configuration's chain is pose load -> table reads -> (block reduction)
-//     -> store, with little arithmetic. P3's modes differ only in where the
-//     table comes from: `cp.async` into shared memory once per persistent
-//     block (2 x SM count blocks), the constant cache, or `__ldg` per
-//     configuration through L1 (how K1's first design reads rob_base).
-//   * P1 level 3 is bound by shared-memory bandwidth and bank conflicts: 19
-//     fields per triangle, written field-major ([19][Tr], consecutive lanes on
-//     consecutive banks, conflict-free) as K1's first design does; the
-//     transposed probe writes triangle-major ([Tr][20], 80 B per triangle),
-//     whose 20-float stride puts 4 lanes of a warp on each bank used (4-way
-//     conflicts).
+// What bounds each on an H100, and what the design does about it:
+//   * P2 moves 64 B of pose in and 512 B out a row and computes nothing: it
+//     is bound by K1's skeleton: a row's atomic on the one row counter, whose
+//     same-address updates serialise (its floor rises with the teams that
+//     contend), two team barriers, a dependent pose load and the store; and,
+//     per launch, by the attribute call, the occupancy query, the memset and
+//     the staging of the tables into shared memory once per block (the robot
+//     corners transposed into 33-float slots, the obstacle boxes as a
+//     structure of arrays, the group boxes), which K1 pays too. Its time
+//     against batch size gives K1's per-row floor (slope) and fixed cost
+//     (intercept).
+//   * P1 is K1's pose pass: lane l poses robot tile l of each block of 32
+//     tiles, the tile's 32 triangles split over the team's warps (K1's
+//     `pose_tri` and `tri_box`, in K1's order), reading the staged table
+//     from shared memory. Its levels are bound by the latency of that chain
+//     (pose load -> 1,024 corner transforms a row over 128 threads, 9
+//     shared-memory reads a triangle -> tile boxes meeting in shared memory
+//     -> mesh box), well under the card's float32 rate; level 3 adds one
+//     shared store a triangle, a warp's 32 lanes on 32 consecutive words
+//     (lane = tile); `mini_writes_transposed` writes the same fields with
+//     stride 32, the layout without K1's padding, which changes only the
+//     read-back of 128 of them by columns (4 consecutive triangles a thread,
+//     8-way bank conflicts). K1's padding serves its sweep, where lane =
+//     triangle.
+//   * P3 keeps the launch shape of K1's first design (256-thread blocks, one
+//     configuration a block step, ~78 KB of shared memory): it is bound by
+//     L2 and L1 latency; its modes differ only in where the table comes
+//     from: `cp.async` into shared memory once per persistent block (2 x SM
+//     count blocks), the constant cache, or `__ldg` per configuration.
 //
 // Level 1 keeps the corner transforms of every triangle live by folding their
 // bits into a word that is stored only when rt_false (an argument, always 0)
-// is set; nothing multiplies a table value by a runtime zero.
+// is set; the transposed piece keeps its broad flag live the same way.
+// Nothing multiplies a table value by a runtime zero.
 //
 // Arithmetic: built like megakernel.cu, -fmad=false and no fast math.
 
@@ -55,191 +71,485 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;   // P3's block (K1's first design)
 constexpr int kOutCols = 128;   // output row: int32 [B, 128], as the TPU probes
-// Posed fields of K1's first design: corners 0-8, n 9-11, d 12, lo 13-15, hi 16-18.
-constexpr int kRobFields = 19;
-constexpr int kTStride = 20;    // triangle-major row of the transposed probe (80 B)
-constexpr int kTransposed = 4;  // pose_probe level of the triangle-major writes
+constexpr int kTransposed = 4;  // pose_probe level of the stride-32 stores
 constexpr float kBig = 3.0e38f;
 
+int grid_for(int64_t blocks) { return int(blocks < 65535 ? blocks : 65535); }
+
+// ---- K1's geometry, layout and pose-pass helpers (csrc/megakernel.cu), and
+// the probes P1 and P2 on K1's launch shape. ----
+namespace k1 {
+
+constexpr int kWarps = 4;  // warps sharing one row
+constexpr int kRows = 4;   // rows in flight per block, one per team
+constexpr int kTeamThreads = 32 * kWarps;
+constexpr int kThreads = kTeamThreads * kRows;
+constexpr int kRobTile = 32;
+constexpr int kGroup = 128;
+constexpr int kObsCols = 20;
+constexpr int kObsLo = 13;
+constexpr int kPad = 33;
+constexpr int kTileBlock = 32 * kPad;
+constexpr int kQueue = 64;
+constexpr int kCtlWords = 11;  // K1's `Ctl` words a team (cWords)
+constexpr unsigned kAll = 0xffffffffu;
+
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = min_nan(v, __shfl_xor_sync(0xffffffffu, v, s));
+  for (int s = 16; s > 0; s >>= 1) v = min_nan(v, __shfl_xor_sync(kAll, v, s));
   return v;
 }
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, s));
+  for (int s = 16; s > 0; s >>= 1) v = max_nan(v, __shfl_xor_sync(kAll, v, s));
   return v;
 }
 
-int grid_for(int64_t blocks) { return int(blocks < 65535 ? blocks : 65535); }
+// Triangle t in one field of the transposed table: triangle k of tile l of
+// a 32-tile block at k * kPad + l.
+__device__ __forceinline__ int rob_slot(int t) {
+  return (t >> 10) * kTileBlock + (t & 31) * kPad + ((t >> 5) & 31);
+}
 
-// ---- P1: K1's stage 1, one piece at a time (bisect_stage1.py:73-136). ----
+__device__ __forceinline__ void pose_tri(const float* s, int fs, const float p[12],
+                                         float c[9]) {
+#pragma unroll
+  for (int cc = 0; cc < 3; ++cc) {
+    const float X = s[(3 * cc) * fs], Y = s[(3 * cc + 1) * fs], Z = s[(3 * cc + 2) * fs];
+    c[3 * cc + 0] = p[0] * X + p[1] * Y + p[2] * Z + p[3];
+    c[3 * cc + 1] = p[4] * X + p[5] * Y + p[6] * Z + p[7];
+    c[3 * cc + 2] = p[8] * X + p[9] * Y + p[10] * Z + p[11];
+  }
+}
+
+__device__ __forceinline__ void tri_box(const float c[9], float box[6]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    box[k] = min_nan(min_nan(c[k], c[3 + k]), c[6 + k]);
+    box[3 + k] = max_nan(max_nan(c[k], c[3 + k]), c[6 + k]);
+  }
+}
+
+// Barrier of the kTeamWarps warps of team t (named barrier t + 1).
+template <int kTeamWarps>
+__device__ __forceinline__ void team_sync(int t) {
+  if constexpr (kTeamWarps == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(t + 1), "r"(32 * kTeamWarps) : "memory");
+}
+
+// K1's `Layout` (floats) for tr robot and to obstacle rows.
+struct Layout {
+  int n_tiles, n_groups, to, fs;
+  __host__ __device__ Layout(int tr, int to_, int groups)
+      : n_tiles(tr / kRobTile), n_groups(groups), to(to_),
+        fs(((tr / kRobTile + 31) / 32) * kTileBlock) {}
+  __host__ __device__ int obox() const { return 9 * fs; }
+  __host__ __device__ int gbox() const { return obox() + 6 * to; }
+  __host__ __device__ int realw() const { return gbox() + 6 * n_groups; }
+  __host__ __device__ int row_floats() const {
+    const int part = kWarps * 6 * 32, queues = kWarps * 2 * kQueue;
+    return kCtlWords + 16 + 6 * n_tiles + n_tiles * n_groups + (part > queues ? part : queues);
+  }
+  __host__ __device__ int ctl(int t) const { return realw() + n_tiles + t * row_floats(); }
+  __host__ __device__ int pose(int t) const { return ctl(t) + kCtlWords; }
+  __host__ __device__ int tile_box(int t) const { return pose(t) + 16; }
+  __host__ __device__ int items(int t) const { return tile_box(t) + 6 * n_tiles; }
+  __host__ __device__ int scratch(int t) const { return items(t) + n_tiles * n_groups; }
+  __host__ __device__ size_t bytes() const { return 4 * size_t(ctl(kRows)); }
+};
+
+// K1's staging of the robot table: corners into the transposed, padded
+// slots, real-triangle bits one word a tile.
+__device__ __forceinline__ void stage_robot(const float* __restrict__ rob_base, int tr, int fs,
+                                            float* rob_s, unsigned* realw) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < 9 * tr; i += kThreads) {
+    const int f = i / tr, t = i - f * tr;
+    rob_s[f * fs + rob_slot(t)] = rob_base[i];
+  }
+  for (int tile = warp; tile < tr / kRobTile; tile += kThreads / 32) {
+    const unsigned w = __ballot_sync(kAll, rob_base[9 * tr + tile * kRobTile + lane] > 0.f);
+    if (lane == 0) realw[tile] = w;
+  }
+}
+
+// ---- P1: K1's pose pass, one piece at a time (bisect_stage1.py:73-136). ----
+// Shared memory: K1's layout for (tr, n_groups): the robot table, the real
+// bits and each team's row word, pose, tile boxes and partial-box scratch
+// where K1 keeps them; team t's c0x field ([32 tiles][32 triangles] per
+// tile block, stride kPad, or 32 in the transposed piece) at
+// obox + t * fs, in the space of K1's obstacle and group boxes, which P1
+// does not stage.
+struct PoseMap {
+  Layout L;
+  explicit __host__ __device__ PoseMap(int tr, int n_groups)
+      : L(tr, n_groups * kGroup, n_groups) {}
+  __host__ __device__ int c0x(int t) const { return L.obox() + t * L.fs; }
+  __host__ __device__ bool fits() const { return c0x(kRows) <= L.realw(); }
+  __host__ __device__ int part_end(int t) const {
+    return L.scratch(t) + kWarps * 6 * 32;
+  }
+};
+
 //   level 0: acc = pose0
 //   level 1: + corner transforms of every robot triangle; acc += c0x[l]
-//   level 2: + masked boxes, block reduction to the mesh box; acc += broad
-//            against the [-1,1]^3 cube
-//   level 3: + the 19 posed fields of K1's first design, field-major [19][Tr];
-//            acc += smem[0][l]
-//   kTransposed: corners, planes and boxes written triangle-major
-//            [Tr][20]; out = c0x[l] + smem[l][0]
-// out[b][l] = int(acc), l < 128 (thread l poses triangle l first).
+//   level 2: + tile boxes meeting in the team's scratch, the mesh box and
+//            the broad flag against the [-1,1]^3 cube; acc += broad
+//   level 3: + c0x of every triangle stored in the padded layout (levels
+//            1-2 store only the 128 the output reads); acc += c0x[l] read
+//            back
+//   kTransposed: level 3's work and stores with stride 32;
+//            out = c0x[l] + c0x[l] read back
+// out[b][l] = int(acc), l < 128. Triangle l is posed by lane l / 32 of warp
+// (l % 32) % 4; the thread writing columns 4i..4i+3 reads their c0x from
+// shared memory.
 template <int kLevel>
-__global__ void __launch_bounds__(kThreads)
-pose_probe(const float* __restrict__ poses, int64_t n, const float* __restrict__ rob_base,
-           int tr, int rt_false, int32_t* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* fields = smem;                          // [19][tr] or [tr][20]
-  float* red = smem + size_t(kTStride) * tr;     // [kWarps][6]
-  float* mesh = red + kWarps * 6;                // [6] (+2 pad)
-  float* pose = mesh + 8;                        // [12] (+4 pad)
+__global__ void __launch_bounds__(kThreads, 1)
+pose_probe(const float* __restrict__ poses, int n, const float* __restrict__ rob_base, int tr,
+           int n_groups, int rt_false, int32_t* __restrict__ out, int* __restrict__ work) {
+  constexpr int kStride = kLevel == kTransposed ? 32 : kPad;  // c0x slot stride
+  constexpr bool kBoxes = kLevel >= 2, kStoreAll = kLevel >= 3;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const PoseMap M(tr, n_groups);
+  const Layout& L = M.L;
+  const int n_tiles = L.n_tiles, fs = L.fs;
+  float* rob_s = smem;
+  unsigned* realw = reinterpret_cast<unsigned*>(smem + L.realw());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* rob_real = rob_base + 9 * tr;
+  const int team = warp / kWarps, twarp = warp % kWarps, ttid = tid % kTeamThreads;
+  volatile int* ctl = reinterpret_cast<int*>(smem + L.ctl(team));
+  float* pose = smem + L.pose(team);
+  float* tile_box = smem + L.tile_box(team);
+  float* part = smem + L.scratch(team);
+  float* c0x = smem + M.c0x(team);
 
-  for (int64_t b = blockIdx.x; b < n; b += gridDim.x) {
-    __syncthreads();
-    if (tid < 12) pose[tid] = poses[b * 16 + tid];
-    __syncthreads();
+  stage_robot(rob_base, tr, fs, rob_s, realw);
+  __syncthreads();
+  int next_row = 0;
+  if (ttid == 0) next_row = atomicAdd(work, 1);
+
+  for (;;) {
+    if (ttid == 0) {
+      ctl[0] = next_row;
+      next_row = atomicAdd(work, 1);
+    }
+    team_sync<kWarps>(team);
+    const int b = ctl[0];
+    if (b >= n) break;
+    if (ttid < 16) pose[ttid] = __ldg(poses + size_t(b) * 16 + ttid);
+    team_sync<kWarps>(team);
     float p[12];
 #pragma unroll
     for (int k = 0; k < 12; ++k) p[k] = pose[k];
-    float acc = p[0];
-    float c0x_own = 0.f;  // c0x of triangle tid (tid < 128 writes the output)
-    unsigned keep = 0u;   // level 1: bits of every corner
-    float m_lo[3] = {kBig, kBig, kBig}, m_hi[3] = {-kBig, -kBig, -kBig};
+    unsigned keep = 0u;  // level 1: bits of every corner
+    bool broad = true;
 
     if constexpr (kLevel >= 1) {
-      for (int r = tid; r < tr; r += kThreads) {
-        float c[9];
+      for (int tb = 0; tb * 32 < n_tiles; ++tb) {
+        const int tile = tb * 32 + lane;
+        float t[6] = {kBig, kBig, kBig, -kBig, -kBig, -kBig};
+        if (tile < n_tiles) {
+          const float* base = rob_s + tb * kTileBlock + lane;
+          float* field = c0x + tb * 32 * kStride + lane;
+          const unsigned rw = kBoxes ? realw[tile] : 0u;
 #pragma unroll
-        for (int cc = 0; cc < 3; ++cc) {  // K1's order (megakernel.cu, pose stage)
-          const float X = rob_base[(3 * cc) * tr + r];
-          const float Y = rob_base[(3 * cc + 1) * tr + r];
-          const float Z = rob_base[(3 * cc + 2) * tr + r];
-          c[3 * cc + 0] = p[0] * X + p[1] * Y + p[2] * Z + p[3];
-          c[3 * cc + 1] = p[4] * X + p[5] * Y + p[6] * Z + p[7];
-          c[3 * cc + 2] = p[8] * X + p[9] * Y + p[10] * Z + p[11];
-        }
-        if (r == tid) c0x_own = c[0];
-        if constexpr (kLevel == 1) {
+          for (int j = 0; j < (kRobTile + kWarps - 1) / kWarps; ++j) {
+            const int k = twarp + kWarps * j;
+            if (k >= kRobTile) break;
+            float c[9];
+            pose_tri(base + k * kPad, fs, p, c);
+            if (kStoreAll || tile < kOutCols / kRobTile) field[k * kStride] = c[0];
+            if constexpr (kLevel == 1) {
 #pragma unroll
-          for (int f = 0; f < 9; ++f) keep ^= __float_as_uint(c[f]);
+              for (int f = 0; f < 9; ++f) keep ^= __float_as_uint(c[f]);
+            }
+            if constexpr (kBoxes) {
+              float box[6];
+              tri_box(c, box);
+              const bool real = (rw >> k) & 1u;
+#pragma unroll
+              for (int ax = 0; ax < 3; ++ax) {
+                t[ax] = min_nan(t[ax], real ? box[ax] : kBig);
+                t[3 + ax] = max_nan(t[3 + ax], real ? box[3 + ax] : -kBig);
+              }
+            }
+          }
         }
-        if constexpr (kLevel >= 2 && kLevel != kTransposed) {
-          const bool real = rob_real[r] > 0.f;
+        if constexpr (kBoxes) {
+#pragma unroll
+          for (int k = 0; k < 6; ++k) part[(twarp * 6 + k) * 32 + lane] = t[k];
+          team_sync<kWarps>(team);
+          for (int e = ttid; e < 6 * 32; e += kTeamThreads) {
+            const int k = e >> 5;
+            float v = part[e];
+            for (int w = 1; w < kWarps; ++w) {
+              const float x = part[w * 6 * 32 + e];
+              v = k < 3 ? min_nan(v, x) : max_nan(v, x);
+            }
+            if (tb * 32 + lane < n_tiles) tile_box[(tb * 32 + lane) * 6 + k] = v;
+          }
+          team_sync<kWarps>(team);
+        }
+      }
+      if constexpr (kBoxes) {
+        // K1's mesh-box broad phase, against the [-1,1]^3 cube.
+        float m[6] = {kBig, kBig, kBig, -kBig, -kBig, -kBig};
+        for (int tile = lane; tile < n_tiles; tile += 32) {
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
-            const float lo = min_nan(min_nan(c[k], c[3 + k]), c[6 + k]);
-            const float hi = max_nan(max_nan(c[k], c[3 + k]), c[6 + k]);
-            m_lo[k] = min_nan(m_lo[k], warp_min(real ? lo : kBig));
-            m_hi[k] = max_nan(m_hi[k], warp_max(real ? hi : -kBig));
+            m[k] = min_nan(m[k], tile_box[tile * 6 + k]);
+            m[3 + k] = max_nan(m[3 + k], tile_box[tile * 6 + 3 + k]);
           }
         }
-        if constexpr (kLevel == 3 || kLevel == kTransposed) {
-          const float e1x = c[3] - c[0], e1y = c[4] - c[1], e1z = c[5] - c[2];
-          const float e2x = c[6] - c[3], e2y = c[7] - c[4], e2z = c[8] - c[5];
-          float v[kRobFields];
 #pragma unroll
-          for (int f = 0; f < 9; ++f) v[f] = c[f];
-          v[9] = e1y * e2z - e1z * e2y;
-          v[10] = e1z * e2x - e1x * e2z;
-          v[11] = e1x * e2y - e1y * e2x;
-          v[12] = -(v[9] * c[0] + v[10] * c[1] + v[11] * c[2]);
+        for (int k = 0; k < 3; ++k)
+          broad = broad && warp_min(m[k]) <= 1.f && -1.f <= warp_max(m[3 + k]);
+      } else {
+        team_sync<kWarps>(team);  // the 128 c0x the writers read
+      }
+    }
+
+    if (ttid < kOutCols / 4) {
+      int v[4];
 #pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            v[13 + k] = min_nan(min_nan(c[k], c[3 + k]), c[6 + k]);
-            v[16 + k] = max_nan(max_nan(c[k], c[3 + k]), c[6 + k]);
-          }
-#pragma unroll
-          for (int f = 0; f < kRobFields; ++f) {
-            if constexpr (kLevel == kTransposed)
-              fields[size_t(r) * kTStride + f] = v[f];
-            else
-              fields[size_t(f) * tr + r] = v[f];
+      for (int q = 0; q < 4; ++q) {
+        const int l = 4 * ttid + q;
+        float acc = p[0];
+        if constexpr (kLevel >= 1) {
+          const float cx = c0x[(l & 31) * kStride + (l >> 5)];
+          if constexpr (kLevel == kTransposed) {
+            acc = cx + cx;
+          } else {
+            acc = acc + cx;
+            if constexpr (kBoxes) acc = acc + (broad ? 1.f : 0.f);
+            if constexpr (kStoreAll) acc = acc + cx;
           }
         }
+        v[q] = int32_t(acc);
+        if (kLevel == 1 && rt_false) v[q] = int32_t(keep);
+        if (kLevel == kTransposed && rt_false) v[q] = broad;
       }
+      reinterpret_cast<int4*>(out + size_t(b) * kOutCols)[ttid] =
+          make_int4(v[0], v[1], v[2], v[3]);
     }
-    if constexpr (kLevel == kTransposed) {
-      if (tid < kOutCols)
-        out[b * kOutCols + tid] = int32_t(c0x_own + fields[size_t(tid) * kTStride]);
-      continue;
-    }
-    if constexpr (kLevel >= 1) acc = acc + c0x_own;
-    if constexpr (kLevel == 1) {
-      if (rt_false && tid < kOutCols) out[b * kOutCols + tid] = int32_t(keep);
-    }
-    if constexpr (kLevel >= 2) {
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          red[warp * 6 + k] = m_lo[k];
-          red[warp * 6 + 3 + k] = m_hi[k];
-        }
-      }
-      __syncthreads();
-      if (tid < 6) {
-        float v = red[tid];
-        for (int w = 1; w < kWarps; ++w)
-          v = tid < 3 ? min_nan(v, red[w * 6 + tid]) : max_nan(v, red[w * 6 + tid]);
-        mesh[tid] = v;
-      }
-      __syncthreads();
-      bool broad = true;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) broad = broad && mesh[k] <= 1.f && -1.f <= mesh[3 + k];
-      acc = acc + (broad ? 1.f : 0.f);
-    }
-    if constexpr (kLevel >= 3) {
-      if (tid < kOutCols) acc = acc + fields[tid];  // field 0 (c0x), triangle tid
-    }
-    if (tid < kOutCols && !(kLevel == 1 && rt_false)) out[b * kOutCols + tid] = int32_t(acc);
   }
 }
 
-// ---- P2: an empty K1-shaped grid (bisect_stage2.py:53-96). ----
-// Each block takes kCpb configurations at a time (1: the whole block, as
-// K1; 8: one warp each), copies the enabled tables into shared memory after
-// `scratch_floats` floats of unused allocation, and writes int(pose0) across
-// each configuration's output row.
-template <int kCpb>
-__global__ void __launch_bounds__(kThreads)
-empty_probe(const float* __restrict__ poses, int64_t n, const float4* __restrict__ rob,
-            int rob_f4, const float4* __restrict__ obs, int obs_f4,
-            const float4* __restrict__ groups, int groups_f4, int scratch_floats,
-            int32_t* __restrict__ out) {
+// ---- P2: an empty kernel of K1's shape (bisect_stage2.py:53-96). ----
+// Shared memory (floats): the staged tables (each at K1's offset with
+// `scratch`, else packed in order, only those passed), then one slot a row
+// in flight: its row word and pose (K1's team control words and pose with
+// `scratch`, whose allocation is K1's whole layout).
+struct EmptyMap {
+  int tr, to, n_groups, fs;
+  int rob, realw, obox, gbox;    // offsets, -1 where that table is not staged
+  int slot, slot_floats, pose;   // row r's word at slot + r * slot_floats, pose + 16 after it
+  int end;
+};
+
+EmptyMap empty_map(int tr, int to, int n_groups, bool rob, bool obs, bool groups, bool scratch,
+                   int rows) {
+  const Layout L(tr, to, n_groups);
+  EmptyMap m{tr, to, n_groups, L.fs, -1, -1, -1, -1, 0, 0, 0, 0};
+  if (scratch) {
+    if (rob) {
+      m.rob = 0;
+      m.realw = L.realw();
+    }
+    if (obs) m.obox = L.obox();
+    if (groups) m.gbox = L.gbox();
+    m.slot = L.ctl(0);
+    m.slot_floats = L.row_floats();
+    m.pose = kCtlWords;
+    m.end = L.ctl(kRows);
+    return m;
+  }
+  int at = 0;
+  if (rob) {
+    m.rob = at;
+    m.realw = at + 9 * L.fs;
+    at = m.realw + L.n_tiles;
+  }
+  if (obs) {
+    m.obox = at;
+    at += 6 * to;
+  }
+  if (groups) {
+    m.gbox = at;
+    at += 6 * n_groups;
+  }
+  m.slot = at;
+  m.slot_floats = 1 + 16;
+  m.pose = 1;
+  m.end = at + rows * m.slot_floats;
+  return m;
+}
+
+// kTeamWarps warps a row (4: K1's team; 1: a row a warp, 16 in flight);
+// out[b][l] = int(pose0), written by the row's first 32 threads, 4 columns
+// each.
+template <int kTeamWarps>
+__global__ void __launch_bounds__(kThreads, 1)
+empty_probe(const float* __restrict__ poses, int n, const float* __restrict__ rob,
+            const float* __restrict__ obs, const float* __restrict__ groups, EmptyMap m,
+            int32_t* __restrict__ out, int* __restrict__ work) {
+  constexpr int kRowThreads = 32 * kTeamWarps;
   extern __shared__ float4 smem4[];
-  float4* s_rob = smem4 + scratch_floats / 4;
-  float4* s_obs = s_rob + rob_f4;
-  float4* s_groups = s_obs + obs_f4;
+  float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
-  const int64_t n_blocks = (n + kCpb - 1) / kCpb;
-  for (int64_t blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
-    __syncthreads();
-    for (int i = tid; i < rob_f4; i += kThreads) s_rob[i] = __ldg(rob + i);
-    for (int i = tid; i < obs_f4; i += kThreads) s_obs[i] = __ldg(obs + i);
-    for (int i = tid; i < groups_f4; i += kThreads) s_groups[i] = __ldg(groups + i);
-    __syncthreads();
-    if constexpr (kCpb == 1) {
-      if (tid < kOutCols) out[blk * kOutCols + tid] = int32_t(poses[blk * 16]);
-    } else {
-      const int64_t b = blk * kCpb + (tid >> 5);
-      if ((tid >> 5) < kCpb && b < n) {
-        const int32_t v = int32_t(poses[b * 16]);
-        for (int l = tid & 31; l < kOutCols; l += 32) out[b * kOutCols + l] = v;
-      }
+  const int team = tid / kRowThreads, ttid = tid % kRowThreads;
+  if (m.rob >= 0)
+    stage_robot(rob, m.tr, m.fs, smem + m.rob, reinterpret_cast<unsigned*>(smem + m.realw));
+  if (m.obox >= 0) {
+    for (int i = tid; i < 6 * m.to; i += kThreads) {
+      const int s = i / m.to, o = i - s * m.to;
+      smem[m.obox + i] = obs[size_t(o) * kObsCols + kObsLo + s];
+    }
+  }
+  if (m.gbox >= 0)
+    for (int i = tid; i < 6 * m.n_groups; i += kThreads) smem[m.gbox + i] = groups[i];
+  __syncthreads();
+  volatile int* ctl = reinterpret_cast<int*>(smem + m.slot + team * m.slot_floats);
+  float* pose = smem + m.slot + team * m.slot_floats + m.pose;
+  int next_row = 0;
+  if (ttid == 0) next_row = atomicAdd(work, 1);
+  for (;;) {
+    if (ttid == 0) {
+      ctl[0] = next_row;
+      next_row = atomicAdd(work, 1);
+    }
+    team_sync<kTeamWarps>(team);
+    const int b = ctl[0];
+    if (b >= n) break;
+    if (ttid < 16) pose[ttid] = __ldg(poses + size_t(b) * 16 + ttid);
+    team_sync<kTeamWarps>(team);
+    if (ttid < kOutCols / 4) {
+      const int v = int32_t(pose[0]);
+      reinterpret_cast<int4*>(out + size_t(b) * kOutCols)[ttid] = make_int4(v, v, v, v);
     }
   }
 }
+
+// K1's launch shape for `kernel` over n rows, `rows` in flight a block, with
+// `smem` bytes of dynamic shared memory: sets the attribute and queries the
+// occupancy as K1's `launch` does; grid = min(row groups, resident blocks x
+// SMs). With resident > 0 it first sets the shared-memory carveout to the
+// smallest that holds `resident` blocks: K1's residency, which K1's
+// registers set, for a probe that needs fewer registers.
+struct Shape {
+  int per_sm, grid;
+};
+template <typename Kernel>
+cudaError_t shape(Kernel kernel, int64_t n, int rows, size_t smem, int resident, Shape* s) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if (resident > 0) {
+    int sm_bytes = 0, reserved = 0;
+    if ((err = cudaDeviceGetAttribute(&sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                      dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                                      dev)) != cudaSuccess)
+      return err;
+    const int64_t need = int64_t(resident) * (int64_t(smem) + reserved);
+    const int64_t pct = (100 * need + sm_bytes - 1) / sm_bytes;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    int(pct < 100 ? pct : 100))) != cudaSuccess)
+      return err;
+  }
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s->per_sm, kernel, kThreads,
+                                                           smem)) != cudaSuccess)
+    return err;
+  if (s->per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t want = (n + rows - 1) / rows;
+  s->grid = int(want < int64_t(s->per_sm) * sms ? want : int64_t(s->per_sm) * sms);
+  return cudaSuccess;
+}
+
+// K1's launch: shape, zero the row counter, launch on `stream`.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int64_t n, int rows, size_t smem, int resident, int* work,
+           cudaStream_t stream, Args... args) {
+  Shape s;
+  cudaError_t err = shape(kernel, n, rows, smem, resident, &s);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaMemsetAsync(work, 0, sizeof(int), stream)) != cudaSuccess) return err;
+  kernel<<<s.grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The shape above and the kernel's registers and local (spill and stack)
+// bytes: out = {block, smem, blocks per SM, grid, registers, local bytes}.
+template <typename Kernel>
+int shape_query(Kernel kernel, int64_t n, int rows, size_t smem, int resident, int* out) {
+  Shape s;
+  cudaError_t err = shape(kernel, n, rows, smem, resident, &s);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  const int v[6] = {kThreads, int(smem), s.per_sm, s.grid, attr.numRegs,
+                    int(attr.localSizeBytes)};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+bool pose_args_ok(int64_t n, int tr, int n_groups) {
+  return n <= (int64_t(1) << 30) && tr >= kOutCols && tr % kRobTile == 0 && tr < 65536 &&
+         n_groups > 0 && n_groups * kGroup < 65536 && PoseMap(tr, n_groups).fits();
+}
+
+bool empty_args_ok(int64_t n, int tr, int to, int n_groups, bool scratch, int cpb) {
+  return n <= (int64_t(1) << 30) && tr > 0 && tr % kRobTile == 0 && tr < 65536 &&
+         to >= 0 && to < 65536 && n_groups >= 0 && (cpb == 1 || (cpb == 8 && !scratch));
+}
+
+// Rows in flight a block of empty_probe: 4 teams, or 16 warps at cpb 8.
+int empty_rows(int cpb) { return cpb == 8 ? kThreads / 32 : kRows; }
+
+// Bytes a P1 launch needs at least: the end of its map (the last team's
+// partial boxes).
+int64_t pose_map_bytes(int tr, int n_groups) {
+  return 4 * int64_t(PoseMap(tr, n_groups).part_end(kRows - 1));
+}
+
+// The P1 instance of a level, the P2 instance of a mapping (nullptr if none).
+using PoseKernel = void (*)(const float*, int, const float*, int, int, int, int32_t*, int*);
+using EmptyKernel = void (*)(const float*, int, const float*, const float*, const float*,
+                             EmptyMap, int32_t*, int*);
+PoseKernel pose_kernel(int level) {
+  switch (level) {
+    case 0: return pose_probe<0>;
+    case 1: return pose_probe<1>;
+    case 2: return pose_probe<2>;
+    case 3: return pose_probe<3>;
+    case kTransposed: return pose_probe<kTransposed>;
+    default: return nullptr;
+  }
+}
+EmptyKernel empty_kernel(int cpb) {
+  return cpb == 1 ? empty_probe<kWarps> : cpb == 8 ? empty_probe<1> : nullptr;
+}
+
+}  // namespace k1
 
 // ---- P3: an invariant table three ways (bisect_stage3.py:55-115). ----
 __constant__ float c_table[64];  // the 8 x 8 table of `invariant_const`
@@ -284,76 +594,103 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
-template <int kLevel>
-int launch_pose(const float* poses, int64_t n, const float* rob_base, int tr, int rt_false,
-                int32_t* out, size_t smem, cudaStream_t stream) {
-  cudaError_t err = set_smem(pose_probe<kLevel>, smem);
-  if (err != cudaSuccess) return err;
-  pose_probe<kLevel><<<grid_for(n), kThreads, smem, stream>>>(poses, n, rob_base, tr,
-                                                              rt_false, out);
-  return cudaGetLastError();
-}
-
-template <int kCpb>
-int launch_empty(const float* poses, int64_t n, const float* rob, int rob_floats,
-                 const float* obs, int obs_floats, const float* groups, int groups_floats,
-                 int scratch_floats, int32_t* out, cudaStream_t stream) {
-  const size_t smem = 4 * size_t(scratch_floats + rob_floats + obs_floats + groups_floats);
-  cudaError_t err = set_smem(empty_probe<kCpb>, smem);
-  if (err != cudaSuccess) return err;
-  empty_probe<kCpb><<<grid_for((n + kCpb - 1) / kCpb), kThreads, smem, stream>>>(
-      poses, n, reinterpret_cast<const float4*>(rob), rob_floats / 4,
-      reinterpret_cast<const float4*>(obs), obs_floats / 4,
-      reinterpret_cast<const float4*>(groups), groups_floats / 4, scratch_floats, out);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of pose_probe for a robot table of `tr` rows (the
-// triangle-major layout is the larger; the wrapper takes the larger of this
-// and K1's).
-int64_t rc_pose_probe_smem_bytes(int tr) {
-  return 4 * (int64_t(kTStride) * tr + kWarps * 6 + 8 + 16);
-}
-
-// P1: poses [n,16], rob_base [10,tr] f32 -> out [n,128] int32. level 0-3, or
-// 4 for the triangle-major writes. rt_false must be 0. smem >= the bytes
-// above. Returns the launch's cudaError_t; does not synchronise.
-int rc_pose_probe(const float* poses, int64_t n, const float* rob_base, int tr, int level,
-                  int rt_false, int32_t* out, int64_t smem, cudaStream_t stream) {
-  if (n <= 0) return cudaSuccess;
-  if (tr < kOutCols || tr % 32 != 0 || smem < rc_pose_probe_smem_bytes(tr))
-    return cudaErrorInvalidValue;
-  switch (level) {
-    case 0: return launch_pose<0>(poses, n, rob_base, tr, rt_false, out, smem, stream);
-    case 1: return launch_pose<1>(poses, n, rob_base, tr, rt_false, out, smem, stream);
-    case 2: return launch_pose<2>(poses, n, rob_base, tr, rt_false, out, smem, stream);
-    case 3: return launch_pose<3>(poses, n, rob_base, tr, rt_false, out, smem, stream);
-    case kTransposed:
-      return launch_pose<kTransposed>(poses, n, rob_base, tr, rt_false, out, smem, stream);
-    default: return cudaErrorInvalidValue;
+// The regions (first float, floats) of a probe's shared memory, in order,
+// as {start, floats} pairs in out[2 * cap]; returns their count, or -1 for
+// arguments the probe refuses. probe 0 (P1): rob, realw, then per team row
+// word, pose, tile boxes, partial boxes, c0x field. probe 1 (P2): of rob,
+// realw, obox, gbox those staged (tables: bit 0 rob, 1 obs, 2 groups), then
+// per row in flight its row word and pose.
+int rc_probe_map(int probe, int tr, int to, int n_groups, int tables, int scratch, int cpb,
+                 int* out, int cap) {
+  int k = 0;
+  auto put = [&](int start, int floats) {
+    if (k < cap) {
+      out[2 * k] = start;
+      out[2 * k + 1] = floats;
+    }
+    ++k;
+  };
+  if (probe == 0) {
+    if (!k1::pose_args_ok(1, tr, n_groups)) return -1;
+    const k1::PoseMap M(tr, n_groups);
+    const k1::Layout& L = M.L;
+    put(0, 9 * L.fs);
+    put(L.realw(), L.n_tiles);
+    for (int t = 0; t < k1::kRows; ++t) {
+      put(L.ctl(t), 1);
+      put(L.pose(t), 16);
+      put(L.tile_box(t), 6 * L.n_tiles);
+      put(L.scratch(t), k1::kWarps * 6 * 32);
+      put(M.c0x(t), L.fs);
+    }
+    return k;
   }
+  if (probe != 1 || !k1::empty_args_ok(1, tr, to, n_groups, scratch, cpb)) return -1;
+  const k1::EmptyMap m = k1::empty_map(tr, to, n_groups, tables & 1, tables & 2, tables & 4,
+                                       scratch, k1::empty_rows(cpb));
+  if (m.rob >= 0) {
+    put(m.rob, 9 * m.fs);
+    put(m.realw, tr / k1::kRobTile);
+  }
+  if (m.obox >= 0) put(m.obox, 6 * to);
+  if (m.gbox >= 0) put(m.gbox, 6 * n_groups);
+  for (int r = 0; r < k1::empty_rows(cpb); ++r) {
+    put(m.slot + r * m.slot_floats, 1);
+    put(m.slot + r * m.slot_floats + m.pose, 16);
+  }
+  return k;
 }
 
-// P2: poses [n,16] -> out [n,128] int32. Each table pointer may be null
-// (its float count 0); counts are multiples of 4 and pointers 16-byte
-// aligned. scratch_floats (a multiple of 4) of shared memory are allocated
-// and left unused. cpb is 1 or 8.
-int rc_empty_probe(const float* poses, int64_t n, const float* rob, int rob_floats,
-                   const float* obs, int obs_floats, const float* groups, int groups_floats,
-                   int scratch_floats, int cpb, int32_t* out, cudaStream_t stream) {
+// P1: poses [n,16], rob_base [10,tr] f32 -> out [n,128] int32 (16-byte
+// aligned). level 0-3, or 4 for the stride-32 stores. n_groups sets K1's
+// layout; work: one int32 on the device (the row counter, zeroed here);
+// rt_false must be 0; smem >= the end of its map; resident: the
+// blocks an SM to hold the launch to (K1's), 0 for as many as fit. Returns
+// the launch's cudaError_t; does not synchronise.
+int rc_pose_probe(const float* poses, int64_t n, const float* rob_base, int tr, int n_groups,
+                  int level, int rt_false, int32_t* out, int* work, int64_t smem, int resident,
+                  cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
-  if ((rob_floats | obs_floats | groups_floats | scratch_floats) % 4 != 0)
+  if (!k1::pose_args_ok(n, tr, n_groups) || smem < k1::pose_map_bytes(tr, n_groups))
     return cudaErrorInvalidValue;
-  if (cpb == 1)
-    return launch_empty<1>(poses, n, rob, rob_floats, obs, obs_floats, groups,
-                           groups_floats, scratch_floats, out, stream);
-  if (cpb == 8)
-    return launch_empty<8>(poses, n, rob, rob_floats, obs, obs_floats, groups,
-                           groups_floats, scratch_floats, out, stream);
+  const k1::PoseKernel kernel = k1::pose_kernel(level);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  return k1::launch(kernel, n, k1::kRows, smem, resident, work, stream, poses, int(n),
+                    rob_base, tr, n_groups, rt_false, out, work);
+}
+
+// P2: poses [n,16] -> out [n,128] int32 (16-byte aligned). rob [10,tr],
+// obs [to,20] and groups [n_groups,6] f32 may each be null (not staged);
+// tr, to and n_groups set the layout all the same. scratch: K1's layout
+// (cpb 1 only); cpb 1: a team of 4 warps a row, 8: a warp a row. work,
+// smem and resident as rc_pose_probe's.
+int rc_empty_probe(const float* poses, int64_t n, const float* rob, int tr, const float* obs,
+                   int to, const float* groups, int n_groups, int scratch, int cpb,
+                   int32_t* out, int* work, int64_t smem, int resident, cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  if (!k1::empty_args_ok(n, tr, to, n_groups, scratch, cpb)) return cudaErrorInvalidValue;
+  const k1::EmptyMap m =
+      k1::empty_map(tr, to, n_groups, rob, obs, groups, scratch, k1::empty_rows(cpb));
+  if (smem < 4 * int64_t(m.end)) return cudaErrorInvalidValue;
+  return k1::launch(k1::empty_kernel(cpb), n, k1::empty_rows(cpb), smem, resident, work,
+                    stream, poses, int(n), rob, obs, groups, m, out, work);
+}
+
+// The launch shape of a P1 level (probe 0, variant = level) or a P2 mapping
+// (probe 1, variant = cpb) over n rows with smem bytes and resident, as
+// the launch computes it, and the instance's registers and local bytes:
+// out[6] = {block, smem, blocks per SM, grid, registers, local bytes}.
+int rc_probe_shape(int probe, int variant, int64_t n, int64_t smem, int resident, int* out) {
+  if (probe == 0 && k1::pose_kernel(variant) != nullptr)
+    return k1::shape_query(k1::pose_kernel(variant), n, k1::kRows, size_t(smem), resident,
+                           out);
+  if (probe == 1 && k1::empty_kernel(variant) != nullptr)
+    return k1::shape_query(k1::empty_kernel(variant), n, k1::empty_rows(variant), size_t(smem),
+                           resident, out);
   return cudaErrorInvalidValue;
 }
 

@@ -112,10 +112,18 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
     if name == "megakernel":
         _bind_megakernel(lib)
     elif name == "stage_probes":
-        _bind(lib.rc_pose_probe_smem_bytes, i64, [i32])
-        _bind(lib.rc_pose_probe, i32, [ptr, i64, ptr, i32, i32, i32, ptr, i64, ptr])
+        # probe, tr, to, n_groups, tables, scratch, cpb (, out, cap)
+        _bind(lib.rc_probe_map, i32, [i32] * 7 + [ptr, i32])
+        # probe, variant, n, smem, resident, out
+        _bind(lib.rc_probe_shape, i32, [i32, i32, i64, i64, i32, ptr])
+        # poses, n, rob_base, tr, n_groups, level, rt_false, out, work, smem,
+        # resident, stream
+        _bind(lib.rc_pose_probe, i32,
+              [ptr, i64, ptr, i32, i32, i32, i32, ptr, ptr, i64, i32, ptr])
+        # poses, n, rob, tr, obs, to, groups, n_groups, scratch, cpb, out,
+        # work, smem, resident, stream
         _bind(lib.rc_empty_probe, i32,
-              [ptr, i64, ptr, i32, ptr, i32, ptr, i32, i32, i32, ptr, ptr])
+              [ptr, i64, ptr, i32, ptr, i32, ptr, i32, i32, i32, ptr, ptr, i64, i32, ptr])
         _bind(lib.rc_invariant_probe, i32, [ptr, i64, ptr, i32, i32, ptr, i64, ptr])
     elif name == "clearance":
         # rows, ids, k, blocks, nb, block, tab, nt, gbox, always, ng, gsize,

@@ -14,6 +14,13 @@ costs. Each probe has
 Every probe writes int32 [B, 128] (`PROBE_COLS`), as the TPU probes do, with
 casts that truncate toward zero (``.to(torch.int32)``, C's ``int(x)``).
 
+P1 and P2 run on the launch shape of the fused kernel K1 as it is built
+today (512-thread blocks of 4 teams, a persistent grid, a row counter, K1's
+shared-memory layout); P3 keeps that of K1's first design. Each wrapper
+takes its shared memory from ``probe_smem_bytes``; ``probe_map`` replays
+P1's and P2's shared-memory maps, which ``compiled_map`` reads from the
+built source, and ``launch_shape`` reads a piece's launch shape on the card.
+
 ``stage_pieces(stage, ...)`` builds the pieces each JAX script runs, under
 the script's names, on the same inputs drawn from the same numpy seeds;
 `scripts/torch_bisect.py` times them and `chip_smoke.py` holds each kernel
@@ -21,13 +28,15 @@ against its plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..kernels.megakernel import GROUP, poses_from_confs
+from ..kernels.megakernel import GROUP, ROB_TILE, poses_from_confs, smem_bytes
 
 PROBE_COLS = 128
 # Batch and table width of the TPU probe scripts.
@@ -130,14 +139,114 @@ def _poses(poses: torch.Tensor) -> torch.device:
     return poses.device
 
 
-def k1_smem_bytes(tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP) -> int:
-    """Dynamic shared memory per block of the fused kernel's first design,
-    whose launch shape the probes keep (`csrc/stage_probes.cu`): 19 posed
-    fields per robot triangle, tile boxes, the gate's work list and
-    reduction scratch, for these tables (79,936 bytes for the alpha-1.0
-    pair)."""
-    n_tiles = tr // 32
+# K1's shared-memory layout (`Layout` in csrc/megakernel.cu), in floats: the
+# block's 4 teams of 4 warps, each team's control words, and the 32 x 33-float
+# tile blocks of the transposed robot table.
+_K1_TEAMS = _K1_WARPS = 4
+_K1_CTL_WORDS = 11
+_TILE_BLOCK = ROB_TILE * 33
+# The probes' map codes in csrc/stage_probes.cu, and the bit of each table.
+_PROBE_CODES = {"pose": 0, "empty": 1}
+_TABLE_BITS = {"rob": 1, "obs": 2, "groups": 4}
+
+
+def _k1_layout(tr: int, to: int, n_groups: int) -> dict:
+    """K1's `Layout` for ``tr`` robot and ``to`` obstacle rows: the field
+    stride ``fs``, the table offsets and each team's offsets (``ctl[t]``,
+    ``pose[t]``, ...; ``ctl[4]`` is the layout's end)."""
+    n_tiles = tr // ROB_TILE
+    fs = -(-n_tiles // 32) * _TILE_BLOCK
+    obox = 9 * fs
+    gbox = obox + 6 * to
+    realw = gbox + 6 * n_groups
+    row = (_K1_CTL_WORDS + 16 + 6 * n_tiles + n_tiles * n_groups
+           + max(_K1_WARPS * 6 * 32, _K1_WARPS * 2 * 64))
+    ctl = [realw + n_tiles + t * row for t in range(_K1_TEAMS + 1)]
+    pose = [c + _K1_CTL_WORDS for c in ctl]
+    tile_box = [p + 16 for p in pose]
+    scratch = [b + 6 * n_tiles + n_tiles * n_groups for b in tile_box]
+    return {"n_tiles": n_tiles, "fs": fs, "obox": obox, "gbox": gbox, "realw": realw,
+            "ctl": ctl, "pose": pose, "tile_box": tile_box, "scratch": scratch}
+
+
+def _empty_rows(cpb: int) -> int:
+    """Rows in flight a block of P2: a team of 4 warps a row (cpb 1), or a
+    warp a row (cpb 8)."""
+    return 16 if cpb == 8 else _K1_TEAMS
+
+
+def probe_map(probe: str, tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP,
+              to: int | None = None, tables=(), scratch: bool = False,
+              cpb: int = 1) -> list[tuple[str, int, int]]:
+    """The regions (name, first float, floats) of a probe's shared memory,
+    in the order `rc_probe_map` of `csrc/stage_probes.cu` lists them.
+
+    ``pose`` (P1): K1's layout for (``tr``, ``n_groups``): the robot table
+    in K1's padded slots and the real bits, and per team its row word, pose,
+    tile boxes and partial-box scratch where K1 keeps them, and its c0x field
+    (one padded field) in the space of K1's obstacle and group boxes, which
+    P1 does not stage. ``empty`` (P2): the ``tables`` staged (of ``rob``,
+    ``obs``, ``groups``; at K1's offsets with ``scratch``, else packed in
+    that order), then per row in flight its row word and pose (K1's team
+    slots with ``scratch``)."""
+    to = n_groups * GROUP if to is None else to
+    L = _k1_layout(tr, to, n_groups)
+    if probe == "pose":
+        regions = [("rob", 0, 9 * L["fs"]), ("realw", L["realw"], L["n_tiles"])]
+        for t in range(_K1_TEAMS):
+            regions += [(f"ctl{t}", L["ctl"][t], 1), (f"pose{t}", L["pose"][t], 16),
+                        (f"tile_box{t}", L["tile_box"][t], 6 * L["n_tiles"]),
+                        (f"part{t}", L["scratch"][t], _K1_WARPS * 6 * 32),
+                        (f"c0x{t}", L["obox"] + t * L["fs"], L["fs"])]
+        return regions
+    if probe != "empty":
+        raise ValueError(f"probe must be 'pose' or 'empty', got {probe!r}")
+    staged = [("rob", 0, 9 * L["fs"]), ("realw", L["realw"], L["n_tiles"]),
+              ("obs", L["obox"], 6 * to), ("groups", L["gbox"], 6 * n_groups)]
+    regions, at = [], 0
+    for name, start, floats in staged:
+        if ("rob" if name == "realw" else name) in tables:
+            regions.append((name, start if scratch else at, floats))
+            at += floats
+    for r in range(_empty_rows(cpb)):
+        slot, pose = (L["ctl"][r], L["pose"][r]) if scratch else (at + 17 * r, at + 17 * r + 1)
+        regions += [(f"ctl{r}", slot, 1), (f"pose{r}", pose, 16)]
+    return regions
+
+
+def _p3_smem_bytes(tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP) -> int:
+    """P3's shared memory: that of K1's first design, which P3 keeps until it
+    is redesigned (19 posed fields a robot triangle, tile boxes, the gate's
+    work list and reduction scratch; 79,936 bytes for these tables)."""
+    n_tiles = tr // ROB_TILE
     return 4 * (19 * tr + 6 * n_tiles + 8 * 6 + 8 + 16 + n_tiles * n_groups + 8)
+
+
+def probe_smem_bytes(probe: str, tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP,
+                     to: int | None = None, tables=(), scratch: bool = False,
+                     cpb: int = 1) -> int:
+    """Dynamic shared memory a probe's wrapper allocates: K1's
+    (`kernels/megakernel.smem_bytes`) for P1 and P2's ``scratch`` pieces, so
+    that their blocks per SM are K1's; the end of `probe_map` for the other
+    P2 pieces (their tables and row slots only); K1's first design's for P3
+    (``invariant``). Raises where a probe's map does not fit."""
+    if probe == "invariant":
+        return _p3_smem_bytes(tr, n_groups)
+    if probe == "empty" and not scratch:
+        return 4 * max(start + floats
+                       for _, start, floats in probe_map(probe, tr, n_groups, to, tables,
+                                                         scratch, cpb))
+    if probe == "empty" and (cpb != 1 or to not in (None, n_groups * GROUP)):
+        raise ValueError("scratch runs K1's layout, whose slots hold 4 rows of "
+                         f"{n_groups * GROUP} obstacle rows: cpb 1 and to {n_groups * GROUP} "
+                         f"(got cpb {cpb}, to {to})")
+    L = _k1_layout(tr, n_groups * GROUP, n_groups)
+    if probe == "pose" and L["obox"] + _K1_TEAMS * L["fs"] > L["realw"]:
+        raise ValueError(f"P1's c0x fields of {tr} robot triangles do not fit K1's obstacle "
+                         f"boxes of {n_groups} groups")
+    if probe not in ("pose", "empty"):
+        raise ValueError(f"probe must be 'pose', 'empty' or 'invariant', got {probe!r}")
+    return smem_bytes(tr, n_groups)
 
 
 def _call(entry: str, dev: torch.device, *args) -> None:
@@ -157,12 +266,33 @@ def _out(poses: torch.Tensor) -> torch.Tensor:
     return torch.empty((poses.shape[0], PROBE_COLS), dtype=torch.int32, device=poses.device)
 
 
-def pose_probe_cuda(poses: torch.Tensor, rob_base: torch.Tensor, level) -> torch.Tensor:
-    """P1 on the card: [B,16] poses, rob_base [10, Tr] -> int32 [B, 128], as
-    ``pose_probe_reference``. One block per configuration with the larger of
-    ``k1_smem_bytes`` and the probe's own shared memory."""
+@functools.cache
+def _k1_resident(index: int, tr: int, n_groups: int) -> int:
+    """K1's resident blocks an SM on card ``index`` for these tables
+    (`rc_megakernel_blocks_per_sm`): the residency P1 and P2's ``scratch``
+    pieces are held to."""
     from ..kernels import _build
 
+    with torch.cuda.device(index):
+        per_sm = _build.library("megakernel").rc_megakernel_blocks_per_sm(tr, n_groups)
+    if per_sm < 1:
+        raise RuntimeError(f"K1 fits no block on an SM for {tr} robot triangles and "
+                           f"{n_groups} obstacle groups ({per_sm})")
+    return per_sm
+
+
+def _work(dev: torch.device) -> torch.Tensor:
+    """One int32 of device scratch: the row counter the launch zeroes."""
+    return torch.empty((1,), dtype=torch.int32, device=dev)
+
+
+def pose_probe_cuda(poses: torch.Tensor, rob_base: torch.Tensor, level,
+                    n_groups: int = PROBE_TR // GROUP) -> torch.Tensor:
+    """P1 on the card: [B,16] poses, rob_base [10, Tr] -> int32 [B, 128], as
+    ``pose_probe_reference``. K1's launch shape and shared memory for
+    (Tr, ``n_groups``) (`probe_smem_bytes`) and K1's blocks per SM: a team
+    of 4 warps a row, lane l posing robot tile l of each block of 32 tiles
+    from the table staged once per block, 4 rows in flight a block."""
     if level not in POSE_LEVELS:
         raise ValueError(f"level must be one of {POSE_LEVELS}, got {level!r}")
     dev = _poses(poses)
@@ -170,40 +300,60 @@ def pose_probe_cuda(poses: torch.Tensor, rob_base: torch.Tensor, level) -> torch
     _require(rob_base, "rob_base", dev, (10, tr))
     if tr < PROBE_COLS or tr % GROUP:
         raise ValueError(f"rob_base needs a multiple of {GROUP} columns, got {tr}")
-    need = int(_build.library("stage_probes").rc_pose_probe_smem_bytes(tr))
-    smem = max(need, k1_smem_bytes(tr))
+    smem = probe_smem_bytes("pose", tr, n_groups)
     code = 4 if level == "transposed" else level
     n, out = poses.shape[0], _out(poses)
     if n:
-        _call("rc_pose_probe", dev, poses.data_ptr(), n, rob_base.data_ptr(), tr, code, 0,
-              out.data_ptr(), smem)
+        _call("rc_pose_probe", dev, poses.data_ptr(), n, rob_base.data_ptr(), tr, n_groups,
+              code, 0, out.data_ptr(), _work(dev).data_ptr(), smem,
+              _k1_resident(dev.index, tr, n_groups))
         pose_probe_cuda.launches[level] += 1
     return out
 
 
-def empty_probe_cuda(poses: torch.Tensor, tables=(), scratch: bool = False,
+def _empty_tables(tables) -> tuple[int, int, int]:
+    """(tr, to, n_groups) of P2's layout: from the tables passed, else the
+    probe scripts' widths (PROBE_TR robot and obstacle rows)."""
+    n_groups = (tables["groups"].shape[0] if "groups" in tables
+                else tables["obs"].shape[0] // GROUP if "obs" in tables else PROBE_TR // GROUP)
+    tr = tables["rob"].shape[1] if "rob" in tables else PROBE_TR
+    to = tables["obs"].shape[0] if "obs" in tables else n_groups * GROUP
+    return tr, to, n_groups
+
+
+def empty_probe_cuda(poses: torch.Tensor, tables=None, scratch: bool = False,
                      cpb: int = 1) -> torch.Tensor:
-    """P2 on the card: int(pose0) across each row, after copying each table
-    of ``tables`` (contiguous float32 CUDA tensors, at most three, sizes
-    multiples of 4 floats) into shared memory per block step. ``scratch``
-    adds ``k1_smem_bytes`` of shared memory, unused; ``cpb`` is 1 or 8
-    configurations per block (one warp each)."""
+    """P2 on the card: int(pose0) across each row, with K1's launch shape.
+    ``tables`` maps any of ``rob`` ([10, Tr] rob_base), ``obs`` ([To, 20])
+    and ``groups`` ([To / 128, 6]), contiguous float32 CUDA tensors, to be
+    staged once per block as K1 stages them (the robot corners transposed
+    into 33-float slots, the obstacle boxes as a structure of arrays, the
+    group boxes). ``scratch`` allocates K1's whole shared memory
+    (`probe_smem_bytes`) and holds K1's blocks per SM, else only the tables
+    and row slots, as many blocks as fit. ``cpb`` 1: a
+    team of 4 warps a row, 4 rows in flight a block (K1's mapping); 8: a
+    warp a row, 16 rows in flight (the mapping `csrc/megakernel.cu` measured
+    and rejected)."""
     dev = _poses(poses)
+    tables = dict(tables or {})
     if cpb not in (1, 8):
         raise ValueError(f"cpb must be 1 or 8, got {cpb}")
-    if len(tables) > 3:
-        raise ValueError("at most three tables")
-    ptrs, sizes = [0, 0, 0], [0, 0, 0]
-    for i, t in enumerate(tables):
-        _require(t, f"tables[{i}]", dev)
-        if t.numel() % 4:
-            raise ValueError(f"tables[{i}] must hold a multiple of 4 floats")
-        ptrs[i], sizes[i] = t.data_ptr(), t.numel()
-    scratch_floats = k1_smem_bytes() // 4 // 4 * 4 if scratch else 0
+    if not set(tables) <= set(_TABLE_BITS):
+        raise ValueError(f"tables are {sorted(_TABLE_BITS)}, got {sorted(tables)}")
+    tr, to, n_groups = _empty_tables(tables)
+    shapes = {"rob": (10, tr), "obs": (to, 20), "groups": (n_groups, 6)}
+    for name, t in tables.items():
+        _require(t, f"tables[{name!r}]", dev, shapes[name])
+    if tr % ROB_TILE:
+        raise ValueError(f"rob needs a multiple of {ROB_TILE} columns, got {tr}")
+    smem = probe_smem_bytes("empty", tr, n_groups, to, tuple(tables), scratch, cpb)
+    ptrs = [tables[k].data_ptr() if k in tables else None for k in ("rob", "obs", "groups")]
     n, out = poses.shape[0], _out(poses)
     if n:
-        _call("rc_empty_probe", dev, poses.data_ptr(), n, ptrs[0], sizes[0], ptrs[1],
-              sizes[1], ptrs[2], sizes[2], scratch_floats, cpb, out.data_ptr())
+        resident = _k1_resident(dev.index, tr, n_groups) if scratch else 0
+        _call("rc_empty_probe", dev, poses.data_ptr(), n, ptrs[0], tr, ptrs[1], to, ptrs[2],
+              n_groups, int(scratch), cpb, out.data_ptr(), _work(dev).data_ptr(), smem,
+              resident)
         empty_probe_cuda.launches += 1
     return out
 
@@ -213,7 +363,8 @@ def invariant_probe_cuda(poses: torch.Tensor, table: torch.Tensor, mode: str) ->
     2 x SM-count persistent blocks that copy the whole table into shared
     memory once (cp.async); ``smem_invariant`` reads the 8 x 8 table from
     constant memory; ``auto`` reads row 0 with __ldg per configuration.
-    All take 256-thread blocks and ``k1_smem_bytes`` of shared memory."""
+    All take 256-thread blocks and ``probe_smem_bytes("invariant")`` of
+    shared memory."""
     if mode not in INVARIANT_MODES:
         raise ValueError(f"mode must be one of {sorted(INVARIANT_MODES)}, got {mode!r}")
     dev = _poses(poses)
@@ -222,7 +373,7 @@ def invariant_probe_cuda(poses: torch.Tensor, table: torch.Tensor, mode: str) ->
         raise ValueError(f"smem_invariant takes an 8 x 8 table, got {tuple(table.shape)}")
     if mode != "smem_invariant" and (table.dim() != 2 or table.shape[1] < PROBE_COLS):
         raise ValueError(f"table must be [rows, >={PROBE_COLS}], got {tuple(table.shape)}")
-    smem = k1_smem_bytes()
+    smem = probe_smem_bytes("invariant")
     if mode == "manual_dma" and 4 * table.numel() > smem:
         raise ValueError(f"table of {4 * table.numel()} bytes exceeds {smem} bytes")
     n, out = poses.shape[0], _out(poses)
@@ -251,14 +402,80 @@ def reset_launches() -> None:
 @dataclasses.dataclass(frozen=True)
 class Piece:
     """One probe run: ``kernel()`` launches the CUDA probe, ``plain()`` runs
-    its plain version on the same inputs; ``n`` configurations, ``cpb`` per
-    block step (for the per-block time)."""
+    its plain version on the same inputs; ``n`` configurations, ``cpb`` the
+    script's configurations per block step (P2's ``pose_only_cpb8``: 8);
+    ``probe`` (``pose``, ``empty``, ``invariant``) and ``args`` (the
+    wrapper's arguments, the poses among them) say what ``kernel`` calls."""
 
     name: str
     kernel: Callable[[], torch.Tensor]
     plain: Callable[[], torch.Tensor]
     n: int
     cpb: int = 1
+    probe: str = ""
+    args: dict = dataclasses.field(default_factory=dict)
+
+
+def piece_layout(piece: Piece) -> dict:
+    """The keyword arguments of `probe_map` and `probe_smem_bytes` for a P1
+    or P2 piece: its tables' widths and, for P2, its switches."""
+    a = piece.args
+    if piece.probe == "pose":
+        return {"tr": a["rob_base"].shape[1], "n_groups": a["n_groups"]}
+    if piece.probe == "empty":
+        tr, to, n_groups = _empty_tables(a["tables"])
+        return {"tr": tr, "n_groups": n_groups, "to": to, "tables": tuple(a["tables"]),
+                "scratch": a["scratch"], "cpb": a["cpb"]}
+    raise ValueError(f"no K1-shaped launch for probe {piece.probe!r}")
+
+
+def _piece_launch(piece: Piece) -> tuple[int, int, int, int]:
+    """(map code, variant, shared-memory bytes, blocks an SM held to) of a P1
+    or P2 piece's launch on its poses' card."""
+    lay = piece_layout(piece)
+    a = piece.args
+    variant = (4 if a["level"] == "transposed" else a["level"]) if piece.probe == "pose" \
+        else a["cpb"]
+    held = piece.probe == "pose" or lay["scratch"]
+    resident = _k1_resident(a["poses"].device.index, lay["tr"], lay["n_groups"]) if held else 0
+    return _PROBE_CODES[piece.probe], variant, probe_smem_bytes(piece.probe, **lay), resident
+
+
+def launch_shape(piece: Piece) -> dict:
+    """A P1 or P2 piece's launch shape on the current card, as its launch
+    computes it (`rc_probe_shape`): block, shared memory, blocks per SM from
+    the occupancy query (under the carveout that holds K1's residency, for
+    P1 and the ``scratch`` pieces), grid, and the instance's registers and
+    local (spill and stack) bytes."""
+    from ..kernels import _build
+
+    code, variant, smem, resident = _piece_launch(piece)
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(piece.args["poses"].device):
+        err = _build.library("stage_probes").rc_probe_shape(code, variant, piece.n, smem,
+                                                            resident, out)
+    if err:
+        raise RuntimeError(f"rc_probe_shape failed for {piece.name} (cudaError {err})")
+    return dict(zip(("block", "smem", "blocks_per_sm", "grid", "registers", "local_bytes"),
+                    list(out)))
+
+
+def compiled_map(piece: Piece) -> list[tuple[int, int]]:
+    """The (first float, floats) regions of a P1 or P2 piece's shared memory
+    as the built `csrc/stage_probes.cu` lays them out (`rc_probe_map`), to
+    hold against `probe_map`."""
+    from ..kernels import _build
+
+    lay = piece_layout(piece)
+    bits = sum(_TABLE_BITS[k] for k in lay.get("tables", ()))
+    cap = 64
+    out = (ctypes.c_int * (2 * cap))()
+    k = _build.library("stage_probes").rc_probe_map(
+        _PROBE_CODES[piece.probe], lay["tr"], lay.get("to", 0), lay["n_groups"], bits,
+        int(lay.get("scratch", False)), lay.get("cpb", 1), out, cap)
+    if not 0 <= k <= cap:
+        raise RuntimeError(f"rc_probe_map refused {piece.name} ({k})")
+    return [(out[2 * i], out[2 * i + 1]) for i in range(k)]
 
 
 def stage1_confs(n: int = PROBE_BATCH) -> np.ndarray:
@@ -268,11 +485,12 @@ def stage1_confs(n: int = PROBE_BATCH) -> np.ndarray:
 
 
 def stage_pieces(stage: int, device, rob_base: torch.Tensor | None = None,
-                 n: int = PROBE_BATCH) -> list[Piece]:
+                 n: int = PROBE_BATCH, n_groups: int = PROBE_TR // GROUP) -> list[Piece]:
     """The pieces of `scripts/bisect_stage{stage}.py`, with its names and on
     its inputs, as tensors on ``device``. Stage 1 poses the fused kernel's
     ``rob_base`` table (the alpha-1.0 pair's, [10, 1024]) over ``n`` rows of
-    its configurations; stages 2 and 3 draw their tables and poses from
+    its configurations, in K1's layout for ``n_groups`` obstacle groups (the
+    alpha obstacle's 8); stages 2 and 3 draw their tables and poses from
     ``default_rng(0)`` in the scripts' order (`bisect_stage2.py:32-35, 83`,
     `bisect_stage3.py:34-37`), in this package's table layout."""
     device = torch.device(device)
@@ -288,8 +506,9 @@ def stage_pieces(stage: int, device, rob_base: torch.Tensor | None = None,
         for level in POSE_LEVELS:
             name = "mini_writes_transposed" if level == "transposed" else f"mini_level{level}"
             pieces.append(Piece(
-                name, lambda lv=level: pose_probe_cuda(poses, rob_base, lv),
-                lambda lv=level: pose_probe_reference(poses, rob_base, lv), n))
+                name, lambda lv=level: pose_probe_cuda(poses, rob_base, lv, n_groups),
+                lambda lv=level: pose_probe_reference(poses, rob_base, lv), n, 1, "pose",
+                {"poses": poses, "rob_base": rob_base, "level": level, "n_groups": n_groups}))
         return pieces
     if stage == 2:
         rng = np.random.default_rng(0)
@@ -299,21 +518,22 @@ def stage_pieces(stage: int, device, rob_base: torch.Tensor | None = None,
         rob = dev(rng.normal(size=(16, PROBE_TR))[:10])
         obs = dev(rng.normal(size=(PROBE_TR, 24))[:, :20])
         groups = dev(rng.normal(size=(6, PROBE_TR))[:, : PROBE_TR // GROUP].T)
-        runs = [("pose_only", PROBE_BATCH, (), False, 1),
-                ("pose_only_scratch", PROBE_BATCH, (), True, 1),
-                ("pose+rob", PROBE_BATCH, (rob,), False, 1),
-                ("pose+obs", PROBE_BATCH, (obs,), False, 1),
-                ("pose+rows", PROBE_BATCH, (groups,), False, 1),
-                ("all_inputs", PROBE_BATCH, (rob, obs, groups), True, 1),
-                ("pose_only_B65536", 65536, (), False, 1),
-                ("pose_only_B4096", 4096, (), False, 1),
-                ("pose_only_cpb8", PROBE_BATCH, (), False, 8)]
+        runs = [("pose_only", PROBE_BATCH, {}, False, 1),
+                ("pose_only_scratch", PROBE_BATCH, {}, True, 1),
+                ("pose+rob", PROBE_BATCH, {"rob": rob}, False, 1),
+                ("pose+obs", PROBE_BATCH, {"obs": obs}, False, 1),
+                ("pose+rows", PROBE_BATCH, {"groups": groups}, False, 1),
+                ("all_inputs", PROBE_BATCH, {"rob": rob, "obs": obs, "groups": groups}, True, 1),
+                ("pose_only_B65536", 65536, {}, False, 1),
+                ("pose_only_B4096", 4096, {}, False, 1),
+                ("pose_only_cpb8", PROBE_BATCH, {}, False, 8)]
         pieces = []
         for name, b, tables, scratch, cpb in runs:
             poses = dev(rng.normal(size=(b, 16)))  # drawn in the script's order
             pieces.append(Piece(
                 name, lambda p=poses, t=tables, s=scratch, c=cpb: empty_probe_cuda(p, t, s, c),
-                lambda p=poses: empty_probe_reference(p), b, cpb))
+                lambda p=poses: empty_probe_reference(p), b, cpb, "empty",
+                {"poses": poses, "tables": tables, "scratch": scratch, "cpb": cpb}))
         return pieces
     if stage == 3:
         rng = np.random.default_rng(0)
@@ -324,6 +544,7 @@ def stage_pieces(stage: int, device, rob_base: torch.Tensor | None = None,
                 ("smem_invariant", small, "smem_invariant"),
                 ("auto_invariant_vmem", table, "auto")]
         return [Piece(name, lambda t=t, m=m: invariant_probe_cuda(poses, t, m),
-                      lambda t=t, m=m: invariant_probe_reference(poses, t, m), PROBE_BATCH)
+                      lambda t=t, m=m: invariant_probe_reference(poses, t, m), PROBE_BATCH, 1,
+                      "invariant", {"poses": poses, "table": t, "mode": m})
                 for name, t, m in runs]
     raise ValueError(f"stage must be 1, 2 or 3, got {stage!r}")

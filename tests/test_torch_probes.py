@@ -1,6 +1,7 @@
 """The port's probe kernels P1-P3 (`robocheck_tpu_torch.profiling.probes`):
-their plain PyTorch versions against the JAX package's probes, and the CUDA
-wrappers' refusal of CPU tensors.
+their plain PyTorch versions against the JAX package's probes, the CUDA
+wrappers' refusal of CPU tensors, and P1's and P2's shared-memory maps and
+sizes against K1's layout (`kernels/megakernel.smem_bytes`).
 
 The TPU probes live inside `main()` of `scripts/bisect_stage{1,2,3}.py` and
 cannot be imported without editing those scripts, so P1's computation is
@@ -206,3 +207,77 @@ def test_stage_variants_refuse_cpu_tensors_and_unknown_stages(stage):
     assert mk.check_poses_stage_cuda.launches == before
     # The codes of `rc_megakernel_check_stage` in csrc/megakernel.cu.
     assert mk.STAGES[stage] == {"nosweep": 1, "maskonly": 2, "planesonly": 3, "nodiv": 4}[stage]
+
+
+def _disjoint_inside(regions, floats):
+    """Whether the (name, start, size) regions lie inside [0, floats) and
+    overlap none of the others."""
+    spans = sorted((start, start + size) for _, start, size in regions)
+    return (spans[0][0] >= 0 and spans[-1][1] <= floats
+            and all(a[1] <= b[0] for a, b in zip(spans, spans[1:])))
+
+
+@pytest.mark.parametrize("tables", ["alpha", "probe_tr"])
+def test_pose_probe_smem_map_lies_inside_k1s(tables):
+    if tables == "alpha":
+        prep = mk.MegaKernelPrep.build(load_obj(assets.alpha_robot_path()),
+                                       load_obj(assets.alpha_obstacle_path()))
+        tr, n_groups = prep.rob_base.shape[1], prep.obs_groups.shape[0]
+    else:
+        tr, n_groups = probes.PROBE_TR, probes.PROBE_TR // mk.GROUP
+    regions = probes.probe_map("pose", tr, n_groups)
+    k1_bytes = mk.smem_bytes(tr, n_groups)
+    assert _disjoint_inside(regions, k1_bytes // 4)
+    size = {name: floats for name, _, floats in regions}
+    # 32 tiles of 32 triangles: K1's padded slots, 9 fields of 32 x 33 floats.
+    assert size["rob"] == 9 * 1056 and size["realw"] == 32
+    for t in range(4):
+        assert (size[f"ctl{t}"], size[f"pose{t}"], size[f"tile_box{t}"], size[f"c0x{t}"],
+                size[f"part{t}"]) == (1, 16, 192, 1056, 768)
+    # The c0x fields take the space of K1's obstacle and group boxes, which
+    # P1 does not stage; the rest sits where K1 keeps it, up to K1's end.
+    start = {name: first for name, first, _ in regions}
+    assert start["c0x0"] == 9 * 1056 and start["c0x3"] + 1056 <= 9 * 1056 + 6 * 128 * n_groups
+    assert max(first + floats for _, first, floats in regions) * 4 == k1_bytes
+    assert probes.probe_smem_bytes("pose", tr, n_groups) == k1_bytes
+
+
+def test_probe_smem_bytes_is_k1s_for_p1_and_scratch_pieces(stage1_inputs):
+    _, _, _, rob_base = stage1_inputs
+    k1_bytes = mk.smem_bytes(probes.PROBE_TR, probes.PROBE_TR // mk.GROUP)
+    for piece in probes.stage_pieces(1, "cpu", rob_base, n=B):
+        a = piece.args
+        assert piece.probe == "pose" and a["n_groups"] == 8
+        assert probes.probe_smem_bytes("pose", a["rob_base"].shape[1], a["n_groups"]) == k1_bytes
+    for piece in probes.stage_pieces(2, "cpu"):
+        a = piece.args
+        assert piece.probe == "empty" and a["poses"].shape == (piece.n, 16)
+        smem = probes.probe_smem_bytes("empty", tables=tuple(a["tables"]),
+                                       scratch=a["scratch"], cpb=a["cpb"])
+        regions = probes.probe_map("empty", tables=tuple(a["tables"]), scratch=a["scratch"],
+                                   cpb=a["cpb"])
+        assert _disjoint_inside(regions, smem // 4)
+        rows = 16 if a["cpb"] == 8 else 4
+        assert [n for n, _, _ in regions if n.startswith("pose")] == [
+            f"pose{r}" for r in range(rows)]
+        staged = {n for n, _, _ in regions if not n[-1].isdigit()}
+        assert staged == set(a["tables"]) | ({"realw"} if "rob" in a["tables"] else set())
+        if a["scratch"]:
+            assert smem == k1_bytes
+        else:  # only the staged tables and the row slots
+            assert smem == 4 * sum(f for _, _, f in regions) < k1_bytes
+    assert probes.probe_smem_bytes("invariant") == 79936
+
+
+def test_probe_smem_bytes_refuses_what_k1s_layout_cannot_hold():
+    with pytest.raises(ValueError, match="cpb"):
+        probes.probe_smem_bytes("empty", scratch=True, cpb=8)
+    with pytest.raises(ValueError, match="obstacle rows"):
+        probes.probe_smem_bytes("empty", to=256, tables=("obs",), scratch=True)
+    # 2,048 robot triangles' c0x fields (4 x 2 x 1,056 floats) do not fit
+    # one obstacle group's boxes.
+    with pytest.raises(ValueError, match="do not fit"):
+        probes.probe_smem_bytes("pose", 2048, 1)
+    assert probes.probe_smem_bytes("pose", 2048, 16) == mk.smem_bytes(2048, 16)
+    with pytest.raises(ValueError, match="probe"):
+        probes.probe_smem_bytes("stage1")
