@@ -56,12 +56,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      0), each launched once with the launch counters set to 0 just before,
      then timed by its device duration from a trace (`timers.kernel_ms`, the
      kernel table's figure) and by CUDA events around back-to-back calls,
-     with its plain version by CUDA events; each P1 and P2 piece's launch
+     with its plain version by CUDA events; each P1-P3 piece's launch
      shape (block, shared memory, blocks per SM, grid, registers, local
-     bytes) beside K1's packed instance on the same tables, its shared-memory
-     map as built equal to `probes.probe_map`'s, P1 and P2's scratch pieces
-     at K1's shared memory and blocks per SM, 0 spill bytes in every probe
-     instance; K1 and P1 level 2 on 16,384 rows at x = 1e9 (every K1 row a
+     bytes) beside K1's packed instance on the same tables (512 threads, 0
+     local bytes), its shared-memory map as built equal to
+     `probes.probe_map`'s, P1 and P2's scratch pieces at K1's shared memory,
+     P3's at `probes.probe_smem_bytes("invariant")` (K1's plus its table's
+     overhang), all of these at K1's blocks per SM and grid, 0 spill bytes in
+     every probe instance; K1 and P1 level 2 on 16,384 rows at x = 1e9 (every K1 row a
      broad-phase miss) by trace;
   7. the oversized-mesh path: `smem_bytes` against the compiled layout's
      `rc_megakernel_smem_bytes` on 8 shapes (the chunk caps among them) and
@@ -2004,10 +2006,11 @@ def ptxas_info(log: str, entry: str) -> dict:
 
 
 def phase6_shapes(pieces, lib, built, card: str) -> None:
-    """Phase 6: every P1 and P2 piece's launch shape beside K1's packed
-    instance on the same tables; its shared-memory map against the CPU
-    replay; P1 and P2's scratch pieces at K1's shared memory and blocks per
-    SM; 0 spill bytes in every probe instance."""
+    """Phase 6: every P1-P3 piece's launch shape beside K1's packed instance
+    on the same tables (512 threads, 0 local bytes); its shared-memory map
+    against the CPU replay; P1 and P2's scratch pieces at K1's shared memory,
+    P3's pieces at `probes.probe_smem_bytes("invariant")`, and all of these
+    at K1's blocks per SM and grid; 0 spill bytes in every probe instance."""
     from robocheck_tpu_torch.profiling import probes
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2017,7 +2020,7 @@ def phase6_shapes(pieces, lib, built, card: str) -> None:
     print(f"  ptxas, every probe instance: {spills or '0 bytes spill stores and loads'}; "
           f"K1 <false,kFull>: {k1_ptx}")
     require(not spills, f"a probe instance spills registers: {spills}")
-    for st in (1, 2):
+    for st in (1, 2, 3):
         for piece in pieces[st]:
             lay = probes.piece_layout(piece)
             tr, n_groups = lay["tr"], lay["n_groups"]
@@ -2029,13 +2032,18 @@ def phase6_shapes(pieces, lib, built, card: str) -> None:
             print(f"  [{card}] {piece.name} [{piece.n}]: {shape}; K1 on its tables "
                   f"({tr}, {n_groups} groups): {k1}")
             require(shape["local_bytes"] == 0, f"{piece.name}: {shape['local_bytes']} local bytes")
+            require(shape["block"] == k1["block"], f"{piece.name}: {shape['block']} threads")
             regions = [(first, size) for _, first, size in probes.probe_map(piece.probe, **lay)]
             require(probes.compiled_map(piece) == regions,
                     f"{piece.name}: the built shared-memory map differs from probes.probe_map")
-            if st == 1 or lay["scratch"]:
-                require(shape["smem"] == k1["smem"] and shape["blocks_per_sm"] == per_sm,
-                        f"{piece.name}: shared memory / blocks per SM {shape['smem']} / "
-                        f"{shape['blocks_per_sm']}, K1's {k1['smem']} / {per_sm}")
+            if st == 2 and not lay["scratch"]:
+                continue
+            smem = probes.probe_smem_bytes("invariant", **lay) if st == 3 else k1["smem"]
+            require(shape["smem"] == smem and shape["blocks_per_sm"] == per_sm
+                    and shape["grid"] == k1["grid"],
+                    f"{piece.name}: shared memory / blocks per SM / grid {shape['smem']} / "
+                    f"{shape['blocks_per_sm']} / {shape['grid']}, want {smem} / {per_sm} / "
+                    f"{k1['grid']} (K1's blocks per SM and grid)")
 
 
 def main() -> None:

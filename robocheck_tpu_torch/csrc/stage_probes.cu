@@ -8,12 +8,12 @@
 //      toggled (`empty_probe`);
 //   P3 `kern_manual`, `kern_smem`, `kern_auto` (scripts/bisect_stage3.py:
 //      56,81,100): three ways to bring an invariant table into the kernel
-//      (`invariant_dma`, `invariant_const`, `invariant_ldg`).
+//      (`invariant_probe`, an instance a mode).
 // Their plain PyTorch versions are in robocheck_tpu_torch/profiling/probes.py;
 // each probe computes the same float32 operations as its plain version, so the
 // two agree exactly.
 //
-// P1 and P2 run on K1's launch shape (csrc/megakernel.cu `launch`), so that
+// P1-P3 run on K1's launch shape (csrc/megakernel.cu `launch`), so that
 // they split the cost of the kernel that runs: 512-thread blocks, one
 // resident per SM, of 4 teams of 4 warps; a grid of min(row groups,
 // resident blocks x SMs) with the occupancy queried at the shared memory
@@ -21,12 +21,13 @@
 // cudaMemsetAsync in each launch), the next one fetched ahead; the row's 16
 // pose floats read into the team's shared slot between two named team
 // barriers; output rows written as 16-byte stores. P1 and P2's `scratch`
-// pieces allocate exactly K1's shared memory for the tables and hold K1's
-// blocks per SM: K1's one block an SM comes from its registers (126-128 a
-// thread), which the probes do not need, so their launch also sets the
-// shared-memory carveout to the smallest that holds K1's resident blocks.
-// K1's shared-memory layout and device helpers are copied here (namespace
-// k1), operation for operation.
+// pieces allocate exactly K1's shared memory for the tables, P3 K1's plus
+// its table's overhang, and all of them hold K1's blocks per SM: K1's one
+// block an SM comes from its registers (126-128 a thread), which the probes
+// do not need, so their launch also sets the shared-memory carveout to the
+// smallest that holds K1's resident blocks. K1's shared-memory layout and
+// device helpers are copied here (namespace k1), operation for operation,
+// and so are K4's bulk-copy and mbarrier helpers (csrc/clearance.cu).
 //
 // What bounds each on an H100, and what the design does about it:
 //   * P2 moves 64 B of pose in and 512 B out a row and computes nothing: it
@@ -52,11 +53,24 @@
 //     read-back of 128 of them by columns (4 consecutive triangles a thread,
 //     8-way bank conflicts). K1's padding serves its sweep, where lane =
 //     triangle.
-//   * P3 keeps the launch shape of K1's first design (256-thread blocks, one
-//     configuration a block step, ~78 KB of shared memory): it is bound by
-//     L2 and L1 latency; its modes differ only in where the table comes
-//     from: `cp.async` into shared memory once per persistent block (2 x SM
-//     count blocks), the constant cache, or `__ldg` per configuration.
+//   * P3 runs on the same shape, over P2's skeleton, with one read of a
+//     configuration-invariant table a row (the 128 floats of its row 0,
+//     which the row's 128 multiplies take): its modes differ only in where
+//     the table comes from. `manual_dma` copies the whole [16, Tr] table
+//     into shared memory once per block with the Tensor Memory
+//     Accelerator's bulk copy (`cp.async.bulk`, completed on an mbarrier:
+//     one thread issues it, no thread spends a register on it), and serves
+//     rows from there; `smem_invariant` reads the 8 x 8 table's first word
+//     from constant memory, one broadcast a row (the TPU's scalar memory);
+//     `auto` reads row 0 through the read-only path (`ld.global.nc`), as K1
+//     reads its obstacle rows. Each mode's row read is one volatile load, so
+//     the compiler keeps it in the row loop. P3 is bound by P2's skeleton:
+//     on an H100 (700 W) the row's read hides under it from every source,
+//     and `manual_dma`'s 64 KB copy a block, from L2 after the first block,
+//     adds ~0.6 us a launch (PERF.md section 6). Its shared memory is
+//     K1's layout with the table at float 0 and the team slots moved past
+//     its end: K1's allocation plus the table's overhang over K1's tables,
+//     so that it holds K1's blocks per SM as P1 does.
 //
 // Level 1 keeps the corner transforms of every triangle live by folding their
 // bits into a word that is stored only when rt_false (an argument, always 0)
@@ -65,21 +79,17 @@
 //
 // Arithmetic: built like megakernel.cu, -fmad=false and no fast math.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // P3's block (K1's first design)
 constexpr int kOutCols = 128;   // output row: int32 [B, 128], as the TPU probes
 constexpr int kTransposed = 4;  // pose_probe level of the stride-32 stores
 constexpr float kBig = 3.0e38f;
 
-int grid_for(int64_t blocks) { return int(blocks < 65535 ? blocks : 65535); }
-
 // ---- K1's geometry, layout and pose-pass helpers (csrc/megakernel.cu), and
-// the probes P1 and P2 on K1's launch shape. ----
+// the probes P1-P3 on K1's launch shape. ----
 namespace k1 {
 
 constexpr int kWarps = 4;  // warps sharing one row
@@ -445,6 +455,158 @@ empty_probe(const float* __restrict__ poses, int n, const float* __restrict__ ro
   }
 }
 
+// ---- P3: an invariant table three ways (bisect_stage3.py:55-115). ----
+constexpr int kDma = 0, kConst = 1, kLdg = 2;  // modes, as INVARIANT_MODES codes them
+constexpr int kTableRows = 16;                 // the script's [16, Tr] table
+// The most bytes one mbarrier transaction counts (its tx-count, 2^20 - 1),
+// to a multiple of 16: the largest bulk copy issued.
+constexpr unsigned kTxMax = (1u << 20) - 16;
+
+// P3's shared memory (floats): the [16, tr] table at 0, then K1's layout
+// for (tr, n_groups) from its team slots on, `shift` floats later, where
+// the table overhangs K1's tables (656 floats for the probes' tables). The
+// bulk copy's mbarrier takes 8 bytes of team 0's control words, past its
+// row word.
+struct InvariantMap {
+  Layout L;
+  int table, shift;
+  __host__ __device__ InvariantMap(int tr, int n_groups)
+      : L(tr, n_groups * kGroup, n_groups), table(kTableRows * tr),
+        shift(kTableRows * tr > L.ctl(0) ? kTableRows * tr - L.ctl(0) : 0) {}
+  __host__ __device__ int ctl(int t) const { return L.ctl(t) + shift; }
+  __host__ __device__ int pose(int t) const { return L.pose(t) + shift; }
+  __host__ __device__ int bar() const { return (ctl(0) + 3) & ~1; }  // 8-byte aligned
+  __host__ __device__ int end() const { return ctl(kRows); }
+};
+
+// K4's bulk-copy and mbarrier helpers (csrc/clearance.cu).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return unsigned(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Arrive and expect `bytes` of copies to complete the phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// past 2^35 cycles (~17 s) traps, a launch failure the wrapper raises,
+// rather than hold the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 35)) __trap();
+  } while (!done);
+}
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global memory into shared `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A row's table read, one volatile load each: 16 bytes of shared memory,
+// 16 bytes through the read-only path, one word of constant memory (at
+// state-space addresses).
+__device__ __forceinline__ float4 ld_shared4(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(smem_u32(p)));
+  return v;
+}
+__device__ __forceinline__ float4 ld_nc4(size_t global_addr) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(global_addr));
+  return v;
+}
+__device__ __forceinline__ float ld_const(size_t const_addr) {
+  float v;
+  asm volatile("ld.const.f32 %0, [%1];\n" : "=f"(v) : "l"(const_addr));
+  return v;
+}
+
+__constant__ float c_table[64];  // the 8 x 8 table of `smem_invariant`
+
+// P2's skeleton (K1's team a row, the row counter, the pose between two team
+// barriers), and a row's table read by the 32 writers:
+//   kDma:   out[b][l] = int(pose0 * tab[0][l]), tab bulk-copied into shared
+//           memory (table_floats of it) once per block;
+//   kConst: out[b][l] = int(pose0 * tab[0][0]), tab in constant memory;
+//   kLdg:   out[b][l] = int(pose0 * tab[0][l]), row 0 by ld.global.nc.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+invariant_probe(const float* __restrict__ poses, int n, const float* __restrict__ table,
+                int table_floats, InvariantMap m, int32_t* __restrict__ out,
+                int* __restrict__ work) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int team = tid / kTeamThreads, ttid = tid % kTeamThreads;
+  if constexpr (kMode == kDma) {
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + m.bar());
+    if (tid == 0) {
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      const unsigned bytes = 4u * unsigned(table_floats);
+      mbar_arrive_tx(bar, bytes);
+      for (unsigned at = 0; at < bytes; at += kTxMax)
+        bulk_copy(smem + at / 4, table + at / 4, bytes - at < kTxMax ? bytes - at : kTxMax,
+                  bar);
+    }
+    __syncthreads();  // the barrier is initialised before any thread waits on it
+    mbar_wait(bar, 0);
+  }
+  const size_t row0 = __cvta_generic_to_global(table) + 16 * size_t(ttid);
+  const size_t tab00 = __cvta_generic_to_constant(c_table);
+  volatile int* ctl = reinterpret_cast<int*>(smem + m.ctl(team));
+  float* pose = smem + m.pose(team);
+  int next_row = 0;
+  if (ttid == 0) next_row = atomicAdd(work, 1);
+  for (;;) {
+    if (ttid == 0) {
+      ctl[0] = next_row;
+      next_row = atomicAdd(work, 1);
+    }
+    team_sync<kWarps>(team);
+    const int b = ctl[0];
+    if (b >= n) break;
+    if (ttid < 16) pose[ttid] = __ldg(poses + size_t(b) * 16 + ttid);
+    team_sync<kWarps>(team);
+    if (ttid < kOutCols / 4) {
+      const float p0 = pose[0];
+      float4 t;
+      if constexpr (kMode == kDma) {
+        t = ld_shared4(smem + 4 * ttid);
+      } else if constexpr (kMode == kLdg) {
+        t = ld_nc4(row0);
+      } else {
+        const float c = ld_const(tab00);
+        t = make_float4(c, c, c, c);
+      }
+      reinterpret_cast<int4*>(out + size_t(b) * kOutCols)[ttid] =
+          make_int4(int32_t(p0 * t.x), int32_t(p0 * t.y), int32_t(p0 * t.z), int32_t(p0 * t.w));
+    }
+  }
+}
+
 // K1's launch shape for `kernel` over n rows, `rows` in flight a block, with
 // `smem` bytes of dynamic shared memory: sets the attribute and queries the
 // occupancy as K1's `launch` does; grid = min(row groups, resident blocks x
@@ -522,6 +684,23 @@ bool empty_args_ok(int64_t n, int tr, int to, int n_groups, bool scratch, int cp
          to >= 0 && to < 65536 && n_groups >= 0 && (cpb == 1 || (cpb == 8 && !scratch));
 }
 
+// P3's layout for (tr, n_groups), and a table of table_floats for `mode`:
+// the [16, tr] table's region at most (and whole float4s) for kDma, the
+// 8 x 8 table for kConst, at least row 0's 128 floats for kDma and kLdg.
+bool invariant_args_ok(int64_t n, int tr, int n_groups, int mode, int table_floats) {
+  if (!(n <= (int64_t(1) << 30) && tr >= kOutCols && tr % kRobTile == 0 && tr < 65536 &&
+        n_groups > 0 && n_groups * kGroup < 65536))
+    return false;
+  switch (mode) {
+    case kDma:
+      return table_floats >= kOutCols && table_floats % 4 == 0 &&
+             table_floats <= InvariantMap(tr, n_groups).table;
+    case kConst: return table_floats == 64;
+    case kLdg: return table_floats >= kOutCols;
+    default: return false;
+  }
+}
+
 // Rows in flight a block of empty_probe: 4 teams, or 16 warps at cpb 8.
 int empty_rows(int cpb) { return cpb == 8 ? kThreads / 32 : kRows; }
 
@@ -531,7 +710,8 @@ int64_t pose_map_bytes(int tr, int n_groups) {
   return 4 * int64_t(PoseMap(tr, n_groups).part_end(kRows - 1));
 }
 
-// The P1 instance of a level, the P2 instance of a mapping (nullptr if none).
+// The P1 instance of a level, the P2 instance of a mapping, the P3 instance
+// of a mode (nullptr if none).
 using PoseKernel = void (*)(const float*, int, const float*, int, int, int, int32_t*, int*);
 using EmptyKernel = void (*)(const float*, int, const float*, const float*, const float*,
                              EmptyMap, int32_t*, int*);
@@ -548,51 +728,18 @@ PoseKernel pose_kernel(int level) {
 EmptyKernel empty_kernel(int cpb) {
   return cpb == 1 ? empty_probe<kWarps> : cpb == 8 ? empty_probe<1> : nullptr;
 }
+using InvariantKernel = void (*)(const float*, int, const float*, int, InvariantMap, int32_t*,
+                                 int*);
+InvariantKernel invariant_kernel(int mode) {
+  switch (mode) {
+    case kDma: return invariant_probe<kDma>;
+    case kConst: return invariant_probe<kConst>;
+    case kLdg: return invariant_probe<kLdg>;
+    default: return nullptr;
+  }
+}
 
 }  // namespace k1
-
-// ---- P3: an invariant table three ways (bisect_stage3.py:55-115). ----
-__constant__ float c_table[64];  // the 8 x 8 table of `invariant_const`
-
-// Persistent blocks copy table row 0 (and the rest of the [rows, cols]
-// table) into shared memory once with cp.async, then stride over
-// configurations: out[b][l] = int(pose0 * tab[0][l]).
-__global__ void __launch_bounds__(kThreads)
-invariant_dma(const float* __restrict__ poses, int64_t n, const float* __restrict__ table,
-              int table_floats, int32_t* __restrict__ out) {
-  extern __shared__ float s_tab[];
-  for (int i = threadIdx.x * 4; i < table_floats; i += kThreads * 4)
-    __pipeline_memcpy_async(s_tab + i, table + i, 16);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  const int tid = threadIdx.x;
-  for (int64_t b = blockIdx.x; b < n; b += gridDim.x)
-    if (tid < kOutCols) out[b * kOutCols + tid] = int32_t(poses[b * 16] * s_tab[tid]);
-}
-
-// out[b][l] = int(pose0 * tab[0][0]) from the constant cache.
-__global__ void __launch_bounds__(kThreads)
-invariant_const(const float* __restrict__ poses, int64_t n, int32_t* __restrict__ out) {
-  const int tid = threadIdx.x;
-  for (int64_t b = blockIdx.x; b < n; b += gridDim.x)
-    if (tid < kOutCols) out[b * kOutCols + tid] = int32_t(poses[b * 16] * c_table[0]);
-}
-
-// out[b][l] = int(pose0 * tab[0][l]), row 0 read with __ldg per configuration.
-__global__ void __launch_bounds__(kThreads)
-invariant_ldg(const float* __restrict__ poses, int64_t n, const float* __restrict__ table,
-              int32_t* __restrict__ out) {
-  const int tid = threadIdx.x;
-  for (int64_t b = blockIdx.x; b < n; b += gridDim.x)
-    if (tid < kOutCols)
-      out[b * kOutCols + tid] = int32_t(poses[b * 16] * __ldg(table + tid));
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-}
 
 }  // namespace
 
@@ -603,7 +750,9 @@ extern "C" {
 // arguments the probe refuses. probe 0 (P1): rob, realw, then per team row
 // word, pose, tile boxes, partial boxes, c0x field. probe 1 (P2): of rob,
 // realw, obox, gbox those staged (tables: bit 0 rob, 1 obs, 2 groups), then
-// per row in flight its row word and pose.
+// per row in flight its row word and pose. probe 2 (P3; to, tables,
+// scratch and cpb unused): the [16, tr] table, the mbarrier, then per team
+// its row word and pose.
 int rc_probe_map(int probe, int tr, int to, int n_groups, int tables, int scratch, int cpb,
                  int* out, int cap) {
   int k = 0;
@@ -626,6 +775,17 @@ int rc_probe_map(int probe, int tr, int to, int n_groups, int tables, int scratc
       put(L.tile_box(t), 6 * L.n_tiles);
       put(L.scratch(t), k1::kWarps * 6 * 32);
       put(M.c0x(t), L.fs);
+    }
+    return k;
+  }
+  if (probe == 2) {
+    if (!k1::invariant_args_ok(1, tr, n_groups, k1::kLdg, kOutCols)) return -1;
+    const k1::InvariantMap m(tr, n_groups);
+    put(0, m.table);
+    put(m.bar(), 2);
+    for (int t = 0; t < k1::kRows; ++t) {
+      put(m.ctl(t), 1);
+      put(m.pose(t), 16);
     }
     return k;
   }
@@ -680,8 +840,9 @@ int rc_empty_probe(const float* poses, int64_t n, const float* rob, int tr, cons
                     stream, poses, int(n), rob, obs, groups, m, out, work);
 }
 
-// The launch shape of a P1 level (probe 0, variant = level) or a P2 mapping
-// (probe 1, variant = cpb) over n rows with smem bytes and resident, as
+// The launch shape of a P1 level (probe 0, variant = level), a P2 mapping
+// (probe 1, variant = cpb) or a P3 mode (probe 2, variant = mode) over n
+// rows with smem bytes and resident, as
 // the launch computes it, and the instance's registers and local bytes:
 // out[6] = {block, smem, blocks per SM, grid, registers, local bytes}.
 int rc_probe_shape(int probe, int variant, int64_t n, int64_t smem, int resident, int* out) {
@@ -691,48 +852,33 @@ int rc_probe_shape(int probe, int variant, int64_t n, int64_t smem, int resident
   if (probe == 1 && k1::empty_kernel(variant) != nullptr)
     return k1::shape_query(k1::empty_kernel(variant), n, k1::empty_rows(variant), size_t(smem),
                            resident, out);
+  if (probe == 2 && k1::invariant_kernel(variant) != nullptr)
+    return k1::shape_query(k1::invariant_kernel(variant), n, k1::kRows, size_t(smem), resident,
+                           out);
   return cudaErrorInvalidValue;
 }
 
-// P3: poses [n,16] -> out [n,128] int32. mode 0: `table` [rows, >=128] f32
-// copied whole into shared memory by 2 x SM-count persistent blocks (smem
-// bytes >= its size); mode 1: `table` is the 8 x 8 table, copied to
-// constant memory on `stream` first; mode 2: row 0 of `table` read with
-// __ldg per configuration.
+// P3: poses [n,16] -> out [n,128] int32 (16-byte aligned), on K1's launch
+// shape. mode 0: `table` (table_floats, whole float4s, at most [16, tr])
+// bulk-copied into shared memory once per block; mode 1: `table` is the
+// 8 x 8 table, copied to constant memory on `stream` first; mode 2: row 0 of
+// `table` (at least 128 floats) read through the read-only path a row. tr
+// and n_groups set the layout; work, smem (at least the end of the map) and
+// resident as rc_pose_probe's.
 int rc_invariant_probe(const float* poses, int64_t n, const float* table, int table_floats,
-                       int mode, int32_t* out, int64_t smem, cudaStream_t stream) {
+                       int mode, int tr, int n_groups, int32_t* out, int* work, int64_t smem,
+                       int resident, cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
-  cudaError_t err;
-  switch (mode) {
-    case 0: {
-      if (table_floats % 4 != 0 || smem < 4 * int64_t(table_floats))
-        return cudaErrorInvalidValue;
-      int dev = 0, sms = 0;
-      if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-          cudaSuccess)
-        return err;
-      if ((err = set_smem(invariant_dma, smem)) != cudaSuccess) return err;
-      const int64_t blocks = 2 * int64_t(sms);
-      invariant_dma<<<grid_for(blocks < n ? blocks : n), kThreads, smem, stream>>>(
-          poses, n, table, table_floats, out);
-      return cudaGetLastError();
-    }
-    case 1:
-      if (table_floats != 64) return cudaErrorInvalidValue;
-      if ((err = cudaMemcpyToSymbolAsync(c_table, table, 64 * sizeof(float), 0,
-                                         cudaMemcpyDeviceToDevice, stream)) != cudaSuccess)
-        return err;
-      if ((err = set_smem(invariant_const, smem)) != cudaSuccess) return err;
-      invariant_const<<<grid_for(n), kThreads, smem, stream>>>(poses, n, out);
-      return cudaGetLastError();
-    case 2:
-      if ((err = set_smem(invariant_ldg, smem)) != cudaSuccess) return err;
-      invariant_ldg<<<grid_for(n), kThreads, smem, stream>>>(poses, n, table, out);
-      return cudaGetLastError();
-    default:
-      return cudaErrorInvalidValue;
+  if (!k1::invariant_args_ok(n, tr, n_groups, mode, table_floats)) return cudaErrorInvalidValue;
+  const k1::InvariantMap m(tr, n_groups);
+  if (smem < 4 * int64_t(m.end())) return cudaErrorInvalidValue;
+  if (mode == k1::kConst) {
+    const cudaError_t err = cudaMemcpyToSymbolAsync(k1::c_table, table, 64 * sizeof(float), 0,
+                                                    cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess) return err;
   }
+  return k1::launch(k1::invariant_kernel(mode), n, k1::kRows, smem, resident, work, stream,
+                    poses, int(n), table, table_floats, m, out, work);
 }
 
 }  // extern "C"

@@ -124,7 +124,10 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
         # work, smem, resident, stream
         _bind(lib.rc_empty_probe, i32,
               [ptr, i64, ptr, i32, ptr, i32, ptr, i32, i32, i32, ptr, ptr, i64, i32, ptr])
-        _bind(lib.rc_invariant_probe, i32, [ptr, i64, ptr, i32, i32, ptr, i64, ptr])
+        # poses, n, table, table_floats, mode, tr, n_groups, out, work, smem,
+        # resident, stream
+        _bind(lib.rc_invariant_probe, i32,
+              [ptr, i64, ptr, i32, i32, i32, i32, ptr, ptr, i64, i32, ptr])
     elif name == "clearance":
         # rows, ids, k, blocks, nb, block, tab, nt, gbox, always, ng, gsize,
         # slack, out, visits, tasks, scratch, stream

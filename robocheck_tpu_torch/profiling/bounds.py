@@ -162,8 +162,10 @@ def probe_work(piece: str, n: int, tr: int = 1024) -> tuple[float, float]:
     ``n`` pose rows: each reads its pose rows (64 B) and writes int32 [n, 128]
     (512 B a row). mini_level3 (P1) also reads rob_base [10, tr] and poses
     every triangle of it (POSE_OPS each); pose_only (P2) computes nothing
-    else; auto_invariant_vmem (P3) reads one 128-float table row and does 128
-    multiplies a row."""
+    else; of P3's pieces, auto_invariant_vmem reads one 128-float table row
+    and does 128 multiplies a row, manual_dma_rob reads the whole [16, tr]
+    table once and does the same multiplies, smem_invariant reads the 8 x 8
+    table (256 B) once and does one multiply a row (a row holds one value)."""
     io = n * (64 + 512)
     if piece == "mini_level3":
         return float(io + 4 * 10 * tr), float(n * tr * POSE_OPS)
@@ -171,6 +173,10 @@ def probe_work(piece: str, n: int, tr: int = 1024) -> tuple[float, float]:
         return float(io), 0.0
     if piece == "auto_invariant_vmem":
         return float(io + 4 * 128), float(n * 128)
+    if piece == "manual_dma_rob":
+        return float(io + 4 * 16 * tr), float(n * 128)
+    if piece == "smem_invariant":
+        return float(io + 4 * 64), float(n)
     raise ValueError(f"no work model for probe piece {piece!r}")
 
 

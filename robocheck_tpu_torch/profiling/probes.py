@@ -14,12 +14,13 @@ costs. Each probe has
 Every probe writes int32 [B, 128] (`PROBE_COLS`), as the TPU probes do, with
 casts that truncate toward zero (``.to(torch.int32)``, C's ``int(x)``).
 
-P1 and P2 run on the launch shape of the fused kernel K1 as it is built
-today (512-thread blocks of 4 teams, a persistent grid, a row counter, K1's
-shared-memory layout); P3 keeps that of K1's first design. Each wrapper
-takes its shared memory from ``probe_smem_bytes``; ``probe_map`` replays
-P1's and P2's shared-memory maps, which ``compiled_map`` reads from the
-built source, and ``launch_shape`` reads a piece's launch shape on the card.
+P1-P3 run on the launch shape of the fused kernel K1 as it is built today
+(512-thread blocks of 4 teams, a persistent grid, a row counter, K1's
+shared-memory layout and blocks per SM; P3's layout puts its table at float
+0 and moves K1's team slots past its end). Each wrapper takes its shared
+memory from ``probe_smem_bytes``; ``probe_map`` replays the probes'
+shared-memory maps, which ``compiled_map`` reads from the built source, and
+``launch_shape`` reads a piece's launch shape on the card.
 
 ``stage_pieces(stage, ...)`` builds the pieces each JAX script runs, under
 the script's names, on the same inputs drawn from the same numpy seeds;
@@ -36,7 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..kernels.megakernel import GROUP, ROB_TILE, poses_from_confs, smem_bytes
+from ..kernels.megakernel import GROUP, ROB_TILE, SMEM_LIMIT, poses_from_confs, smem_bytes
 
 PROBE_COLS = 128
 # Batch and table width of the TPU probe scripts.
@@ -47,6 +48,14 @@ PROBE_TR = 1024
 POSE_LEVELS = (0, 1, 2, 3, "transposed")
 # P3 modes (`bisect_stage3.py:55-115`), by their code in the CUDA source.
 INVARIANT_MODES = {"manual_dma": 0, "smem_invariant": 1, "auto": 2}
+# Rows of P3's table (the script's rob_base [16, Tr]), which its map holds.
+INVARIANT_ROWS = 16
+# The shared memory of K1's first design on the probes' tables (19 posed
+# fields a robot triangle, tile boxes, the gate's work list and reduction
+# scratch): what the first design's P1, P2 and P3 allocated, and what
+# `scripts/torch_bisect.py --old` gives them.
+FIRST_DESIGN_SMEM = 4 * (19 * PROBE_TR + 6 * (PROBE_TR // ROB_TILE) + 8 * 6 + 8 + 16
+                         + (PROBE_TR // ROB_TILE) * (PROBE_TR // GROUP) + 8)
 _BIG = 3.0e38
 
 
@@ -146,7 +155,7 @@ _K1_TEAMS = _K1_WARPS = 4
 _K1_CTL_WORDS = 11
 _TILE_BLOCK = ROB_TILE * 33
 # The probes' map codes in csrc/stage_probes.cu, and the bit of each table.
-_PROBE_CODES = {"pose": 0, "empty": 1}
+_PROBE_CODES = {"pose": 0, "empty": 1, "invariant": 2}
 _TABLE_BITS = {"rob": 1, "obs": 2, "groups": 4}
 
 
@@ -169,6 +178,14 @@ def _k1_layout(tr: int, to: int, n_groups: int) -> dict:
             "ctl": ctl, "pose": pose, "tile_box": tile_box, "scratch": scratch}
 
 
+def _invariant_layout(tr: int, n_groups: int) -> tuple[dict, int, int]:
+    """K1's layout for P3's tables, the floats of P3's table region and how
+    far P3 moves K1's team slots: the table's overhang over K1's tables."""
+    L = _k1_layout(tr, n_groups * GROUP, n_groups)
+    table = INVARIANT_ROWS * tr
+    return L, table, max(0, table - L["ctl"][0])
+
+
 def _empty_rows(cpb: int) -> int:
     """Rows in flight a block of P2: a team of 4 warps a row (cpb 1), or a
     warp a row (cpb 8)."""
@@ -188,7 +205,17 @@ def probe_map(probe: str, tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP,
     P1 does not stage. ``empty`` (P2): the ``tables`` staged (of ``rob``,
     ``obs``, ``groups``; at K1's offsets with ``scratch``, else packed in
     that order), then per row in flight its row word and pose (K1's team
-    slots with ``scratch``)."""
+    slots with ``scratch``). ``invariant`` (P3): the [16, ``tr``] table at
+    float 0, the bulk copy's mbarrier (8 bytes of team 0's control words,
+    past its row word), and per team its row word and pose: K1's team slots
+    for (``tr``, ``n_groups``), moved past the table's end."""
+    if probe == "invariant":
+        L, table, shift = _invariant_layout(tr, n_groups)
+        ctl = [c + shift for c in L["ctl"]]
+        regions = [("table", 0, table), ("bar", (ctl[0] + 3) // 2 * 2, 2)]
+        for t in range(_K1_TEAMS):
+            regions += [(f"ctl{t}", ctl[t], 1), (f"pose{t}", L["pose"][t] + shift, 16)]
+        return regions
     to = n_groups * GROUP if to is None else to
     L = _k1_layout(tr, to, n_groups)
     if probe == "pose":
@@ -200,7 +227,7 @@ def probe_map(probe: str, tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP,
                         (f"c0x{t}", L["obox"] + t * L["fs"], L["fs"])]
         return regions
     if probe != "empty":
-        raise ValueError(f"probe must be 'pose' or 'empty', got {probe!r}")
+        raise ValueError(f"probe must be 'pose', 'empty' or 'invariant', got {probe!r}")
     staged = [("rob", 0, 9 * L["fs"]), ("realw", L["realw"], L["n_tiles"]),
               ("obs", L["obox"], 6 * to), ("groups", L["gbox"], 6 * n_groups)]
     regions, at = [], 0
@@ -214,24 +241,24 @@ def probe_map(probe: str, tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP,
     return regions
 
 
-def _p3_smem_bytes(tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP) -> int:
-    """P3's shared memory: that of K1's first design, which P3 keeps until it
-    is redesigned (19 posed fields a robot triangle, tile boxes, the gate's
-    work list and reduction scratch; 79,936 bytes for these tables)."""
-    n_tiles = tr // ROB_TILE
-    return 4 * (19 * tr + 6 * n_tiles + 8 * 6 + 8 + 16 + n_tiles * n_groups + 8)
-
-
 def probe_smem_bytes(probe: str, tr: int = PROBE_TR, n_groups: int = PROBE_TR // GROUP,
                      to: int | None = None, tables=(), scratch: bool = False,
                      cpb: int = 1) -> int:
     """Dynamic shared memory a probe's wrapper allocates: K1's
     (`kernels/megakernel.smem_bytes`) for P1 and P2's ``scratch`` pieces, so
     that their blocks per SM are K1's; the end of `probe_map` for the other
-    P2 pieces (their tables and row slots only); K1's first design's for P3
-    (``invariant``). Raises where a probe's map does not fit."""
+    P2 pieces (their tables and row slots only); for P3 (``invariant``) K1's
+    plus the overhang of its [16, ``tr``] table over K1's tables (85,424
+    bytes on the probes' tables), the end of its map. Raises where a probe's
+    map does not fit, and P3's past the card's opt-in shared memory a block
+    (`megakernel.SMEM_LIMIT`)."""
     if probe == "invariant":
-        return _p3_smem_bytes(tr, n_groups)
+        L, table, shift = _invariant_layout(tr, n_groups)
+        need = 4 * (L["ctl"][_K1_TEAMS] + shift)
+        if need > SMEM_LIMIT:
+            raise ValueError(f"P3's table of {4 * table} bytes needs {need} bytes of shared "
+                             f"memory a block, past the opt-in {SMEM_LIMIT}")
+        return need
     if probe == "empty" and not scratch:
         return 4 * max(start + floats
                        for _, start, floats in probe_map(probe, tr, n_groups, to, tables,
@@ -359,12 +386,14 @@ def empty_probe_cuda(poses: torch.Tensor, tables=None, scratch: bool = False,
 
 
 def invariant_probe_cuda(poses: torch.Tensor, table: torch.Tensor, mode: str) -> torch.Tensor:
-    """P3 on the card: as ``invariant_probe_reference``. ``manual_dma`` runs
-    2 x SM-count persistent blocks that copy the whole table into shared
-    memory once (cp.async); ``smem_invariant`` reads the 8 x 8 table from
-    constant memory; ``auto`` reads row 0 with __ldg per configuration.
-    All take 256-thread blocks and ``probe_smem_bytes("invariant")`` of
-    shared memory."""
+    """P3 on the card: as ``invariant_probe_reference``, on K1's launch shape
+    over P2's skeleton, with one table read a row. ``manual_dma`` bulk-copies
+    the whole table (at most [16, PROBE_TR]) into shared memory once per
+    block and reads row 0 from there; ``smem_invariant`` reads the 8 x 8
+    table's first word from constant memory; ``auto`` reads row 0 through
+    the read-only path. Every mode allocates ``probe_smem_bytes("invariant")``
+    (the table at float 0, K1's team slots after it, K1's layout for the
+    probes' tables) and holds K1's blocks per SM for those tables."""
     if mode not in INVARIANT_MODES:
         raise ValueError(f"mode must be one of {sorted(INVARIANT_MODES)}, got {mode!r}")
     dev = _poses(poses)
@@ -373,13 +402,16 @@ def invariant_probe_cuda(poses: torch.Tensor, table: torch.Tensor, mode: str) ->
         raise ValueError(f"smem_invariant takes an 8 x 8 table, got {tuple(table.shape)}")
     if mode != "smem_invariant" and (table.dim() != 2 or table.shape[1] < PROBE_COLS):
         raise ValueError(f"table must be [rows, >={PROBE_COLS}], got {tuple(table.shape)}")
-    smem = probe_smem_bytes("invariant")
-    if mode == "manual_dma" and 4 * table.numel() > smem:
-        raise ValueError(f"table of {4 * table.numel()} bytes exceeds {smem} bytes")
+    tr, n_groups = PROBE_TR, PROBE_TR // GROUP
+    smem = probe_smem_bytes("invariant", tr, n_groups)
+    if mode == "manual_dma" and (table.numel() > INVARIANT_ROWS * tr or table.numel() % 4):
+        raise ValueError(f"manual_dma copies whole float4s of at most [{INVARIANT_ROWS}, {tr}], "
+                         f"got {tuple(table.shape)}")
     n, out = poses.shape[0], _out(poses)
     if n:
-        _call("rc_invariant_probe", dev, poses.data_ptr(), n, table.data_ptr(),
-              table.numel(), INVARIANT_MODES[mode], out.data_ptr(), smem)
+        _call("rc_invariant_probe", dev, poses.data_ptr(), n, table.data_ptr(), table.numel(),
+              INVARIANT_MODES[mode], tr, n_groups, out.data_ptr(), _work(dev).data_ptr(), smem,
+              _k1_resident(dev.index, tr, n_groups))
         invariant_probe_cuda.launches[mode] += 1
     return out
 
@@ -417,11 +449,13 @@ class Piece:
 
 
 def piece_layout(piece: Piece) -> dict:
-    """The keyword arguments of `probe_map` and `probe_smem_bytes` for a P1
-    or P2 piece: its tables' widths and, for P2, its switches."""
+    """The keyword arguments of `probe_map` and `probe_smem_bytes` for a
+    piece: its tables' widths and, for P2, its switches."""
     a = piece.args
     if piece.probe == "pose":
         return {"tr": a["rob_base"].shape[1], "n_groups": a["n_groups"]}
+    if piece.probe == "invariant":
+        return {"tr": PROBE_TR, "n_groups": PROBE_TR // GROUP}
     if piece.probe == "empty":
         tr, to, n_groups = _empty_tables(a["tables"])
         return {"tr": tr, "n_groups": n_groups, "to": to, "tables": tuple(a["tables"]),
@@ -430,22 +464,26 @@ def piece_layout(piece: Piece) -> dict:
 
 
 def _piece_launch(piece: Piece) -> tuple[int, int, int, int]:
-    """(map code, variant, shared-memory bytes, blocks an SM held to) of a P1
-    or P2 piece's launch on its poses' card."""
+    """(map code, variant, shared-memory bytes, blocks an SM held to) of a
+    piece's launch on its poses' card."""
     lay = piece_layout(piece)
     a = piece.args
-    variant = (4 if a["level"] == "transposed" else a["level"]) if piece.probe == "pose" \
-        else a["cpb"]
-    held = piece.probe == "pose" or lay["scratch"]
+    if piece.probe == "pose":
+        variant = 4 if a["level"] == "transposed" else a["level"]
+    elif piece.probe == "invariant":
+        variant = INVARIANT_MODES[a["mode"]]
+    else:
+        variant = a["cpb"]
+    held = piece.probe != "empty" or lay["scratch"]
     resident = _k1_resident(a["poses"].device.index, lay["tr"], lay["n_groups"]) if held else 0
     return _PROBE_CODES[piece.probe], variant, probe_smem_bytes(piece.probe, **lay), resident
 
 
 def launch_shape(piece: Piece) -> dict:
-    """A P1 or P2 piece's launch shape on the current card, as its launch
-    computes it (`rc_probe_shape`): block, shared memory, blocks per SM from
-    the occupancy query (under the carveout that holds K1's residency, for
-    P1 and the ``scratch`` pieces), grid, and the instance's registers and
+    """A piece's launch shape on the current card, as its launch computes it
+    (`rc_probe_shape`): block, shared memory, blocks per SM from the
+    occupancy query (under the carveout that holds K1's residency, for P1,
+    P3 and P2's ``scratch`` pieces), grid, and the instance's registers and
     local (spill and stack) bytes."""
     from ..kernels import _build
 
@@ -461,8 +499,8 @@ def launch_shape(piece: Piece) -> dict:
 
 
 def compiled_map(piece: Piece) -> list[tuple[int, int]]:
-    """The (first float, floats) regions of a P1 or P2 piece's shared memory
-    as the built `csrc/stage_probes.cu` lays them out (`rc_probe_map`), to
+    """The (first float, floats) regions of a piece's shared memory as the
+    built `csrc/stage_probes.cu` lays them out (`rc_probe_map`), to
     hold against `probe_map`."""
     from ..kernels import _build
 

@@ -5,14 +5,15 @@ card: the port of `scripts/bisect_stage{1,2,3}.py`.
     python3 scripts/torch_bisect.py --stage 1|2|3
     mkdir -p build/probes_old
     git show 73328fc:robocheck_tpu_torch/csrc/stage_probes.cu > build/probes_old/stage_probes.cu
-    python3 scripts/torch_bisect.py --stage 1|2 --old build/probes_old/stage_probes.cu
+    python3 scripts/torch_bisect.py --stage 1|2|3 --old build/probes_old/stage_probes.cu
 
 Stage 1 runs K1's pose pass one piece at a time on K1's launch shape (pose
 load, corner transforms, tile boxes, mesh box and broad flag, c0x of every
 triangle stored in K1's padded slots, the same stores with stride 32); stage
 2 an empty kernel of K1's launch shape with tables, shared memory, batch and
-rows per warp toggled; stage 3 an invariant table by cp.async into shared
-memory, from constant memory, or by __ldg per configuration. Pieces carry
+rows per warp toggled; stage 3, on the same shape, an invariant table
+bulk-copied into shared memory once per block, read from constant memory, or
+read through the read-only path, one read a row. Pieces carry
 the JAX scripts' names and inputs
 (`robocheck_tpu_torch.profiling.probes.stage_pieces`). One JSON line per
 piece: device µs per configuration by CUDA events (mean of REPS
@@ -20,16 +21,20 @@ back-to-back launches, which for a kernel of a few µs measures the host's
 launch rate), the kernel's own time from a `torch.profiler` trace
 (`kernel_*`, the figure to compare), the plain PyTorch version's µs per
 configuration (CUDA events, mean of 2 calls), whether the two outputs are
-equal, P1's and P2's launch shape (block, shared memory, blocks per SM,
-grid, registers, local bytes), and the card's name and power limit. Stage 1
+equal, the piece's launch shape (block, shared memory, blocks per SM,
+grid, registers, local bytes), P3's bound (`profiling/bounds.py`) and share,
+and the card's name and power limit. Stage 1
 also prints K1 and P1 level 2 on 16,384 rows at x = 1e9 (every K1 row ends
-at the broad phase: what P1 level 2 does), by trace.
+at the broad phase: what P1 level 2 does), by trace; stage 3 each P3 mode
+in turns with P2's `pose_only_scratch` (K1's skeleton), whose difference is
+the bulk copy's cost a launch (`manual_dma_rob`) or a row's table read.
 
 ``--old`` builds a copy of `csrc/stage_probes.cu` with the C interface of
-its first design (73328fc: one 256-thread block per configuration, a
-grid-stride loop, K1's first design's shared memory), with the package's
-nvcc flags, and times old and new by trace in turns (old, new, new, old) on
-each piece of stages 1 and 2, with the old launch's shape and both builds'
+its first design (73328fc: 256-thread blocks, one configuration a block
+step, a grid-stride loop, K1's first design's shared memory; P3's
+`manual_dma` on 2 x SM-count blocks copying with per-thread cp.async), with
+the package's nvcc flags, and times old and new by trace in turns (old, new,
+new, old) on each piece, with the old launch's shape and both builds'
 ptxas lines. Exits 1 if a probe differs from its plain version. Imports
 neither JAX nor the JAX package.
 """
@@ -49,14 +54,14 @@ from robocheck_tpu_torch import load_obj  # noqa: E402
 from robocheck_tpu_torch.io import assets  # noqa: E402
 from robocheck_tpu_torch.kernels import _build  # noqa: E402
 from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
-from robocheck_tpu_torch.profiling import probes  # noqa: E402
+from robocheck_tpu_torch.profiling import bounds, probes  # noqa: E402
 from robocheck_tpu_torch.profiling.timers import card_line, event_ms, kernel_ms  # noqa: E402
 
 REPS = 20  # launches per CUDA-event mean and per traced mean
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
-def ptxas_lines(log: str, names=("pose_probe", "empty_probe")) -> list[str]:
+def ptxas_lines(log: str, names=("pose_probe", "empty_probe", "invariant")) -> list[str]:
     """The register and spill lines of the instances of ``names`` in an
     nvcc -Xptxas -v log."""
     lines, keep = [], False
@@ -86,18 +91,31 @@ def old_library(source: Path) -> tuple[ctypes.CDLL, str]:
     lib.rc_empty_probe.restype = _I32
     lib.rc_empty_probe.argtypes = [_PTR, _I64, _PTR, _I32, _PTR, _I32, _PTR, _I32, _I32, _I32,
                                    _PTR, _PTR]
+    # poses, n, table, table_floats, mode, out, smem, stream
+    lib.rc_invariant_probe.restype = _I32
+    lib.rc_invariant_probe.argtypes = [_PTR, _I64, _PTR, _I32, _I32, _PTR, _I64, _PTR]
     return lib, path.with_suffix(".log").read_text()
 
 
 def old_call(lib: ctypes.CDLL, piece: probes.Piece):
-    """(launch, shape): a P1 or P2 piece through the first design's wrapper
-    (one 256-thread block per configuration step, `grid_for`'s cap of
-    65,535 blocks, K1's first design's 79,936 bytes of shared memory)."""
+    """(launch, shape): a piece through the first design's wrapper (one
+    256-thread block per configuration step, `grid_for`'s cap of 65,535
+    blocks, K1's first design's 79,936 bytes of shared memory; P3's
+    `manual_dma` on 2 x SM-count blocks)."""
     a, n = piece.args, piece.n
     poses = a["poses"]
     out = torch.empty((n, probes.PROBE_COLS), dtype=torch.int32, device=poses.device)
-    first_design = probes.probe_smem_bytes("invariant")
-    if piece.probe == "pose":
+    first_design = probes.FIRST_DESIGN_SMEM
+    if piece.probe == "invariant":
+        table, mode, smem = a["table"], a["mode"], first_design
+        sms = torch.cuda.get_device_properties(poses.device).multi_processor_count
+        blocks = min(2 * sms, n) if mode == "manual_dma" else n
+
+        def launch():
+            return lib.rc_invariant_probe(poses.data_ptr(), n, table.data_ptr(), table.numel(),
+                                          probes.INVARIANT_MODES[mode], out.data_ptr(), smem,
+                                          torch.cuda.current_stream().cuda_stream)
+    elif piece.probe == "pose":
         rob = a["rob_base"]
         tr = rob.shape[1]
         smem = max(int(lib.rc_pose_probe_smem_bytes(tr)), first_design)
@@ -143,14 +161,29 @@ def k1_allmiss(device, prep, card: str) -> dict:
             "k1_kernel_ms": k1, "mini_level2_kernel_ms": p1, "card": card}
 
 
+def p3_split(device, pieces, card: str) -> list[dict]:
+    """Each P3 mode against P2's ``pose_only_scratch`` (K1's skeleton at K1's
+    shared memory) in turns (scratch, mode, mode, scratch), device ms by
+    trace: the difference is what the mode's table costs a launch, its bulk
+    copy for ``manual_dma_rob``, a row's read for the other two."""
+    scratch = next(p for p in probes.stage_pieces(2, device) if p.name == "pose_only_scratch")
+    lines = []
+    for piece in pieces:
+        turns = [kernel_ms(f, REPS) for f in (scratch.kernel, piece.kernel, piece.kernel,
+                                                 scratch.kernel)]
+        mode, base = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        lines.append({"measure": "p3_minus_pose_only_scratch", "piece": piece.name,
+                      "turns_ms_scratch_mode_mode_scratch": turns, "mode_ms": mode,
+                      "scratch_ms": base, "difference_us": (mode - base) * 1e3, "card": card})
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", type=int, choices=(1, 2, 3), required=True)
     ap.add_argument("--old", type=Path, default=None,
-                    help="a stage_probes.cu with the first design's C interface (stages 1, 2)")
+                    help="a stage_probes.cu with the first design's C interface")
     args = ap.parse_args()
-    if args.old is not None and args.stage == 3:
-        ap.error("--old times P1 and P2 (stages 1 and 2); P3 has one design")
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_bisect: no CUDA device")
@@ -167,7 +200,8 @@ def main() -> int:
                           "ptxas_old": ptxas_lines(old[1]), "card": card}), flush=True)
 
     failed = 0
-    for piece in probes.stage_pieces(args.stage, device, rob_base, n_groups=n_groups):
+    pieces = probes.stage_pieces(args.stage, device, rob_base, n_groups=n_groups)
+    for piece in pieces:
         ms = event_ms(piece.kernel, REPS)
         k_ms = kernel_ms(piece.kernel, REPS)
         plain_ms = event_ms(piece.plain, 2)
@@ -178,8 +212,11 @@ def main() -> int:
                 "kernel_us_per_conf": k_ms * 1e3 / piece.n, "kernel_ms": k_ms,
                 "n": piece.n, "cpb": piece.cpb,
                 "plain_us_per_conf": plain_ms * 1e3 / piece.n, "equal_to_plain": equal}
-        if piece.probe in ("pose", "empty"):
-            line["shape"] = probes.launch_shape(piece)
+        line["shape"] = probes.launch_shape(piece)
+        if piece.probe == "invariant":
+            line["bound_ms"], line["bound_by"] = bounds.bound_ms(
+                *bounds.probe_work(piece.name, piece.n))
+            line["share"] = line["bound_ms"] / k_ms
         if old is not None:
             run_old, line["old_shape"] = old_call(old[0], piece)
             turns = [kernel_ms(f, REPS) for f in (run_old, piece.kernel, piece.kernel, run_old)]
@@ -191,6 +228,9 @@ def main() -> int:
         print(json.dumps(line), flush=True)
     if args.stage == 1:
         print(json.dumps(k1_allmiss(device, prep, card)), flush=True)
+    if args.stage == 3:
+        for line in p3_split(device, pieces, card):
+            print(json.dumps(line), flush=True)
     return 1 if failed else 0
 
 

@@ -1,6 +1,6 @@
 """The port's probe kernels P1-P3 (`robocheck_tpu_torch.profiling.probes`):
 their plain PyTorch versions against the JAX package's probes, the CUDA
-wrappers' refusal of CPU tensors, and P1's and P2's shared-memory maps and
+wrappers' refusal of CPU tensors, and the probes' shared-memory maps and
 sizes against K1's layout (`kernels/megakernel.smem_bytes`).
 
 The TPU probes live inside `main()` of `scripts/bisect_stage{1,2,3}.py` and
@@ -9,6 +9,9 @@ restated here in jnp, with the lines it restates, on the JAX package's
 `poses_from_confs` and `MegaKernelPrep.build(...).rob_base`. The CUDA
 probes are held against the plain versions on the card by `chip_smoke.py`.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +21,9 @@ import torch
 from robocheck_tpu.kernels import megakernel as jmk
 from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.obj import load_obj
+from robocheck_tpu_torch.kernels import _build
 from robocheck_tpu_torch.kernels import megakernel as mk
-from robocheck_tpu_torch.profiling import probes
+from robocheck_tpu_torch.profiling import bounds, probes
 
 B = 64
 LANE = 128
@@ -127,14 +131,19 @@ def test_empty_probe_plain_matches_numpy():
         np.testing.assert_array_equal(out, want)
 
 
-def test_invariant_probe_plain_matches_numpy():
-    rng = np.random.default_rng(0)  # `bisect_stage3.py:34-37`
+def _stage3_numpy():
+    """`bisect_stage3.py:34-37` and each piece's output, by numpy."""
+    rng = np.random.default_rng(0)
     rob_base = rng.normal(size=(16, 1024)).astype(np.float32)
     tab = rng.normal(size=(8, 8)).astype(np.float32)
     poses = rng.normal(size=(16384, 16)).astype(np.float32)
-    want = {"manual_dma_rob": (poses[:, 0:1] * rob_base[0:1, :LANE]).astype(np.int32),
+    return {"manual_dma_rob": (poses[:, 0:1] * rob_base[0:1, :LANE]).astype(np.int32),
             "smem_invariant": (poses[:, 0:1] * np.full((1, LANE), tab[0, 0])).astype(np.int32),
             "auto_invariant_vmem": (poses[:, 0:1] * rob_base[0:1, :LANE]).astype(np.int32)}
+
+
+def test_invariant_probe_plain_matches_numpy():
+    want = _stage3_numpy()
     pieces = probes.stage_pieces(3, "cpu")
     assert [p.name for p in pieces] == list(want)
     for piece in pieces:
@@ -266,7 +275,11 @@ def test_probe_smem_bytes_is_k1s_for_p1_and_scratch_pieces(stage1_inputs):
             assert smem == k1_bytes
         else:  # only the staged tables and the row slots
             assert smem == 4 * sum(f for _, _, f in regions) < k1_bytes
-    assert probes.probe_smem_bytes("invariant") == 79936
+    # P3: K1's allocation plus its [16, 1024] table's overhang over K1's
+    # tables (16,384 floats against K1's 15,728); the first design's 79,936
+    # bytes stay under their own name for `torch_bisect.py --old`.
+    assert probes.probe_smem_bytes("invariant") == k1_bytes + 4 * (16384 - 15728) == 85424
+    assert probes.FIRST_DESIGN_SMEM == 79936
 
 
 def test_probe_smem_bytes_refuses_what_k1s_layout_cannot_hold():
@@ -281,3 +294,84 @@ def test_probe_smem_bytes_refuses_what_k1s_layout_cannot_hold():
     assert probes.probe_smem_bytes("pose", 2048, 16) == mk.smem_bytes(2048, 16)
     with pytest.raises(ValueError, match="probe"):
         probes.probe_smem_bytes("stage1")
+
+
+@pytest.mark.parametrize("tr,n_groups", [(1024, 8), (2048, 16), (128, 1)])
+def test_invariant_probe_smem_map(tr, n_groups):
+    regions = probes.probe_map("invariant", tr, n_groups)
+    smem = probes.probe_smem_bytes("invariant", tr, n_groups)
+    assert _disjoint_inside(regions, smem // 4)
+    start = {name: first for name, first, _ in regions}
+    size = {name: floats for name, _, floats in regions}
+    # The whole [16, tr] table at float 0, the team slots clear of it.
+    assert (start["table"], size["table"]) == (0, 16 * tr)
+    slots = [r for r in regions if r[0] not in ("table", "bar")]
+    assert [n for n, _, _ in slots] == [f"{k}{t}" for t in range(4) for k in ("ctl", "pose")]
+    assert min(first for _, first, _ in slots) >= 16 * tr
+    # K1's team slots (P2's scratch map), moved by the table's overhang over
+    # K1's tables (none where the table is smaller), up to the end of K1's
+    # allocation moved as far.
+    k1 = {name: first for name, first, _ in probes.probe_map("empty", tr, n_groups,
+                                                               scratch=True)}
+    shift = max(0, 16 * tr - k1["ctl0"])
+    assert all(start[f"{k}{t}"] == k1[f"{k}{t}"] + shift for t in range(4)
+               for k in ("ctl", "pose"))
+    assert smem == mk.smem_bytes(tr, n_groups) + 4 * shift
+    # The map ends at the allocation's end: the last team's slot, as long as
+    # K1's team slots (a team's row word 1 and pose 16 of them), ends there.
+    assert start["ctl3"] + (start["ctl3"] - start["ctl2"]) == smem // 4
+    # The mbarrier: 8 bytes, 8-byte aligned, in team 0's 11 control words
+    # past its row word.
+    assert size["bar"] == 2 and start["bar"] % 2 == 0
+    assert start["ctl0"] < start["bar"] and start["bar"] + 2 <= start["ctl0"] + 11
+    if (tr, n_groups) == (1024, 8):
+        assert shift == 656 and smem == 85424
+
+
+def test_invariant_probe_table_past_optin_raises():
+    # 4,096 columns: a 262,144-byte table, past the H100's 232,448 bytes a
+    # block; 2,048 fit (166,320 bytes).
+    assert mk.SMEM_LIMIT == 232448
+    with pytest.raises(ValueError, match="opt-in"):
+        probes.probe_smem_bytes("invariant", 4096, 8)
+    assert probes.probe_smem_bytes("invariant", 2048, 8) <= mk.SMEM_LIMIT
+
+
+def test_stage3_pieces_keep_names_and_plain_outputs():
+    want = _stage3_numpy()
+    pieces = probes.stage_pieces(3, "cpu")
+    assert [(p.name, p.probe, p.n, p.cpb, p.args["mode"]) for p in pieces] == [
+        ("manual_dma_rob", "invariant", 16384, 1, "manual_dma"),
+        ("smem_invariant", "invariant", 16384, 1, "smem_invariant"),
+        ("auto_invariant_vmem", "invariant", 16384, 1, "auto")]
+    for piece in pieces:
+        # Every piece on the probes' tables, the layout its launch allocates.
+        assert probes.piece_layout(piece) == {"tr": 1024, "n_groups": 8}
+        assert tuple(piece.args["table"].shape) == ((8, 8) if piece.name == "smem_invariant"
+                                                    else (16, 1024))
+        out = piece.plain()
+        assert out.dtype == torch.int32 and tuple(out.shape) == (16384, LANE)
+        np.testing.assert_array_equal(out.numpy(), want[piece.name])
+
+
+def test_invariant_probe_work():
+    io = 16384 * (64 + 512)
+    assert bounds.probe_work("manual_dma_rob", 16384) == (io + 4 * 16 * 1024, 16384 * 128)
+    assert bounds.probe_work("smem_invariant", 16384) == (io + 256, 16384)
+    assert bounds.probe_work("auto_invariant_vmem", 16384) == (io + 512, 16384 * 128)
+    for piece in ("manual_dma_rob", "smem_invariant", "auto_invariant_vmem"):
+        assert bounds.bound_ms(*bounds.probe_work(piece, 16384))[1] == "bytes"
+
+
+def test_invariant_probe_entry_matches_its_binding():
+    # `rc_invariant_probe` in csrc/stage_probes.cu takes as many parameters
+    # as `_build.library` binds, the layout's tables among them.
+    extern = _build.SOURCES["stage_probes"].read_text()
+    extern = extern[extern.index('extern "C" {'):]
+    params = re.search(r"\nint rc_invariant_probe\(([^)]*)\)", extern).group(1)
+    names = [a.split()[-1].lstrip("*") for a in params.split(",")]
+    assert names == ["poses", "n", "table", "table_floats", "mode", "tr", "n_groups", "out",
+                     "work", "smem", "resident", "stream"]
+    build_src = Path(_build.__file__).read_text()
+    bound = re.search(r"_bind\(lib\.rc_invariant_probe, i32,\s*\[([^\]]*)\]", build_src)
+    assert len([a for a in bound.group(1).split(",") if a.strip()]) == len(names)
