@@ -1001,14 +1001,8 @@ def phase10_times(opt, init, card: str) -> dict:
     t["adam_step_s"] = timers.benchmark(topt.adam_step, free, adam, ends, w, runs=20)
     t["adam_step_event_ms"] = timers.event_ms(lambda: topt.adam_step(free, adam, ends, w), 50)
     t["round_s"] = timers.benchmark(topt.optimize_round, free0, ends, w, runs=3)
-    with tempfile.TemporaryDirectory() as tmp:
-        with timers.trace(tmp) as path:
-            t0 = time.perf_counter()
-            topt.optimize_round(free0, ends, w)
-            torch.cuda.synchronize()
-            profiled_ms = (time.perf_counter() - t0) * 1e3
-        busy = timers.busy_us(timers.device_intervals(
-            path, ("kernel", "gpu_memcpy", "gpu_memset"))) / 1e3
+    busy, _, profiled_ms = timers.device_busy(lambda: topt.optimize_round(free0, ends, w))
+    busy, profiled_ms = busy * 1e3, profiled_ms * 1e3
     t["round_busy_ms"], t["round_profiled_ms"] = busy, profiled_ms
     t["round_busy_share"] = busy / (t["round_s"] * 1e3)
     print(f"  (d) [{card}] wall-scene TrajOpt (24 waypoints x 256 samples, 4 subsamples): "
@@ -1027,15 +1021,8 @@ def phase10_idle(runs, card: str) -> None:
 
     for name, fn, unprofiled in runs:
         torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            with timers.trace(tmp) as path:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                profiled = time.perf_counter() - t0
-            spans = timers.device_intervals(path, ("kernel", "gpu_memcpy", "gpu_memset"))
-        busy = timers.busy_us(spans) / 1e6
-        print(f"  (d) [{card}] (a) {name}: device busy {busy} s in {len(spans)} device events; "
+        busy, records, profiled = timers.device_busy(fn)
+        print(f"  (d) [{card}] (a) {name}: device busy {busy} s in {records} device events; "
               f"unprofiled wall {unprofiled} s, profiled {profiled} s; idle share "
               f"{1.0 - busy / unprofiled} of the unprofiled wall ({1.0 - busy / profiled} of "
               f"the profiled)")

@@ -60,6 +60,7 @@ from ..core.constants import LANE, round_up
 from ..core.types import Mesh, validate_confs
 from ..ops.narrow import is_coplanar, no_overlap
 from ..ops.transform import rotation_matrices
+from ..profiling.timers import span
 from ..runtime.device import resolve as resolve_device
 from ..utils.morton import morton_argsort
 from .front import _require, poses_from_confs_cuda, robot_bounds_cuda
@@ -736,25 +737,37 @@ class MegaKernelChecker:
         own stage 1, bit for bit) and orders broad-phase hits first; chunks
         past the hits are never launched and get the byte 1 (a broad miss is
         valid and flags nothing). It costs one scalar ``.item()`` sync.
-        Verdicts are identical either way (`megakernel.py:1361-1408`)."""
-        confs = validate_confs(confs)
-        n = confs.shape[0]
-        finite = np.isfinite(confs).all(axis=1)
-        if not finite.all():
+        Verdicts are identical either way (`megakernel.py:1361-1408`).
+
+        Under a profiler each step is a span (`profiling.timers.span`):
+        ``rc.check.validate`` (with the non-finite split; the finite rows'
+        call emits its own), ``.upload``, ``.pose`` (K2), ``.kernel`` (K1's
+        chunks, or the presorted path) and ``.fetch``."""
+        with span("rc.check.validate"):
+            confs = validate_confs(confs)
+            n = confs.shape[0]
+            finite = np.isfinite(confs).all(axis=1)
+            rest = None if finite.all() else confs[finite]
+        if rest is not None:
             out = np.zeros((n,), dtype=np.uint8)
-            if finite.any():
-                out[finite] = self.check_packed(confs[finite], chunk=chunk, presort=presort)
+            if len(rest):
+                out[finite] = self.check_packed(rest, chunk=chunk, presort=presort)
             return out
         if n == 0:
             return np.zeros((0,), dtype=np.uint8)
         chunk = chunk or self.STREAM_CHUNK
-        poses = poses_from_confs(torch.from_numpy(confs).to(self.device))
-        if presort:
-            packed = self._check_presorted(poses, chunk)
-        else:
-            packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables)
-                                for lo in range(0, n, chunk)])
-        return packed.cpu().numpy()
+        with span("rc.check.upload"):
+            dev_confs = torch.from_numpy(confs).to(self.device)
+        with span("rc.check.pose"):
+            poses = poses_from_confs(dev_confs)
+        with span("rc.check.kernel"):
+            if presort:
+                packed = self._check_presorted(poses, chunk)
+            else:
+                packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables)
+                                    for lo in range(0, n, chunk)])
+        with span("rc.check.fetch"):
+            return packed.cpu().numpy()
 
     def check_valid(self, confs: np.ndarray, chunk: int | None = None,
                     presort: bool | None = None):
@@ -787,12 +800,15 @@ class MegaKernelChecker:
                              chunk: int | None = None) -> np.ndarray:
         """``check_packed`` + exact float64 re-check of the valid rows flagged
         coplanar (bit 1) or uncertain (bit 2) by `oracle.resolve_coplanar`.
-        Returns valid[N] bool."""
+        Returns valid[N] bool. Under a profiler the call is the span
+        ``rc.check``, holding ``check_packed``'s and ``rc.check.resolve``."""
         from ..oracle import resolve_coplanar
 
-        packed = self.check_packed(confs, chunk=chunk)
-        return resolve_coplanar(self.robot, self.obstacle, confs,
-                                (packed & 1).astype(bool), (packed & 6).astype(bool))
+        with span("rc.check"):
+            packed = self.check_packed(confs, chunk=chunk)
+            with span("rc.check.resolve"):
+                return resolve_coplanar(self.robot, self.obstacle, confs,
+                                        (packed & 1).astype(bool), (packed & 6).astype(bool))
 
     def check_block(self, confs) -> torch.Tensor:
         """[B,6] configurations (numpy, or a tensor on the checker's device)

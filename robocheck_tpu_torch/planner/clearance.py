@@ -57,6 +57,7 @@ from ..core.types import Mesh
 from ..kernels.clearance import (make_groups, pair_min_cuda, pair_min_reference, pose_rows,
                                   tri_table)
 from ..ops.transform import apply_pose, rotation_matrices
+from ..profiling.timers import span
 from ..runtime.device import resolve as resolve_device
 from ..utils.morton import morton_argsort, morton_codes
 
@@ -146,10 +147,12 @@ class ClearanceEngine:
         # of construction and of each phase, and kernel_s, the device
         # seconds of the scan kernel's launches (CUDA events around each;
         # 0.0 on the CPU, where the twin runs), the sum of rep_kernel_s
-        # (the representatives) and exact_kernel_s (the exact phase).
+        # (the representatives) and exact_kernel_s (the exact phase); waves,
+        # the exact phase's dispatches (one fetch each).
         self.stats = {"construct_s": _time.perf_counter() - t0,
                       "bounds_s": 0.0, "exact_s": 0.0, "kernel_s": 0.0, "rep_kernel_s": 0.0,
-                      "exact_kernel_s": 0.0, "pairs": 0, "configs": 0, "calls": 0}
+                      "exact_kernel_s": 0.0, "pairs": 0, "waves": 0, "configs": 0,
+                      "calls": 0}
 
     # -- error model --------------------------------------------------------
     def err_bound(self, confs: np.ndarray) -> float:
@@ -185,13 +188,14 @@ class ClearanceEngine:
         """The launches' outputs, concatenated, as float64 on the host; adds
         their device time to ``stats["kernel_s"]`` and their phase's (the
         fetch waits for them)."""
-        d = torch.cat(outs).cpu().numpy().astype(np.float64)
-        for phase, s, e in self._events:
-            sec = s.elapsed_time(e) / 1e3
-            self.stats["kernel_s"] += sec
-            self.stats[f"{phase}_kernel_s"] += sec
-        self._events.clear()
-        return d
+        with span("rc.clearance.fetch"):
+            d = torch.cat(outs).cpu().numpy().astype(np.float64)
+            for phase, s, e in self._events:
+                sec = s.elapsed_time(e) / 1e3
+                self.stats["kernel_s"] += sec
+                self.stats[f"{phase}_kernel_s"] += sec
+            self._events.clear()
+            return d
 
     def _bounds(self, confs: torch.Tensor, rows: torch.Tensor):
         """(LB, Drep) [b, nb] float64 on the host: the posed-block / group
@@ -227,30 +231,34 @@ class ClearanceEngine:
                    best: np.ndarray, err: float) -> None:
         """Exact distances of (configuration, block) pairs, PAIR_CHUNK a
         launch, all launched before one fetch, culled with slack 2 x ``err``;
-        scatter-min into ``best`` (float64, in place, on the host)."""
+        scatter-min into ``best`` (float64, in place, on the host). A call
+        with pairs is one wave (``stats["waves"]``)."""
         if len(cfg_ids) == 0:
             return
-        t0 = _time.perf_counter()
-        k = len(cfg_ids)
-        mine = slice(None)
-        if self.mesh is not None and self.mesh.size > 1:
-            # This rank's contiguous slice of the pairs, padded so that the
-            # slices are equal (the padding repeats pair 0 and is dropped).
-            per = -(-k // self.mesh.size)
-            mine = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
-            pad = per * self.mesh.size - k
-            cfg_ids = np.concatenate([cfg_ids, np.repeat(cfg_ids[:1], pad)])
-            blk_ids = np.concatenate([blk_ids, np.repeat(blk_ids[:1], pad)])
-        ci = torch.as_tensor(cfg_ids[mine]).to(self.device)
-        bi = torch.as_tensor(blk_ids[mine].astype(np.int32)).to(self.device)
-        outs = [self._scan("exact", rows[ci[lo : lo + PAIR_CHUNK]], bi[lo : lo + PAIR_CHUNK],
-                           self._blocks, 2.0 * err)
-                for lo in range(0, len(ci), PAIR_CHUNK)]
-        d = self._fetch(outs)
-        if self.mesh is not None and self.mesh.size > 1:
-            d = self.mesh.all_gather(torch.from_numpy(d)).numpy()[:k]
-        np.minimum.at(best, cfg_ids[:k], d)
-        self.stats["exact_s"] += _time.perf_counter() - t0
+        self.stats["waves"] += 1
+        with span("rc.clearance.exact"):
+            t0 = _time.perf_counter()
+            k = len(cfg_ids)
+            mine = slice(None)
+            if self.mesh is not None and self.mesh.size > 1:
+                # This rank's contiguous slice of the pairs, padded so that the
+                # slices are equal (the padding repeats pair 0 and is dropped).
+                per = -(-k // self.mesh.size)
+                mine = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+                pad = per * self.mesh.size - k
+                cfg_ids = np.concatenate([cfg_ids, np.repeat(cfg_ids[:1], pad)])
+                blk_ids = np.concatenate([blk_ids, np.repeat(blk_ids[:1], pad)])
+            ci = torch.as_tensor(cfg_ids[mine]).to(self.device)
+            bi = torch.as_tensor(blk_ids[mine].astype(np.int32)).to(self.device)
+            outs = [self._scan("exact", rows[ci[lo : lo + PAIR_CHUNK]],
+                               bi[lo : lo + PAIR_CHUNK], self._blocks, 2.0 * err)
+                    for lo in range(0, len(ci), PAIR_CHUNK)]
+            d = self._fetch(outs)
+            if self.mesh is not None and self.mesh.size > 1:
+                d = self.mesh.all_gather(torch.from_numpy(d)).numpy()[:k]
+            with span("rc.clearance.scatter"):
+                np.minimum.at(best, cfg_ids[:k], d)
+            self.stats["exact_s"] += _time.perf_counter() - t0
         self.stats["pairs"] += k
 
     def _survivors(self, confs: torch.Tensor, rows: torch.Tensor, best: np.ndarray,
@@ -259,10 +267,11 @@ class ClearanceEngine:
         ``best`` (in place) starts at U (attained distances). Returns the
         surviving pairs' configurations, blocks and lower bounds in
         ascending-LB order: the exact phase's launch order."""
-        t0 = _time.perf_counter()
-        lb, drep = self._bounds(confs, rows)
-        np.minimum(best, drep.min(axis=1), out=best)
-        self.stats["bounds_s"] += _time.perf_counter() - t0
+        with span("rc.clearance.bounds"):
+            t0 = _time.perf_counter()
+            lb, drep = self._bounds(confs, rows)
+            np.minimum(best, drep.min(axis=1), out=best)
+            self.stats["bounds_s"] += _time.perf_counter() - t0
         surv_c, surv_b = np.nonzero(lb - err <= best[:, None] + err)
         order = np.argsort(lb[surv_c, surv_b], kind="stable")
         surv_c, surv_b = surv_c[order], surv_b[order]
@@ -275,31 +284,38 @@ class ClearanceEngine:
 
         A pair is dropped only while ``LB - err > best + err``; the true LB
         is >= LB - err, the true answer <= best + err, and best only
-        decreases, so no dropped pair can hold the minimum."""
-        confs = np.asarray(confs, dtype=np.float32).reshape(-1, 6)
-        b = len(confs)
-        if b == 0:
-            return np.zeros(0, dtype=np.float64)
-        self.stats["calls"] += 1
-        self.stats["configs"] += b
-        err = self.err_bound(confs)
-        best = np.full(b, np.inf, dtype=np.float64)
-        dev_confs = torch.as_tensor(confs).to(self.device)
-        rows = pose_rows(dev_confs)
-        if self.num_blocks == 1:
-            self._run_pairs(rows, np.arange(b), np.zeros(b, np.int64), best, err)
-            return best - err
+        decreases, so no dropped pair can hold the minimum.
 
-        # Phase 2: surviving pairs in ascending-LB waves.
-        surv_c, surv_b, slb = self._survivors(dev_confs, rows, best, err)
-        wave = max(2048, 4 * b)
-        while len(surv_c):
-            self._run_pairs(rows, surv_c[:wave], surv_b[:wave], best, err)
-            surv_c, surv_b, slb = surv_c[wave:], surv_b[wave:], slb[wave:]
-            if len(surv_c):
-                keep = slb - err <= best[surv_c] + err
-                surv_c, surv_b, slb = surv_c[keep], surv_b[keep], slb[keep]
-        return best - err
+        Under a profiler the call is the span ``rc.clearance``, holding
+        ``.upload``, ``.bounds`` (the region of ``stats["bounds_s"]``), one
+        ``.exact`` a wave (the region of ``stats["exact_s"]``), ``.fetch``
+        under both, and ``.scatter`` (`profiling.timers.span`)."""
+        with span("rc.clearance"):
+            confs = np.asarray(confs, dtype=np.float32).reshape(-1, 6)
+            b = len(confs)
+            if b == 0:
+                return np.zeros(0, dtype=np.float64)
+            self.stats["calls"] += 1
+            self.stats["configs"] += b
+            err = self.err_bound(confs)
+            best = np.full(b, np.inf, dtype=np.float64)
+            with span("rc.clearance.upload"):
+                dev_confs = torch.as_tensor(confs).to(self.device)
+                rows = pose_rows(dev_confs)
+            if self.num_blocks == 1:
+                self._run_pairs(rows, np.arange(b), np.zeros(b, np.int64), best, err)
+                return best - err
+
+            # Phase 2: surviving pairs in ascending-LB waves.
+            surv_c, surv_b, slb = self._survivors(dev_confs, rows, best, err)
+            wave = max(2048, 4 * b)
+            while len(surv_c):
+                self._run_pairs(rows, surv_c[:wave], surv_b[:wave], best, err)
+                surv_c, surv_b, slb = surv_c[wave:], surv_b[wave:], slb[wave:]
+                if len(surv_c):
+                    keep = slb - err <= best[surv_c] + err
+                    surv_c, surv_b, slb = surv_c[keep], surv_b[keep], slb[keep]
+            return best - err
 
 
 def clearance_queries(obstacle: Mesh, n: int = 256, seed: int = 5) -> np.ndarray:

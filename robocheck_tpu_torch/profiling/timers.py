@@ -1,8 +1,9 @@
 """Timing and profiling kit (the port of `robocheck_tpu.profiling.timers`).
 
-  * ``StageTimer``: wall-clock time per named stage, each fenced with
-    ``torch.cuda.synchronize()`` (PyTorch returns before the card finishes,
-    so an unfenced host clock measures the enqueue).
+  * ``span``: a named host range (``record_function``) while a profiler is
+    recording, else one shared no-op context: the program marks its layer
+    boundaries with it at no cost when nothing traces. The ranges land in
+    the profiler's own trace, on the clock of its device records.
   * ``trace``: a context manager around ``torch.profiler`` that writes a
     Chrome trace (open it in Perfetto or chrome://tracing).
   * ``benchmark``: best of ``runs`` after ``warmup`` calls, each synchronised
@@ -11,11 +12,10 @@
   * ``event_ms``: a call's device time by CUDA events (back-to-back calls,
     so a kernel shorter than its launch's host overhead reads as that
     overhead); ``kernel_ms``: the summed durations of the kernels a call
-    launches, from a ``trace`` (the device's own time, with no gaps; a trace
-    that lost a record of one of them is taken again, never summed);
-    ``device_intervals``: the device spans of a written trace, which both
-    ``kernel_ms`` and ``busy_us`` (the union of the spans: the device's busy
-    time) read;
+    launches, from a ``trace`` (the device's own time, with no gaps);
+    ``device_busy``: the device's busy time over a call (the union of its
+    kernels, copies and fills), from a ``trace``. Both take a trace again
+    where it lost a record, never read it short;
     ``card_line``: the card's name and power limit, which every device
     number carries.
 
@@ -30,7 +30,6 @@ import os
 import subprocess
 import tempfile
 import time
-from collections import defaultdict
 
 import torch
 
@@ -42,32 +41,19 @@ def _sync() -> None:
         torch.distributed.barrier()
 
 
-class StageTimer:
-    """Accumulates wall-clock time per named stage."""
+# True while a profiler records this thread's host events.
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str, sync: bool = True):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync:
-                _sync()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            t = self.totals[name]
-            n = self.counts[name]
-            lines.append(f"{name}: {t * 1e3:.2f} ms total, {n} calls, "
-                         f"{t / n * 1e3:.3f} ms/call")
-        return "\n".join(lines)
+def span(name: str):
+    """A context that marks the enclosed host code as ``name`` in the trace
+    of a running profiler (``torch.profiler.record_function``); with none
+    running, a shared no-op that enters nothing (a ``record_function``
+    costs microseconds even then)."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -115,14 +101,6 @@ def event_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_intervals(path: str, cats=("kernel",)) -> list[tuple[float, float]]:
-    """Sorted (start, end) µs of the trace events at ``path`` whose category
-    is one of ``cats`` (``kernel``, ``gpu_memcpy``, ``gpu_memset``)."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in cats)
-
-
 def busy_us(spans: list[tuple[float, float]]) -> float:
     """µs covered by the union of sorted (start, end) device spans: the
     device's busy time (overlapping spans count once)."""
@@ -133,39 +111,65 @@ def busy_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
-# Tiny kernels launched at the start of every `kernel_ms` trace: late in a
-# long process every other trace on an H100 missed its first records
-# (padding the window with idle time did not help), so the measured calls
-# come after these.
+# Tiny kernels launched at the start of every traced call: late in a long
+# process every other trace on an H100 missed its first records (padding the
+# window with idle time did not help), so the measured calls come after these.
 _PRIME_KERNELS = 64
 _MARK = "kernel_ms"
-# Traces `kernel_ms` takes of a call before it gives up.
+# Traces taken of a call before a reader gives up.
 _TRIES = 3
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# Runtime calls whose work appears as a device record of the category.
+_RUNTIME = {"kernel": ("LaunchKernel", "LaunchCooperativeKernel"),
+            "gpu_memcpy": ("Memcpy",), "gpu_memset": ("Memset",)}
 
 
-def _marked_kernels(path: str) -> tuple[list[tuple[float, float]], int, int]:
-    """(sorted (start, end) µs of the kernels launched inside the trace's
-    `_MARK` span, the kernel launches made inside it, the records lost
-    there) in the trace at ``path``. Launches and kernels match by
-    correlation id, wherever the kernel's record lies on the trace's clock.
-    Lost: a launch in the span without its kernel record, and a kernel
-    record in the span whose launch is nowhere in the trace (a kernel
-    launched before the span, such as a primer, is not the span's)."""
+def _marked_kernels(path: str, cats=("kernel",)) -> tuple[list[tuple[float, float]], int, int]:
+    """(sorted (start, end) µs of the device records of the categories
+    ``cats`` (kernels, copies, fills) whose runtime call was made inside the
+    trace's `_MARK` span, those calls, the records lost there) in the trace
+    at ``path``. Calls and records match by correlation id, wherever the
+    record lies on the trace's clock. Lost: a call in the span without its
+    record, and a record in the span whose call is nowhere in the trace (a
+    kernel launched before the span, such as a primer, is not the span's)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     marks = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("name") == _MARK and e.get("cat") in ("user_annotation", "cpu_op")]
     lo, hi = marks[0] if marks else (float("inf"), float("-inf"))
-    launch_ts = {e.get("args", {}).get("correlation"): e["ts"] for e in events
-                 if e.get("cat") == "cuda_runtime"
-                 and ("LaunchKernel" in e.get("name", "")
-                      or "LaunchCooperativeKernel" in e.get("name", ""))}
-    launches = {c for c, ts in launch_ts.items() if lo <= ts <= hi}
-    kernels = {e.get("args", {}).get("correlation"): (e["ts"], e["ts"] + e["dur"])
-               for e in events if e.get("cat") == "kernel"}
-    spans = sorted(kernels[c] for c in launches & kernels.keys())
-    orphans = [c for c, (ts, _) in kernels.items() if lo <= ts <= hi and c not in launch_ts]
-    return spans, len(launches), len(launches - kernels.keys()) + len(orphans)
+    spans, launched, lost = [], 0, 0
+    for cat in cats:
+        call_ts = {e.get("args", {}).get("correlation"): e["ts"] for e in events
+                   if e.get("cat") == "cuda_runtime"
+                   and any(n in e.get("name", "") for n in _RUNTIME[cat])}
+        calls = {c for c, ts in call_ts.items() if lo <= ts <= hi}
+        records = {e.get("args", {}).get("correlation"): (e["ts"], e["ts"] + e["dur"])
+                   for e in events if e.get("cat") == cat}
+        spans += [records[c] for c in calls & records.keys()]
+        orphans = [c for c, (ts, _) in records.items() if lo <= ts <= hi and c not in call_ts]
+        launched += len(calls)
+        lost += len(calls - records.keys()) + len(orphans)
+    return sorted(spans), launched, lost
+
+
+def _traced(fn, reps: int, cats, log_dir: str | None):
+    """(records, calls, lost, host seconds) of ``reps`` calls of ``fn()``
+    and a synchronize, marked after `_PRIME_KERNELS` tiny kernels in one
+    trace (written to ``log_dir``, else to a temporary folder)."""
+    with contextlib.ExitStack() as stack:
+        tmp = log_dir or stack.enter_context(tempfile.TemporaryDirectory())
+        with trace(tmp) as path:
+            primer = torch.empty((1,), device="cuda")
+            for _ in range(_PRIME_KERNELS):
+                primer.fill_(0.0)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(_MARK):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        return (*_marked_kernels(path, cats), wall)
 
 
 def kernel_ms(fn, reps: int = 20) -> float:
@@ -183,17 +187,7 @@ def kernel_ms(fn, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     for _ in range(_TRIES):
-        with tempfile.TemporaryDirectory() as tmp:
-            with trace(tmp) as path:
-                primer = torch.empty((1,), device="cuda")
-                for _ in range(_PRIME_KERNELS):
-                    primer.fill_(0.0)
-                torch.cuda.synchronize()
-                with torch.profiler.record_function(_MARK):
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-            spans, launched, lost = _marked_kernels(path)
+        spans, launched, lost, _ = _traced(fn, reps, ("kernel",), None)
         if launched and not lost and launched % reps == 0:
             return sum(hi - lo for lo, hi in spans) / 1e3 / reps
         kernel_ms.lost += 1
@@ -202,6 +196,23 @@ def kernel_ms(fn, reps: int = 20) -> float:
 
 
 kernel_ms.lost = 0
+
+
+def device_busy(fn, reps: int = 1, log_dir: str | None = None) -> tuple[float, int, float]:
+    """(device busy seconds, device records, profiled host seconds), each
+    per call, of ``reps`` calls of ``fn()`` under ``trace``: the union of
+    the kernels, copies and fills they issue, held to `kernel_ms`'s guard
+    (every such call in the marked span has its record, every record there
+    its call; a trace that fails it is taken again, up to `_TRIES` times,
+    and counted in ``kernel_ms.lost``, then this raises). No warm-up call. With ``log_dir`` the last trace is
+    kept at ``<log_dir>/trace.json``. Needs a CUDA device."""
+    for _ in range(_TRIES):
+        spans, launched, lost, wall = _traced(fn, reps, DEVICE_CATS, log_dir)
+        if not lost:
+            return busy_us(spans) / 1e6 / reps, len(spans), wall / reps
+        kernel_ms.lost += 1
+    raise RuntimeError(f"device_busy: {_TRIES} traces of {reps} calls each lost records "
+                       f"(the last: {launched} calls, {lost} without their counterpart)")
 
 
 def card_line() -> str:

@@ -9,17 +9,17 @@ The port's counterpart of `scripts/profile_kernel.py` (its `--dataset`,
 `--runs` and `--out`). For the alpha-1.0 pair over each dataset named (any
 key of `io.assets.DATASET_FILES`; hard100k and easy100k are written by
 `scripts/torch_make_datasets.py`) it prints:
-  * layers: host time of each step of `MegaKernelChecker.check_valid_resolved`
-    (validate, upload, pose: K2's one launch, kernel, fetch, resolve), each
-    ended by `torch.cuda.synchronize()`, the kernel (one launch per chunk of
-    `STREAM_CHUNK` rows, as `check_packed` launches it) also with CUDA
-    events, and the whole call unbroken; beside them `broad`, the pass that
-    `check_valid(presort=True)` adds (`mesh_broad`: K5 over every row), by
-    host clock and by CUDA events; median, min and max of `--runs` runs
-    after a warm-up;
-  * trace: `--runs` calls under `torch.profiler`; the device's busy time per
-    call (union of its kernel and copy intervals in the trace), the profiled
-    call's wall time, and the busy time over the unprofiled median call;
+  * layers: the self time of each of the program's spans (`rc.check` and
+    its steps: validate, upload, pose: K2's one launch, kernel: K1 a chunk
+    of `STREAM_CHUNK` rows, fetch, resolve; `profiling.timers.span`) in each
+    of `--runs` unfenced `check_valid_resolved` calls under
+    `torch.profiler`, after a warm-up: a span's time less its child spans';
+    median, min and max over the calls;
+  * trace: from the same trace, the device's busy time per call (the union
+    of its kernels, copies and fills, `timers.device_busy`: a trace that
+    lost a record is taken again), the profiled call's wall time, and the
+    busy time over the median unprofiled call (`--runs` calls by the host
+    clock);
   * batch: the kernel's CUDA-event time on the first dataset's first n rows
     for growing n;
   * chunk: the kernel's CUDA-event time on all of each dataset's rows in one
@@ -40,90 +40,66 @@ import json
 import statistics
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
-import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from robocheck_tpu_torch import MegaKernelChecker, load_obj, read_conf_file  # noqa: E402
-from robocheck_tpu_torch.core.types import validate_confs  # noqa: E402
 from robocheck_tpu_torch.io import assets  # noqa: E402
 from robocheck_tpu_torch.kernels import _build  # noqa: E402
 from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
-from robocheck_tpu_torch.oracle import resolve_coplanar  # noqa: E402
 from robocheck_tpu_torch.profiling import timers  # noqa: E402
 from robocheck_tpu_torch.profiling.timers import card_line, event_ms  # noqa: E402
 
-
-
-def host_ms(fn):
-    """(host ms of fn() up to a device sync, its result)."""
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3, out
 
 
 def spread(xs) -> str:
     return f"median {statistics.median(xs)} (min {min(xs)}, max {max(xs)})"
 
 
-def layers(checker, confs, runs: int) -> dict:
-    """Host ms of each step of check_valid_resolved, as that method runs them
-    (a launch per chunk of STREAM_CHUNK rows; the chunks' bytes are joined
-    outside the kernel step's host and event spans), and of the whole call."""
-    chunk = checker.STREAM_CHUNK
-    steps = {k: [] for k in ("validate", "upload", "pose", "broad", "broad_events", "kernel",
-                             "kernel_events", "fetch", "resolve", "end_to_end")}
-    for i in range(runs + 1):
-        ms = {}
-        ms["validate"], c = host_ms(
-            lambda: validate_confs(confs) if np.isfinite(confs).all() else None)
-        ms["upload"], dev = host_ms(lambda: torch.from_numpy(c).to(checker.device))
-        ms["pose"], poses = host_ms(lambda: mk.poses_from_confs(dev))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        ms["broad"], _ = host_ms(lambda: mk.mesh_broad(poses, checker.tables))
-        end.record()
-        end.synchronize()
-        ms["broad_events"] = start.elapsed_time(end)
-        start.record()
-        ms["kernel"], outs = host_ms(lambda: [
-            mk.check_poses_cuda(poses[lo : lo + chunk], checker.tables)
-            for lo in range(0, len(poses), chunk)])
-        end.record()
-        end.synchronize()
-        ms["kernel_events"] = start.elapsed_time(end)
-        packed = torch.cat(outs)  # joins the chunks outside the timed spans
-        ms["fetch"], packed = host_ms(lambda: packed.cpu().numpy())
-        valid, flagged = (packed & 1).astype(bool), (packed & 6).astype(bool)
-        ms["resolve"], _ = host_ms(lambda: resolve_coplanar(
-            checker.robot, checker.obstacle, confs, valid, flagged))
-        ms["end_to_end"], _ = host_ms(lambda: checker.check_valid_resolved(confs))
-        if i:  # the first run is the warm-up
-            for k, v in ms.items():
-                steps[k].append(v)
-    return steps
+def layers(path: Path) -> dict:
+    """{span name: [self ms in each call]} of the program's spans in the
+    trace at ``path``: a span's time less the time of the spans directly
+    inside it. A call is a span that opens with no span open."""
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"].startswith("rc.")),
+                   key=lambda s: (s[0], -s[1]))
+    calls, open_spans = [], []
+    for lo, hi, name in spans:
+        while open_spans and open_spans[-1][1] <= lo:
+            open_spans.pop()
+        if open_spans:
+            calls[-1][open_spans[-1][2]] -= hi - lo
+        else:
+            calls.append(defaultdict(float))
+        calls[-1][name] += hi - lo
+        open_spans.append((lo, hi, name))
+    names = sorted(set().union(*calls))
+    return {name: [c.get(name, 0.0) / 1e3 for c in calls] for name in names}
 
 
-def busy(checker, confs, runs: int, log_dir: Path) -> dict:
-    """Device busy ms per call from a trace of `runs` calls, written to
-    `log_dir/trace.json`."""
+def traced(checker, confs, runs: int, log_dir: Path) -> tuple[dict, dict]:
+    """(each span's self ms per call, the device's busy time) of ``runs``
+    unfenced calls in one trace, kept at `log_dir/trace.json`, after a
+    warm-up call; beside them the median unprofiled call."""
     checker.check_valid_resolved(confs)
-    torch.cuda.synchronize()
-    with timers.trace(str(log_dir)) as path:
+    busy_s, records, wall_s = timers.device_busy(
+        lambda: checker.check_valid_resolved(confs), runs, str(log_dir))
+    steps = layers(log_dir / "trace.json")
+    unprofiled = []
+    for _ in range(runs):
         t0 = time.perf_counter()
-        for _ in range(runs):
-            checker.check_valid_resolved(confs)
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / runs
-    spans = timers.device_intervals(path, ("kernel", "gpu_memcpy", "gpu_memset"))
-    return {"device_busy_ms": timers.busy_us(spans) / 1e3 / runs, "profiled_wall_ms": wall,
-            "device_events": len(spans)}
+        checker.check_valid_resolved(confs)
+        unprofiled.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(unprofiled)
+    return steps, {"device_busy_ms": busy_s * 1e3, "profiled_wall_ms": wall_s * 1e3,
+                   "device_events": records, "unprofiled_median_ms": median,
+                   "busy_over_unprofiled_median": busy_s * 1e3 / median}
 
 
 @contextlib.contextmanager
@@ -163,17 +139,16 @@ def main() -> None:
     report = {"card": card}
 
     for key in keys:
-        steps = layers(checker, data[key], args.runs)
-        tr = busy(checker, data[key], args.runs, args.out / key)
-        e2e = statistics.median(steps["end_to_end"])
-        tr["busy_over_unprofiled_median"] = tr["device_busy_ms"] / e2e
+        steps, tr = traced(checker, data[key], args.runs, args.out / key)
         report[key] = {"layers_ms": steps, "trace": tr}
-        print(f"[layers] [{card}] {key}: host ms, {args.runs} runs after a warm-up")
+        print(f"[layers] [{card}] {key}: self ms of each span, {args.runs} traced calls "
+              f"after a warm-up")
         for name, xs in steps.items():
             print(f"  {name}: {spread(xs)}")
         print(f"[trace] [{card}] {key}: device busy {tr['device_busy_ms']} ms per call "
-              f"({tr['device_events']} device events in {args.runs} calls); profiled "
-              f"call {tr['profiled_wall_ms']} ms; busy over the unprofiled median call "
+              f"({tr['device_events']} device records in {args.runs} calls); profiled "
+              f"call {tr['profiled_wall_ms']} ms; unprofiled median call "
+              f"{tr['unprofiled_median_ms']} ms; busy over it "
               f"{tr['busy_over_unprofiled_median']}")
 
     first = mk.poses_from_confs(torch.from_numpy(data[keys[0]]).to(device))

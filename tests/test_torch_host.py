@@ -61,7 +61,7 @@ def test_port_imports_no_jax():
             "'torch_bench_chunked', 'torch_certify_alpha', 'torch_clearance_study', "
             "'torch_multihost_worker', 'torch_bench_scaling', 'torch_bench', "
             "'torch_make_datasets', 'torch_tile_sweep', 'torch_front_compare', "
-            "'torch_grid_compare')]; "
+            "'torch_grid_compare', 'torch_span_idle')]; "
             "runpy.run_path('chip_smoke.py', run_name='imported'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'robocheck_tpu' or m.startswith('robocheck_tpu.')]; "

@@ -28,8 +28,7 @@ from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.obj import load_obj
 from robocheck_tpu_torch.kernels import megakernel as mk
 from robocheck_tpu_torch.profiling import bounds, counters, timers
-from robocheck_tpu_torch.profiling.timers import (StageTimer, benchmark, busy_us,
-                                                  device_intervals, trace)
+from robocheck_tpu_torch.profiling.timers import benchmark, busy_us, trace
 
 
 def _mesh(m):
@@ -358,24 +357,18 @@ class TestProfilingCounters:
 
 
 def test_stage_timer_benchmark_and_trace(tmp_path):
-    timer = StageTimer()
-    for _ in range(3):
-        with timer.stage("matmul"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    with timer.stage("unsynced", sync=False):
-        pass
-    assert timer.counts["matmul"] == 3 and timer.totals["matmul"] > 0
-    assert "matmul" in timer.report() and "3 calls" in timer.report()
     calls = []
     best = benchmark(lambda x: calls.append(x), 7, runs=4, warmup=2)
     assert best >= 0 and calls == [7] * 6
     with trace(str(tmp_path / "tr")) as path:
-        torch.ones(8).sum()
+        with torch.profiler.record_function(timers._MARK):
+            torch.ones(8).sum()
     assert (tmp_path / "tr" / "trace.json").exists() and path.endswith("trace.json")
-    # On the CPU the trace holds host ops only; device_intervals reads any category.
-    assert device_intervals(path) == []
-    ops = device_intervals(path, ("cpu_op",))
-    assert ops and all(lo <= hi for lo, hi in ops) and ops == sorted(ops)
+    # On the CPU the trace holds host ops only: the guarded reader finds no
+    # device record, no runtime call and nothing lost inside the marked span.
+    assert timers._marked_kernels(path, timers.DEVICE_CATS) == ([], 0, 0)
+    events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == timers._MARK for e in events)
 
 
 @pytest.mark.parametrize("spans,want", [
@@ -517,3 +510,30 @@ def test_kernel_trace_ignores_kernels_launched_before_its_span(tmp_path):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
     assert timers._marked_kernels(str(path)) == ([(4.5, 8.5), (22.0, 26.0)], 2, 0)
+
+
+@pytest.mark.parametrize("cats,drop_copy,stray_fill,lost", [
+    (timers.DEVICE_CATS, False, False, 0), (timers.DEVICE_CATS, True, False, 1),
+    (timers.DEVICE_CATS, False, True, 1), (("kernel",), True, True, 0)])
+def test_device_trace_matches_copies_and_fills(tmp_path, cats, drop_copy, stray_fill, lost):
+    # `device_busy` holds copies and fills to the kernels' rule: each call in
+    # the marked span has its record, each record there its call.
+    events = [{"cat": "user_annotation", "name": timers._MARK, "ts": 5.0, "dur": 40.0}]
+    for c, call, cat, ts in ((1, "cudaLaunchKernel", "kernel", 10.0),
+                             (2, "cudaMemcpyAsync", "gpu_memcpy", 20.0),
+                             (3, "cudaMemsetAsync", "gpu_memset", 30.0)):
+        events.append({"cat": "cuda_runtime", "name": call, "ts": ts, "dur": 1.0,
+                       "args": {"correlation": c}})
+        if not (drop_copy and cat == "gpu_memcpy"):
+            events.append({"cat": cat, "name": "r", "ts": ts + 2, "dur": 3.0,
+                           "args": {"correlation": c}})
+    if stray_fill:
+        events.append({"cat": "gpu_memset", "name": "r", "ts": 40.0, "dur": 1.0,
+                       "args": {"correlation": 8}})
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    spans, calls, got_lost = timers._marked_kernels(str(path), cats)
+    assert got_lost == lost and calls == len(cats)
+    want = [(12.0, 15.0), (22.0, 25.0), (32.0, 35.0)]
+    assert spans == [w for w, cat in zip(want, timers.DEVICE_CATS)
+                     if cat in cats and not (drop_copy and cat == "gpu_memcpy")]
