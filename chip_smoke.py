@@ -24,7 +24,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      tetrahedra fixture and two coplanar fixtures. `valid`
      must be identical on every row, `coplanar` (bit 1) and `uncertain`
      (bit 2) on every valid row (the tolerance is exact: both compute the
-     same float32 operations);
+     same float32 operations); then hard10k[:2048] with NaN, +inf and -inf
+     planted in every column on 18 rows around the boundaries of chunks of
+     512, through `check_packed(chunk=512)`: its bytes equal to the twin's
+     by the same rule, 0 on every planted row, presort on equal to off by
+     that rule too (a colliding row's bits 1-2 follow the run-time order of
+     the any-hit exit, which presort's chunks change), the counter kernel's
+     rows all zero there, and the checker's
+     `counters()["nonfinite_rows"]` and the twin's count each rising by the
+     planted count a call;
   3b. the counter kernel against its twin on the same scenes and the JAX
      package's TestCoplanarResolution fixture: columns 0-6 identical on valid
      rows, columns 0 and 3 on every row; on colliding rows the kernel's
@@ -330,6 +338,48 @@ def compare_on_card(mk, name, robot, obstacle, confs, device, scenes):
     scenes.append((name, prep, poses))
     return compare_bits(name, mk.check_poses_cuda(poses, prep),
                         mk.check_poses_reference(poses, prep))
+
+
+def compare_nonfinite(mk, robot, obstacle, confs, device) -> int:
+    """Phase 3's non-finite rows: NaN, +inf and -inf in every column on rows
+    around the boundaries of chunks of 512 of ``confs``, checked on the card
+    through `check_packed(chunk=512)` and against the twin. Returns the max
+    abs difference of the compared bits."""
+    confs = confs.copy()
+    chunk = 512
+    rows = [0, chunk - 1, chunk, 2 * chunk - 1, 2 * chunk, 2 * chunk + 1, 3 * chunk - 2,
+            3 * chunk - 1, 3 * chunk, len(confs) - 1]
+    rows += list(np.random.default_rng(31).choice(
+        np.setdiff1d(np.arange(len(confs)), rows), 18 - len(rows), replace=False))
+    for i, r in enumerate(rows):
+        confs[r, i % 6] = (np.nan, np.inf, -np.inf)[i % 3]
+    bad = ~np.isfinite(confs).all(1)
+    planted = int(bad.sum())
+    require(planted == 18, f"non-finite rows: planted {planted}, meant 18")
+    checker = mk.MegaKernelChecker(robot, obstacle, device=device)
+    got = checker.check_packed(confs, chunk=chunk)
+    counted = checker.counters()["nonfinite_rows"]
+    presorted = checker.check_packed(confs, chunk=chunk, presort=True)
+    poses = mk.poses_from_confs(torch.from_numpy(confs).to(device))
+    twin_count = torch.zeros((), dtype=torch.int64, device=device)
+    want = mk.check_poses_reference(poses, checker.tables, twin_count)
+    stats = mk.check_poses_stats_cuda(poses, checker.tables).cpu().numpy()
+    err, *_ = compare_bits(f"alpha hard10k[:{len(confs)}] with {planted} non-finite rows, "
+                           f"chunks of {chunk}", torch.from_numpy(got), want)
+    err = max(err, compare_bits("the same rows, presort on vs off", torch.from_numpy(presorted),
+                                torch.from_numpy(got))[0])
+    print(f"  non-finite rows: kernel bytes there {sorted(set(got[bad].tolist()))}, with "
+          f"presort {sorted(set(presorted[bad].tolist()))}, counter kernel rows there "
+          f"all zero {not stats[bad].any()}, counted by the checker {counted} then "
+          f"{checker.counters()['nonfinite_rows']} (after presort), by the twin "
+          f"{int(twin_count.item())}, planted {planted}")
+    require(not got[bad].any(), "non-finite rows: a planted row's byte is not 0")
+    require(not presorted[bad].any(), "non-finite rows: a planted row's byte is not 0 (presort)")
+    require(not stats[bad].any(), "non-finite rows: a counter kernel row there is not zero")
+    require(counted == planted and checker.counters()["nonfinite_rows"] == 2 * planted,
+            "non-finite rows: the checker's counter is not the planted count")
+    require(int(twin_count.item()) == planted, "non-finite rows: the twin counts otherwise")
+    return err
 
 
 def compare_stats(name, got, want):
@@ -2154,6 +2204,8 @@ def main() -> None:
                                        scenes)
     require(n_unc == 1, "the JAX coplanar fixture is not flagged uncertain")
     max_err = max(max_err, err)
+    max_err = max(max_err, compare_nonfinite(mk, robot, obstacle, data["hard10k"].confs[:2048],
+                                             device))
 
     # ---- 3b. The counter kernel against its twin, same pose rows. ----
     print("[3b] counter kernel vs twin on the card (exact: columns 0-6 on valid rows, "

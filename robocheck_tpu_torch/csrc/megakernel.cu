@@ -60,7 +60,13 @@
 //     that its registers stay out of the sweep's loops), so obstacle rows
 //     are read only for queued pairs;
 //   * the any-hit exit: a warp that finds a hit after a flush raises a
-//     shared flag, and every warp stops at its next tile pair.
+//     shared flag, and every warp stops at its next tile pair;
+//   * non-finite rows end at the load: a row whose 12 pose floats are not all
+//     finite (K2 makes them so exactly where the configuration row is) gets
+//     the byte 0 (invalid, nothing flagged), or an all-zero counter row, and
+//     is counted in `nonfinite` (when given). Every thread of the team tests
+//     the same 12 floats, so the branch is uniform; the checker then needs no
+//     host pass over the batch.
 
 // Instances (`template <bool kStats, int kStage>`):
 //   * <false, kFull>: the packed byte above, the checker's main path;
@@ -86,7 +92,7 @@
 //     replaced by a multiply (`_probe_div`). Each keeps its stage's work
 //     live with `hit = count > 0 && rt_false` (rt_false is a kernel
 //     argument, always 0), so it never sets hit, coplanar or uncertain and
-//     writes the byte 1 on every row; none takes the any-hit exit. Table
+//     writes the byte 1 on every finite row; none takes the any-hit exit. Table
 //     values are never multiplied by that zero: the obstacle padding rows
 //     hold +-inf.
 // `if constexpr` keeps the counter and variant code out of the packed
@@ -99,6 +105,7 @@
 // as torch.minimum and jnp.minimum do.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 // The block's geometry, which only this file reads (the host's tables do not
@@ -550,7 +557,8 @@ struct Layout {
 };
 
 // `out` is uint8 [n] (packed instances) or int32 [n, kStatCols] (kStats);
-// `work` is the batch's row counter, 0 at launch.
+// `work` is the batch's row counter, 0 at launch; `nonfinite` (may be null)
+// counts the rows with a non-finite pose float.
 template <bool kStats, int kStage>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 megakernel(const float* __restrict__ poses, int n_confs,
@@ -558,7 +566,8 @@ megakernel(const float* __restrict__ poses, int n_confs,
            const float* __restrict__ obs, int to,
            const float* __restrict__ obs_mesh,
            const float* __restrict__ obs_groups, int n_groups,
-           void* __restrict__ out_ptr, int* __restrict__ work, int rt_false) {
+           void* __restrict__ out_ptr, int* __restrict__ work,
+           int64_t* __restrict__ nonfinite, int rt_false) {
   static_assert(!kStats || kStage == kFull, "counters come with the full sweep only");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -616,8 +625,24 @@ megakernel(const float* __restrict__ poses, int n_confs,
     if (ttid < 12) pose[ttid] = __ldg(poses + size_t(b) * 16 + ttid);
     team_sync(team);
     float p[12];
+    bool finite = true;
 #pragma unroll
-    for (int k = 0; k < 12; ++k) p[k] = pose[k];
+    for (int k = 0; k < 12; ++k) {
+      p[k] = pose[k];
+      finite &= bool(isfinite(p[k]));
+    }
+    if (!finite) {  // the same 12 floats on every thread of the team
+      if (ttid == 0) {
+        if constexpr (kStats) {
+#pragma unroll
+          for (int c = 0; c < kStatCols; ++c) out_stats[size_t(b) * kStatCols + c] = 0;
+        } else {
+          out[b] = 0;
+        }
+        if (nonfinite) atomicAdd(reinterpret_cast<unsigned long long*>(nonfinite), 1ull);
+      }
+      continue;
+    }
 
     // ---- Pose pass: lane l poses robot tile l of each tile block, its
     // triangles split across the team's warps; partial boxes meet in
@@ -839,7 +864,8 @@ int resident_blocks(const Layout& L, int* per_sm) {
 template <bool kStats, int kStage>
 int launch(const float* poses, int64_t n, const float* rob_base, int tr,
            const float* obs, int to, const float* obs_mesh, const float* obs_groups,
-           int n_groups, void* out, int* work, int rt_false, cudaStream_t stream) {
+           int n_groups, void* out, int* work, int64_t* nonfinite, int rt_false,
+           cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
   if (n > (int64_t(1) << 30) || tr <= 0 || tr % kRobTile != 0 || tr >= 65536 ||
       n_groups <= 0 || to != n_groups * kGroup || to >= 65536)
@@ -861,7 +887,7 @@ int launch(const float* poses, int64_t n, const float* rob_base, int tr,
   const int grid = int(want < int64_t(per_sm) * sms ? want : int64_t(per_sm) * sms);
   megakernel<kStats, kStage><<<grid, kThreads, L.bytes(), stream>>>(
       poses, int(n), rob_base, tr, obs, to, obs_mesh, obs_groups, n_groups, out, work,
-      rt_false);
+      nonfinite, rt_false);
   return cudaGetLastError();
 }
 
@@ -902,27 +928,33 @@ const char* rc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Whether the entries below take the non-finite row counter after `work`
+// (copies of this file built from older revisions do not export this).
+int rc_megakernel_counts_nonfinite() { return 1; }
+
 // Checks n pose rows (poses [n,16] f32) against the tables; writes out[n]
 // uint8 on `stream`. rob_base [10,tr], obs [to,20], obs_mesh [6],
 // obs_groups [to/128,6], all f32, contiguous, on the current device; work:
-// one int32 of scratch on that device (the row counter, zeroed here).
+// one int32 of scratch on that device (the row counter, zeroed here);
+// nonfinite: null or one int64 on that device, raised by 1 for each row with
+// a non-finite pose float (which gets the byte 0).
 // Returns the launch's cudaError_t (0 = launched); does not synchronise.
 int rc_megakernel_check(const float* poses, int64_t n, const float* rob_base,
                         int tr, const float* obs, int to, const float* obs_mesh,
                         const float* obs_groups, int n_groups, uint8_t* out, int* work,
-                        cudaStream_t stream) {
+                        int64_t* nonfinite, cudaStream_t stream) {
   return launch<false, kFull>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
-                              n_groups, out, work, 0, stream);
+                              n_groups, out, work, nonfinite, 0, stream);
 }
 
 // As rc_megakernel_check, with the counter row: out[n, 8] int32 (columns in
-// the header comment).
+// the header comment; all zero on a non-finite row).
 int rc_megakernel_check_stats(const float* poses, int64_t n, const float* rob_base,
                               int tr, const float* obs, int to, const float* obs_mesh,
                               const float* obs_groups, int n_groups, int32_t* out,
-                              int* work, cudaStream_t stream) {
+                              int* work, int64_t* nonfinite, cudaStream_t stream) {
   return launch<true, kFull>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
-                             n_groups, out, work, 0, stream);
+                             n_groups, out, work, nonfinite, 0, stream);
 }
 
 // A stage-isolating variant (stage 1 = no sweep, 2 = box tests only, 3 = box
@@ -931,20 +963,21 @@ int rc_megakernel_check_stats(const float* poses, int64_t n, const float* rob_ba
 int rc_megakernel_check_stage(const float* poses, int64_t n, const float* rob_base,
                               int tr, const float* obs, int to, const float* obs_mesh,
                               const float* obs_groups, int n_groups, uint8_t* out,
-                              int* work, int stage, int rt_false, cudaStream_t stream) {
+                              int* work, int64_t* nonfinite, int stage, int rt_false,
+                              cudaStream_t stream) {
   switch (stage) {
     case kNoSweep:
-      return launch<false, kNoSweep>(poses, n, rob_base, tr, obs, to, obs_mesh,
-                                     obs_groups, n_groups, out, work, rt_false, stream);
+      return launch<false, kNoSweep>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
+                                     n_groups, out, work, nonfinite, rt_false, stream);
     case kMaskOnly:
-      return launch<false, kMaskOnly>(poses, n, rob_base, tr, obs, to, obs_mesh,
-                                      obs_groups, n_groups, out, work, rt_false, stream);
+      return launch<false, kMaskOnly>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
+                                      n_groups, out, work, nonfinite, rt_false, stream);
     case kPlanesOnly:
-      return launch<false, kPlanesOnly>(poses, n, rob_base, tr, obs, to, obs_mesh,
-                                        obs_groups, n_groups, out, work, rt_false, stream);
+      return launch<false, kPlanesOnly>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
+                                        n_groups, out, work, nonfinite, rt_false, stream);
     case kNoDiv:
-      return launch<false, kNoDiv>(poses, n, rob_base, tr, obs, to, obs_mesh,
-                                   obs_groups, n_groups, out, work, rt_false, stream);
+      return launch<false, kNoDiv>(poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups,
+                                   n_groups, out, work, nonfinite, rt_false, stream);
     default:
       return cudaErrorInvalidValue;
   }

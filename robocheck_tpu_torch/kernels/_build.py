@@ -86,11 +86,17 @@ def _bind(fn, restype, argtypes) -> None:
 def _bind_megakernel(lib: ctypes.CDLL) -> None:
     """Bind the fused kernel's entry points. ``lib.takes_work``: whether they
     take the row-counter scratch after ``out`` (copies built from sources
-    older than `rc_megakernel_blocks_per_sm` do not)."""
+    older than `rc_megakernel_blocks_per_sm` do not); ``lib.takes_nonfinite``:
+    whether they take the non-finite row counter after it (a null pointer
+    counts nothing; copies older than `rc_megakernel_counts_nonfinite` do
+    not)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.takes_work = hasattr(lib, "rc_megakernel_blocks_per_sm")
-    # poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups, n_groups, out[, work]
-    check = [ptr, i64, ptr, i32, ptr, i32, ptr, ptr, i32, ptr] + [ptr] * lib.takes_work
+    lib.takes_nonfinite = hasattr(lib, "rc_megakernel_counts_nonfinite")
+    # poses, n, rob_base, tr, obs, to, obs_mesh, obs_groups, n_groups, out[,
+    # work[, nonfinite]]
+    check = ([ptr, i64, ptr, i32, ptr, i32, ptr, ptr, i32, ptr]
+             + [ptr] * (lib.takes_work + lib.takes_nonfinite))
     _bind(lib.rc_megakernel_check, i32, check + [ptr])
     _bind(lib.rc_megakernel_check_stats, i32, check + [ptr])
     _bind(lib.rc_megakernel_check_stage, i32, check + [i32, i32, ptr])

@@ -469,11 +469,24 @@ def _box_pairs(fb: dict, o: dict, real: torch.Tensor):
     return bi[keep], ri[keep], oi[keep]
 
 
-def check_poses_reference(poses: torch.Tensor,
-                          prep: MegaKernelPrep) -> torch.Tensor:
+def _nonfinite_rows(poses: torch.Tensor, nonfinite: torch.Tensor | None) -> torch.Tensor:
+    """[B] bool: the pose rows with a non-finite float among their 12 (K2
+    gives such a row exactly where the configuration row is non-finite);
+    adds their number to the int64 counter ``nonfinite`` if given, as K1
+    does."""
+    bad = ~torch.isfinite(poses[:, :12]).all(1)
+    if nonfinite is not None:
+        nonfinite += bad.sum().to(nonfinite.device)
+    return bad
+
+
+def check_poses_reference(poses: torch.Tensor, prep: MegaKernelPrep,
+                          nonfinite: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch twin of the CUDA kernel: [B,16] pose rows -> [B] uint8
     (bit 0 = valid, bit 1 = coplanar seen, bit 2 = uncertain pair seen), on
-    the device of its inputs.
+    the device of its inputs. A row with a non-finite pose float gets the
+    byte 0 (invalid, nothing flagged) and is counted in ``nonfinite`` (one
+    int64, if given), as in the kernel.
 
     A pair counts where the robot triangle is real and the two triangle boxes
     overlap on closed intervals (`megakernel.py:736-739`); the twin finds
@@ -483,9 +496,10 @@ def check_poses_reference(poses: torch.Tensor,
     rob_base, obs = prep.rob_base, prep.obs
     f = _posed_robot(poses, rob_base)
     real = rob_base[9] > 0.0
-    broad = mesh_broad_reference(poses, rob_base, prep.obs_mesh)
+    bad = _nonfinite_rows(poses, nonfinite)
+    broad = mesh_broad_reference(poses, rob_base, prep.obs_mesh) & ~bad
 
-    out = torch.ones(poses.shape[0], dtype=torch.uint8, device=poses.device)
+    out = (~bad).to(torch.uint8)
     o = _obstacle_fields(obs)
     tr, to = rob_base.shape[1], obs.shape[0]
     step = max(1, _PAIR_BUDGET // (tr * to))
@@ -506,11 +520,12 @@ def check_poses_reference(poses: torch.Tensor,
     return out
 
 
-def check_poses_stats_reference(poses: torch.Tensor,
-                                prep: MegaKernelPrep) -> torch.Tensor:
+def check_poses_stats_reference(poses: torch.Tensor, prep: MegaKernelPrep,
+                                nonfinite: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch twin of the counter kernel: [B,16] pose rows -> [B,
     OUT_COLS] int32 (the columns documented at OUT_COLS), on the device of
-    its inputs.
+    its inputs. A row with a non-finite pose float gets an all-zero row and
+    is counted in ``nonfinite``, as in ``check_poses_reference``.
 
     It tests every box-overlapping pair with no any-hit exit, and counts
     tile pairs with the kernel's gate: the box of each ROB_TILE-triangle
@@ -522,9 +537,10 @@ def check_poses_stats_reference(poses: torch.Tensor,
     rob_base, obs = prep.rob_base, prep.obs
     f = _posed_robot(poses, rob_base)
     real = rob_base[9] > 0.0
-    broad = mesh_broad_reference(poses, rob_base, prep.obs_mesh)
+    bad = _nonfinite_rows(poses, nonfinite)
+    broad = mesh_broad_reference(poses, rob_base, prep.obs_mesh) & ~bad
     out = torch.zeros((poses.shape[0], OUT_COLS), dtype=torch.int32, device=poses.device)
-    out[:, 0] = 1
+    out[:, 0] = (~bad).to(torch.int32)
     out[:, 3] = broad.to(torch.int32)
 
     o = _obstacle_fields(obs)
@@ -571,11 +587,13 @@ def check_poses_stats_reference(poses: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _launch(entry: str, poses: torch.Tensor, prep: MegaKernelPrep, out_shape: tuple,
-            out_dtype: torch.dtype, *extra) -> tuple[bool, torch.Tensor]:
+            out_dtype: torch.dtype, nonfinite: torch.Tensor | None,
+            *extra) -> tuple[bool, torch.Tensor]:
     """Check the inputs, allocate the output and launch the C entry ``entry``
-    of `csrc/megakernel.cu` on the current stream. Returns (launched, output):
-    an empty batch launches nothing. Raises on inputs the kernel does not take
-    and on a refused launch."""
+    of `csrc/megakernel.cu` on the current stream, with the non-finite row
+    counter ``nonfinite`` (one int64 on the rows' device, or None). Returns
+    (launched, output): an empty batch launches nothing. Raises on inputs the
+    kernel does not take and on a refused launch."""
     from . import _build
 
     if not poses.is_cuda:
@@ -592,6 +610,10 @@ def _launch(entry: str, poses: torch.Tensor, prep: MegaKernelPrep, out_shape: tu
     _require(prep.obs_groups, "obs_groups", (n_groups, 6), dev)
     if prep.obs.data_ptr() % 16:
         raise ValueError("obs must be 16-byte aligned (it is read as float4)")
+    if nonfinite is not None and (nonfinite.device != dev or nonfinite.dtype != torch.int64
+                                  or nonfinite.numel() != 1):
+        raise ValueError(f"nonfinite must be one int64 on {dev}, got {nonfinite.dtype} "
+                         f"{tuple(nonfinite.shape)} on {nonfinite.device}")
     n = poses.shape[0]
     out = torch.empty((n, *out_shape), dtype=out_dtype, device=dev)
     if n == 0:
@@ -602,7 +624,8 @@ def _launch(entry: str, poses: torch.Tensor, prep: MegaKernelPrep, out_shape: tu
         err = getattr(lib, entry)(
             poses.data_ptr(), n, prep.rob_base.data_ptr(), tr,
             prep.obs.data_ptr(), to, prep.obs_mesh.data_ptr(),
-            prep.obs_groups.data_ptr(), n_groups, out.data_ptr(), work.data_ptr(), *extra,
+            prep.obs_groups.data_ptr(), n_groups, out.data_ptr(), work.data_ptr(),
+            None if nonfinite is None else nonfinite.data_ptr(), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(
@@ -612,22 +635,27 @@ def _launch(entry: str, poses: torch.Tensor, prep: MegaKernelPrep, out_shape: tu
     return True, out
 
 
-def check_poses_cuda(poses: torch.Tensor, prep: MegaKernelPrep) -> torch.Tensor:
+def check_poses_cuda(poses: torch.Tensor, prep: MegaKernelPrep,
+                     nonfinite: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel of `csrc/megakernel.cu` on the current stream:
-    [B,16] pose rows -> [B] uint8, same bits as ``check_poses_reference``.
-    Raises on inputs the kernel does not take and on a refused launch."""
-    launched, out = _launch("rc_megakernel_check", poses, prep, (), torch.uint8)
+    [B,16] pose rows -> [B] uint8, same bits as ``check_poses_reference``,
+    adding the non-finite rows to ``nonfinite`` (one int64 on the rows'
+    device) if given. Raises on inputs the kernel does not take and on a
+    refused launch."""
+    launched, out = _launch("rc_megakernel_check", poses, prep, (), torch.uint8, nonfinite)
     if launched:
         check_poses_cuda.launches += 1
     return out
 
 
-def check_poses_stats_cuda(poses: torch.Tensor, prep: MegaKernelPrep) -> torch.Tensor:
+def check_poses_stats_cuda(poses: torch.Tensor, prep: MegaKernelPrep,
+                           nonfinite: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the counter instance of the kernel: [B,16] pose rows -> [B,
     OUT_COLS] int32, columns as ``check_poses_stats_reference``'s (equal on
-    valid rows; on colliding rows the counts stop at the any-hit exit)."""
+    valid rows; on colliding rows the counts stop at the any-hit exit), the
+    non-finite rows counted as ``check_poses_cuda`` counts them."""
     launched, out = _launch("rc_megakernel_check_stats", poses, prep, (OUT_COLS,),
-                            torch.int32)
+                            torch.int32, nonfinite)
     if launched:
         check_poses_stats_cuda.launches += 1
     return out
@@ -636,12 +664,12 @@ def check_poses_stats_cuda(poses: torch.Tensor, prep: MegaKernelPrep) -> torch.T
 def check_poses_stage_cuda(poses: torch.Tensor, prep: MegaKernelPrep,
                            stage: str) -> torch.Tensor:
     """Launch the stage-isolating variant ``stage`` (a key of STAGES):
-    [B,16] pose rows -> [B] uint8, which is 1 on every row (a variant never
-    sets hit, coplanar or uncertain; its work is kept live by a runtime
-    zero)."""
+    [B,16] pose rows -> [B] uint8, which is 1 on every finite row (a variant
+    never sets hit, coplanar or uncertain; its work is kept live by a runtime
+    zero) and 0 on a non-finite one."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {sorted(STAGES)}, got {stage!r}")
-    launched, out = _launch("rc_megakernel_check_stage", poses, prep, (), torch.uint8,
+    launched, out = _launch("rc_megakernel_check_stage", poses, prep, (), torch.uint8, None,
                             STAGES[stage], 0)
     if launched:
         check_poses_stage_cuda.launches[stage] += 1
@@ -721,16 +749,27 @@ class MegaKernelChecker:
                 f"memory per block (limit {SMEM_LIMIT}) and rows below {ROW_LIMIT}; "
                 f"use kernels.chunked.make_checker")
         self.tables = self.prep.to(self.device)
+        # Rows with a non-finite pose float, counted by K1 (or its twin) on
+        # the device; read only by ``counters``.
+        self._nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def counters(self) -> dict:
+        """{"nonfinite_rows": rows with a non-finite configuration that K1
+        (or its twin) has answered since the checker was made: the byte 0,
+        or ``check_block``'s all-zero counter row}. One device read; no check
+        call makes it."""
+        return {"nonfinite_rows": int(self._nonfinite.item())}
 
     def check_packed(self, confs: np.ndarray, chunk: int | None = None,
                      presort: bool | None = None) -> np.ndarray:
         """[N,6] configurations -> [N] uint8 verdict bytes (bit 0 valid,
         bit 1 coplanar, bit 2 uncertain; see ``check_poses_reference``).
 
-        Uploads the batch once, poses it on the device, checks it in chunks
-        of ``chunk`` rows (the last may be short) and fetches the verdict
-        bytes once. Non-finite rows get the byte 0: invalid, nothing flagged
-        (`megakernel.py:1341-1352`).
+        Uploads the batch once, as it stands, poses it on the device, checks
+        it in chunks of ``chunk`` rows (the last may be short) and fetches the
+        verdict bytes once. Non-finite rows get the byte 0: invalid, nothing
+        flagged (`megakernel.py:1341-1352`); the kernel answers them itself
+        and counts them (``counters``), so no host pass tests the rows.
 
         ``presort`` (default off, as in the JAX package, so the main path is
         one kernel launch per chunk) first runs ``broad_block`` (the kernel's
@@ -740,19 +779,12 @@ class MegaKernelChecker:
         Verdicts are identical either way (`megakernel.py:1361-1408`).
 
         Under a profiler each step is a span (`profiling.timers.span`):
-        ``rc.check.validate`` (with the non-finite split; the finite rows'
-        call emits its own), ``.upload``, ``.pose`` (K2), ``.kernel`` (K1's
-        chunks, or the presorted path) and ``.fetch``."""
+        ``rc.check.validate`` (the array's dtype and shape), ``.upload``,
+        ``.pose`` (K2), ``.kernel`` (K1's chunks, or the presorted path) and
+        ``.fetch``."""
         with span("rc.check.validate"):
             confs = validate_confs(confs)
             n = confs.shape[0]
-            finite = np.isfinite(confs).all(axis=1)
-            rest = None if finite.all() else confs[finite]
-        if rest is not None:
-            out = np.zeros((n,), dtype=np.uint8)
-            if len(rest):
-                out[finite] = self.check_packed(rest, chunk=chunk, presort=presort)
-            return out
         if n == 0:
             return np.zeros((0,), dtype=np.uint8)
         chunk = chunk or self.STREAM_CHUNK
@@ -764,7 +796,8 @@ class MegaKernelChecker:
             if presort:
                 packed = self._check_presorted(poses, chunk)
             else:
-                packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables)
+                packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables,
+                                                      self._nonfinite)
                                     for lo in range(0, n, chunk)])
         with span("rc.check.fetch"):
             return packed.cpu().numpy()
@@ -779,9 +812,11 @@ class MegaKernelChecker:
     def _check_presorted(self, poses: torch.Tensor, chunk: int) -> torch.Tensor:
         """Packed bytes of ``poses`` checked hits-first: the JAX package's
         `_broad_sort` (a stable partition by cumsums and one scatter) and
-        `_unpermute` (`megakernel.py:1176-1206`) as torch ops."""
+        `_unpermute` (`megakernel.py:1176-1206`) as torch ops. Non-finite rows
+        count as hits (the broad phase reads a NaN box as a miss), so that
+        the kernel answers them with the byte 0."""
         n = poses.shape[0]
-        hits = mesh_broad(poses, self.tables)
+        hits = mesh_broad(poses, self.tables) | _nonfinite_rows(poses, None)
         n_hit = torch.cumsum(hits, 0)
         n_miss = torch.cumsum(~hits, 0)
         dest = torch.where(hits, n_hit - 1, n_hit[-1] + n_miss - 1)
@@ -789,7 +824,7 @@ class MegaKernelChecker:
         src[dest] = torch.arange(n, device=poses.device)
         k = int(n_hit[-1].item())  # the one sync: how many rows need the kernel
         ordered = poses[src]
-        outs = [self._check_poses(ordered[lo : lo + chunk], self.tables)
+        outs = [self._check_poses(ordered[lo : lo + chunk], self.tables, self._nonfinite)
                 for lo in range(0, k, chunk)]
         done = min(n, len(outs) * chunk)
         if done < n:
@@ -815,7 +850,7 @@ class MegaKernelChecker:
         -> [B, OUT_COLS] int32 counter rows on the device
         (`megakernel.py:1286-1295`)."""
         confs = torch.as_tensor(confs, dtype=torch.float32, device=self.device)
-        return self._check_stats(poses_from_confs(confs), self.tables)
+        return self._check_stats(poses_from_confs(confs), self.tables, self._nonfinite)
 
     def broad_block(self, confs) -> torch.Tensor:
         """[B,6] configurations -> [B] bool mesh-box overlap on the device

@@ -49,14 +49,16 @@ REPS = 20  # launches per CUDA-event mean
 
 
 def launch(lib, poses: torch.Tensor, t: mk.MegaKernelPrep) -> torch.Tensor:
-    """`rc_megakernel_check` of ``lib`` on the current stream: [B] uint8."""
+    """`rc_megakernel_check` of ``lib`` on the current stream: [B] uint8 (with
+    the row counter and a null non-finite row counter where ``lib`` takes
+    them)."""
     n, tr, to = poses.shape[0], t.rob_base.shape[1], t.obs.shape[0]
     out = torch.empty((n,), dtype=torch.uint8, device=poses.device)
-    work = [torch.empty((1,), dtype=torch.int32, device=poses.device).data_ptr()]
+    scratch = [torch.empty((1,), dtype=torch.int32, device=poses.device).data_ptr(), None]
     err = lib.rc_megakernel_check(poses.data_ptr(), n, t.rob_base.data_ptr(), tr,
                                   t.obs.data_ptr(), to, t.obs_mesh.data_ptr(),
                                   t.obs_groups.data_ptr(), to // mk.GROUP, out.data_ptr(),
-                                  *work[: lib.takes_work],
+                                  *scratch[: lib.takes_work + lib.takes_nonfinite],
                                   torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"rc_megakernel_check: {lib.rc_error_string(err).decode()}")

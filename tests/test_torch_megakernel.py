@@ -480,3 +480,83 @@ def test_check_packed_bits_and_nonfinite_rows(sphere_checker):
     np.testing.assert_array_equal(valid, (packed & 1).astype(bool))
     np.testing.assert_array_equal(cop, ((packed >> 1) & 1).astype(bool))
     assert not (packed >> 3).any()
+
+
+# Rows of a 19-row batch checked in chunks of 8 that get a non-finite value:
+# the first and last rows of chunks, and both sides of each chunk boundary.
+_PLANTED = [0, 7, 8, 15, 16, 18]
+
+
+def _nonfinite_batch(value, column):
+    """The sphere scene's 16 rows and 3 more, with ``value`` planted in
+    ``column`` of the _PLANTED rows (every row for column None)."""
+    _, _, confs = _sphere_scene()
+    confs = np.concatenate([confs, confs[:3] + np.float32(0.05)])
+    bad = np.zeros(len(confs), bool)
+    bad[_PLANTED if column is not None else slice(None)] = True
+    confs[bad, column if column is not None else 0] = value
+    return confs, bad
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf], ids=["nan", "+inf", "-inf"])
+@pytest.mark.parametrize("column", [0, 1, 2, 3, 4, 5, None],
+                         ids=["x", "y", "z", "rx", "ry", "rz", "all-rows"])
+def test_kernel_answers_nonfinite_rows(sphere_checker, value, column):
+    confs, bad = _nonfinite_batch(value, column)
+    before = sphere_checker.counters()["nonfinite_rows"]
+    packed = sphere_checker.check_packed(confs, chunk=8)
+    assert sphere_checker.counters()["nonfinite_rows"] == before + bad.sum()
+    assert not packed[bad].any()
+    if (~bad).any():
+        # The finite rows' bytes are those of the finite rows checked alone.
+        alone = sphere_checker.check_packed(confs[~bad], chunk=8)
+        np.testing.assert_array_equal(packed[~bad], alone)
+        assert (alone & 1).any() and not (alone & 1).all()
+    before = sphere_checker.counters()["nonfinite_rows"]
+    np.testing.assert_array_equal(sphere_checker.check_packed(confs, chunk=8, presort=True),
+                                  packed)
+    assert sphere_checker.counters()["nonfinite_rows"] == before + bad.sum()
+    # The counter instance's twin: all-zero rows, counted alike.
+    before = sphere_checker.counters()["nonfinite_rows"]
+    rows = sphere_checker.check_block(confs).numpy()
+    assert sphere_checker.counters()["nonfinite_rows"] == before + bad.sum()
+    assert not rows[bad].any()
+    np.testing.assert_array_equal(rows[~bad][:, 0], packed[~bad] & 1)
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, 1e-45, 0.0],
+                         ids=["nan", "+inf", "-inf", "+3.4e38", "-3.4e38", "denormal", "zero"])
+def test_pose_row_nonfinite_exactly_when_the_configuration_is(value):
+    rng = np.random.default_rng(19)
+    confs = rng.uniform(-np.pi, np.pi, (6, 6)).astype(np.float32)
+    confs[np.arange(6), np.arange(6)] = value  # the value in every column, a row each
+    poses = mk.poses_from_confs_reference(torch.from_numpy(confs)).numpy()
+    np.testing.assert_array_equal(np.isfinite(poses[:, :12]).all(1),
+                                  np.isfinite(confs).all(1))
+    assert not poses[:, 12:].any()
+
+
+def test_megakernel_cu_entries_take_what_the_bindings_pass():
+    # Each entry bound by `_build._bind_megakernel` is declared in
+    # `csrc/megakernel.cu` with as many parameters as its argtypes, the
+    # non-finite row counter right after the row counter.
+    import re
+    import types
+
+    from robocheck_tpu_torch.kernels import _build
+
+    src = _build.SOURCES["megakernel"].read_text()
+    extern = src[src.index('extern "C" {'):]
+    found = re.findall(r"\n(?:int|int64_t|const char\*) (rc_\w+)\(([^)]*)\)", extern)
+    declared = {name: [a.split()[-1].lstrip("*") for a in args.split(",") if a.strip()]
+                for name, args in found}
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in declared})
+    _build._bind_megakernel(lib)
+    assert lib.takes_work and lib.takes_nonfinite
+    for name in declared:
+        if hasattr(getattr(lib, name), "argtypes"):
+            assert len(getattr(lib, name).argtypes) == len(declared[name]), name
+    for entry in ("rc_megakernel_check", "rc_megakernel_check_stats",
+                  "rc_megakernel_check_stage"):
+        params = declared[entry]
+        assert params[params.index("work") + 1] == "nonfinite", entry

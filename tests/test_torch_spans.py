@@ -73,21 +73,23 @@ def test_check_emits_its_steps_in_order_under_its_root(checker):
     assert all(not grand for _, grand in children)
 
 
-def test_check_nests_the_finite_rows_call_under_its_root(checker):
+def test_check_with_nonfinite_rows_emits_its_steps_once(checker):
     confs = _confs(40)
     confs[[3, 17], 1] = np.nan
+    confs[29, 4] = -np.inf
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = checker.check_valid_resolved(confs)
-    assert not got[3] and not got[17]
+    assert not got[3] and not got[17] and not got[29]
     [(root, children)] = _tree(prof)
-    # The whole batch is validated and split, then the finite rows' call
-    # emits its own steps, all under the one root.
+    # The kernel answers the non-finite rows: one pass over the whole batch,
+    # no nested second call on the finite rows.
     assert root == "rc.check"
-    assert _names(children) == ["rc.check.validate"] + CHECK_STEPS + ["rc.check.resolve"]
+    assert _names(children) == CHECK_STEPS + ["rc.check.resolve"]
+    assert all(not grand for _, grand in children)
     # check_packed alone has no root.
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         checker.check_packed(confs)
-    assert _names(_tree(prof)) == ["rc.check.validate"] + CHECK_STEPS
+    assert _names(_tree(prof)) == CHECK_STEPS
 
 
 def _wave_engine():
