@@ -104,8 +104,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      representative blocks, the first 1,024 pairs the engine's exact phase
      launches (the survivor dispatch) and the first 128 of the 16x scene;
      the culled kernel's count of (unit, group) scans equal to `cull_plan`'s
-     on every pair; (b) `min_distances` at or below the native float64 BVH
-     (and within 2 x err_bound) on the first 32 queries, on 8 near-contact
+     on every pair, and its kept-scan counter to their sum; (b)
+     `min_distances` at or below the native float64 BVH (and within 2 x
+     err_bound) on the first 32 queries, on 8 near-contact
      waypoints of the certified path at refine 6, on the scene moved 10^3
      obstacle extents from the origin and on the 16x scene, the worst
      float32 deviation in ulp x scale beside the 128 of `err_bound`; (c)
@@ -122,7 +123,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `exact_kernel_s` and `rep_kernel_s`, K1 and the scan kernel launched;
      (e) the tunneling path through `tests/test_clearance.py`'s wall
      refuted; (f) `min_distances` on the 1x and the 16x obstacle, culled and
-     nocull: configurations/s, exact_s and the 16x / 1x ratio;
+     nocull: configurations/s, exact_s and the 16x / 1x ratio; (g) the
+     obstacle subdivided three times (64,512 triangles, the benchmark's
+     `alpha1.0-sub3-clearance`): `min_distances` on the first 32 queries at
+     or below the native float64 BVH and within 2 x err_bound, the first 64
+     survivor pairs as in (a), and the engine's kept-scan counter over a
+     call equal to `cull_plan`'s count over the call's launches;
  10. the gradient planners on the card: (a) SQP smoothing of the alpha RRT
      path as `scripts/torch_certify_alpha.py --smooth` runs it (the settings
      of `certify_alpha.py:104-128`), which must certify, and its output
@@ -622,7 +628,8 @@ def hold_scan(name, rows, ids, table, tris, groups, slack, device, finite: bool 
     want = kc.pair_min_reference(rows, ids, table, tris)
     nocull = kc.pair_min_cuda(rows, ids, table, tab)
     visits = torch.zeros(len(rows), dtype=torch.int32, device=device)
-    culled = kc.pair_min_cuda(rows, ids, table, tab, groups, slack, visits)
+    kept = torch.zeros((), dtype=torch.int64, device=device)
+    culled = kc.pair_min_cuda(rows, ids, table, tab, groups, slack, visits, kept)
     plan = kc.cull_plan(rows, ids, table, tris, groups, slack)
     torch.cuda.synchronize()
     require(not finite or bool(torch.isfinite(want).all()), f"(a) {name}: a non-finite twin "
@@ -632,11 +639,14 @@ def hold_scan(name, rows, ids, table, tris, groups, slack, device, finite: bool 
               if ok.any() else 0.0 for got in (nocull, culled))
     planned = plan.sum(dim=(1, 2)).int()
     print(f"  (a) {name}: {len(rows)} pairs ({int((~ok).sum())} not finite), culled and nocull "
-          f"vs twin max abs err {err}; scans kernel {int(visits.sum())} / cull_plan "
-          f"{int(planned.sum())} of {plan.numel()} ({float(plan.float().mean())} visited)")
+          f"vs twin max abs err {err}; scans kernel {int(visits.sum())} (counter "
+          f"{int(kept)}) / cull_plan {int(planned.sum())} of {plan.numel()} "
+          f"({float(plan.float().mean())} visited)")
     require(same_bits(culled, want) and same_bits(nocull, want),
             f"(a) {name}: a kernel differs from its twin")
     require(torch.equal(visits, planned), f"(a) {name}: the kernel's scans differ from cull_plan's")
+    require(int(kept) == int(planned.sum()),
+            f"(a) {name}: the kept-scan counter differs from cull_plan's count")
     return err, plan
 
 
@@ -864,10 +874,57 @@ def phase9_scaling(eng, eng16, confs, card) -> None:
               f"<= 3x)")
 
 
+def phase9_subdivided(obstacle, rob4, card: str, device) -> None:
+    """Phase 9 (g): the obstacle at three rounds of subdivision (64,512
+    triangles): soundness against the native BVH on the first 32 queries,
+    the first 64 survivor pairs held as in (a), and the engine's kept-scan
+    counter over one call against `cull_plan` over that call's launches."""
+    from robocheck_tpu_torch.kernels import _build
+    from robocheck_tpu_torch.kernels import clearance as kc
+    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
+    from robocheck_tpu_torch.planner.clearance import ClearanceEngine, clearance_queries
+
+    obstacle64 = subdivide_mesh(obstacle, 3)
+    eng = ClearanceEngine(rob4.vertices, obstacle64, device=device)
+    require(eng.num_triangles == 64 * 1008, "not the 64x obstacle")
+    smem = _build.library("clearance").rc_clearance_smem_bytes(eng.num_triangles)
+    print(f"  (g) 64x obstacle: {eng.num_triangles} triangles in {eng.num_groups} groups "
+          f"({int(eng._groups.always.sum())} always scanned), engine built in "
+          f"{eng.stats['construct_s']} s; the table "
+          f"{'staged in' if smem else 'read through the L2 by'} the scanning blocks")
+    confs = clearance_queries(obstacle)[:32]
+    sweep_soundness("64x obstacle, first 32", eng, rob4.vertices, obstacle64, confs)
+    s_rows, s_ids, s_slack = survivor_dispatch(eng, confs, 64, device)
+    hold_scan("64x obstacle, survivors", s_rows, s_ids, eng._blocks, eng._tris, eng._groups,
+              s_slack, device)
+    launches = []
+    scan = eng._scan
+
+    def recorded(phase, rows, ids, table, slack=None):
+        if slack is not None:
+            launches.append((rows, ids, table, slack))
+        return scan(phase, rows, ids, table, slack)
+
+    eng._scan = recorded
+    before = eng.counters()
+    t0 = time.perf_counter()
+    eng.min_distances(confs)
+    wall = time.perf_counter() - t0
+    after = eng.counters()
+    planned = sum(int(kc.cull_plan(r, i, t, eng._tris, eng._groups, sl).sum())
+                  for r, i, t, sl in launches)
+    kept = after["scans_kept"] - before["scans_kept"]
+    scans = after["scans"] - before["scans"]
+    print(f"  (g) [{card}] 64x obstacle, one call of {len(confs)} queries ({wall} s, "
+          f"{len(launches)} exact launches): kept scans {kept} of {scans} "
+          f"({100 * kept / max(scans, 1)}%), cull_plan {planned}")
+    require(kept == planned, "(g) the engine's kept-scan counter differs from cull_plan's count")
+
+
 def phase9_engine(robot, obstacle, card: str, device) -> dict:
     """Phase 9 (a)-(c) and (f) on bench.py's clearance scene and its 16x
-    obstacle. Returns the scan kernel's table entry (launches filled in by
-    the caller)."""
+    obstacle, (g) on its 64x obstacle. Returns the scan kernel's table entry
+    (launches filled in by the caller)."""
     from robocheck_tpu_torch.kernels import _build
     from robocheck_tpu_torch.planner.ccd import subdivide_mesh
     from robocheck_tpu_torch.planner.clearance import ClearanceEngine, clearance_queries
@@ -897,6 +954,7 @@ def phase9_engine(robot, obstacle, card: str, device) -> dict:
     phase9_soundness(robot, obstacle, rob4, eng, eng16, obstacle16, confs, device)
     entry = phase9_times(obstacle, rob4, eng, confs, card, device)
     phase9_scaling(eng, eng16, confs, card)
+    phase9_subdivided(obstacle, rob4, card, device)
     entry["max_abs_err"] = err
     return entry
 

@@ -30,6 +30,8 @@
 //   slack  the engine's 2 x err_bound
 //   visits [k] int32 or null: each pair's count of (vertex unit, group)
 //                     scans is added to it
+//   kept   one int64 or null: the launch's count of (pair, vertex unit,
+//                     group) scans is added to it (`finish_kernel`)
 //   tasks  room for k x units x ng int2, and `scratch`: work space
 //
 // Bound: operations. A 1,024-pair dispatch of the alpha-1.0 scene is ~1.06e9
@@ -535,13 +537,28 @@ __global__ void __launch_bounds__(kThreads, 3) task_kernel(const Args a) {
   }
 }
 
-// ---- Culled, launch 3 of 3: each pair's answer. ----
-__global__ void finish_kernel(const Args a) {
+// ---- Culled, launch 3 of 3: each pair's answer; with `kept` (this launch's
+// own argument, so that the Args the other launches read stay as they
+// were), the launch's scans added to it: the tasks plan_kernel appended and
+// g0's, which every unit of a pair with a block scans in pass 1. ----
+__global__ void finish_kernel(const Args a, unsigned long long* kept) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.k) return;
-  const int32_t b = a.ids[i];
-  const bool nan = b < 0 || b >= a.nb || pair_nan(a)[i] != 0;
-  a.out[i] = nan ? f32_nan() : sqrtf(__uint_as_float(pair_min_bits(a)[i]));
+  bool live = false;
+  if (i < a.k) {
+    const int32_t b = a.ids[i];
+    live = b >= 0 && b < a.nb;
+    const bool nan = !live || pair_nan(a)[i] != 0;
+    a.out[i] = nan ? f32_nan() : sqrtf(__uint_as_float(pair_min_bits(a)[i]));
+  }
+  if (kept == nullptr) return;
+  const int pairs = __syncthreads_count(live);  // every thread of the block reaches it
+  if (threadIdx.x == 0) {
+    const int unit = (a.lanes < 32 ? a.lanes : 32) * kVpt;
+    unsigned long long scans = (a.block + unit - 1) / unit;
+    scans *= static_cast<unsigned long long>(pairs);
+    if (blockIdx.x == 0) scans += static_cast<unsigned>(a.scratch[1]);
+    if (scans != 0) atomicAdd(kept, scans);
+  }
 }
 
 // ---- K4, the gradient planners' distance grid: for every node of the
@@ -1053,15 +1070,15 @@ int device_limits(int* sms, int* optin) {
 extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launches (0 =
-// launched). `gbox` null: the nocull instance (`always` to `tasks` unused).
+// launched). `gbox` null: the nocull instance (`always` to `kept` unused).
 // `scratch`: int32 device scratch, 1 entry for nocull, 4 + 2k culled;
 // `tasks`: room for k x units x ng int2 (units = ceil(block / unit)). `tab`
 // must be 16-byte aligned.
 int rc_clearance_pair_min(const float* rows, const int32_t* ids, int64_t k,
                           const float* blocks, int nb, int block, const float* tab, int nt,
                           const float* gbox, const uint8_t* always, int ng, int gsize,
-                          float slack, float* out, int32_t* visits, void* tasks, int* scratch,
-                          void* stream) {
+                          float slack, float* out, int32_t* visits, int64_t* kept, void* tasks,
+                          int* scratch, void* stream) {
   if (k <= 0) return 0;
   const bool cull = gbox != nullptr;
   const int lanes = lanes_for(block > 0 ? block : 1), per_item = kThreads / lanes;
@@ -1097,7 +1114,8 @@ int rc_clearance_pair_min(const float* rows, const int32_t* ids, int64_t k,
   err = staged ? launch_persistent(task_kernel<true>, a, 1 << 30, tab_bytes, sms, st)
                : launch_persistent(task_kernel<false>, a, 1 << 30, 0, sms, st);
   if (err != cudaSuccess) return int(err);
-  finish_kernel<<<int((k + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
+  finish_kernel<<<int((k + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      a, reinterpret_cast<unsigned long long*>(kept));
   return int(cudaGetLastError());
 }
 

@@ -136,10 +136,10 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
               [ptr, i64, ptr, i32, i32, i32, i32, ptr, ptr, i64, i32, ptr])
     elif name == "clearance":
         # rows, ids, k, blocks, nb, block, tab, nt, gbox, always, ng, gsize,
-        # slack, out, visits, tasks, scratch, stream
+        # slack, out, visits, kept, tasks, scratch, stream
         _bind(lib.rc_clearance_pair_min, i32,
               [ptr, ptr, i64, ptr, i32, i32, ptr, i32, ptr, ptr, i32, i32, ctypes.c_float,
-               ptr, ptr, ptr, ptr, ptr])
+               ptr, ptr, ptr, ptr, ptr, ptr])
         _bind(lib.rc_clearance_smem_bytes, i64, [i32])
         # ax, ay, az, nx, ny, nz, gtab, nt, gbox, always, rslack, ng, slack,
         # signed_, dx, dy, dz, out, counts, scratch, scratch_bytes, stream

@@ -23,6 +23,10 @@ The clearance engine (`planner/clearance.py`) runs its exact phase on
   * ``cull_plan`` says, from the same inputs, which (pair, vertex unit,
     group) scans the culled instance makes: the kernel's rule in the
     kernel's float32 operations;
+  * ``pair_min_planned`` is the culled instance's twin: the distances of
+    the scans a plan keeps, each the full twin's, so on ``cull_plan``'s
+    plan the same float32 answers as ``pair_min_reference`` (the clearance
+    engine's exact phase on the CPU);
   * ``region_counts`` counts, on the same inputs, the distances that end in
     each region of the classification (those of a plan only, given one): the
     work the kernel's early exits leave, from which `chip_smoke.py` works
@@ -320,6 +324,48 @@ def cull_plan(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
     return plan
 
 
+def pair_min_planned(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
+                     tris: torch.Tensor, plan: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Twin of the culled instance, on the device of its inputs: [k] float32
+    pair distances over the (pair, unit, group) scans that ``plan`` keeps
+    (``cull_plan``'s, for groups of ``group_size``), each distance in the
+    kernel's operations. The min is exact and NaN-sticky, as the kernel's
+    atomic min and NaN flag make it; an id outside the table gives NaN. On
+    ``cull_plan``'s plan it equals ``pair_min_reference`` bit for bit, as
+    the kernel does, and costs what the plan keeps."""
+    k, nb, block, nt = rows.shape[0], blocks.shape[0], blocks.shape[1], tris.shape[0]
+    dev = rows.device
+    unit = unit_vertices(block)
+    m = torch.full((k,), float("inf"), dtype=torch.float32, device=dev)
+    nan = torch.zeros((k,), dtype=torch.bool, device=dev)
+    good = (ids >= 0) & (ids < nb)
+    cells = (plan & good[:, None, None]).nonzero()  # [n, 3]: pair, unit, group
+    blk = ids.long().clamp(0, nb - 1)
+    v_offs = torch.arange(unit, device=dev)
+    t_offs = torch.arange(group_size, device=dev)
+    step = max(1, _TWIN_BUDGET // (unit * group_size))
+    for lo in range(0, len(cells), step):
+        pair, u, g = cells[lo : lo + step].unbind(dim=1)
+        v = u[:, None] * unit + v_offs  # [n, unit]
+        verts = blocks[blk[pair][:, None], v.clamp(max=block - 1)]  # [n, unit, 3]
+        r = rows[pair][:, :, None]  # [n, 12, 1]
+        p = [((r[:, 3 * i] * verts[..., 0] + r[:, 3 * i + 1] * verts[..., 1])
+              + r[:, 3 * i + 2] * verts[..., 2]) + r[:, 9 + i] for i in range(3)]
+        t = g[:, None] * group_size + t_offs  # [n, size]
+        tri = tris[t.clamp(max=nt - 1)]  # [n, size, 9]
+        d = point_tri_d2_parts([x[..., None] for x in p],
+                               *([tri[:, None, :, 3 * c + i] for i in range(3)]
+                                 for c in range(3)))  # [n, unit, size]
+        d = torch.where((v < block)[:, :, None] & (t < nt)[:, None, :], d,
+                        torch.full_like(d, float("inf")))
+        nan[pair[torch.isnan(d).flatten(1).any(dim=1)]] = True
+        d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+        m.scatter_reduce_(0, pair, d.flatten(1).amin(dim=1), "amin")
+    out = torch.sqrt(m)
+    out[nan | ~good] = float("nan")
+    return out
+
+
 def region_counts(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
                   tris: torch.Tensor, plan: torch.Tensor | None = None,
                   group_size: int = 32) -> torch.Tensor:
@@ -352,7 +398,8 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 def pair_min_cuda(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
                   tris: torch.Tensor, groups: CullGroups | None = None, slack: float = 0.0,
-                  visits: torch.Tensor | None = None) -> torch.Tensor:
+                  visits: torch.Tensor | None = None,
+                  kept: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel of `csrc/clearance.cu` on the current stream: [k]
     float32 pair distances, as ``pair_min_reference``'s.
 
@@ -360,7 +407,9 @@ def pair_min_cuda(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
     forms once. With ``groups`` the culled instance runs with ``slack``
     (the engine's 2 x err_bound) and, given ``visits`` (int32 [k]), adds to
     it each pair's count of (unit, group) scans, which is ``cull_plan``'s;
-    with ``groups=None`` the nocull instance scans every triangle. Raises on
+    given ``kept`` (one int64 on the device), adds to it the launch's count,
+    the sum of ``cull_plan``'s plan, in the last of its launches. With
+    ``groups=None`` the nocull instance scans every triangle. Raises on
     inputs the kernel does not take and on a refused launch."""
     from . import _build
 
@@ -391,6 +440,12 @@ def pair_min_cuda(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
         if visits.shape[0] != k:
             raise ValueError(f"visits must be [{k}], got {tuple(visits.shape)}")
         tensors.append(visits)
+    if kept is not None:
+        if groups is None:
+            raise ValueError("kept counts the culled instance's scans: pass groups")
+        if kept.dtype != torch.int64 or kept.numel() != 1:
+            raise ValueError(f"kept must be one int64, got {kept.dtype} {tuple(kept.shape)}")
+        tensors.append(kept)
     dev = rows.device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
@@ -403,12 +458,13 @@ def pair_min_cuda(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
         return out
     lib = _build.library("clearance")
     if groups is None:
-        gbox = always = tasks = visits_ptr = None
+        gbox = always = tasks = visits_ptr = kept_ptr = None
         ng = size = 0
         scratch = torch.empty((1,), dtype=torch.int32, device=dev)  # the pair counter
     else:
         gbox, always, size = groups.boxes.data_ptr(), groups.always.data_ptr(), groups.size
         visits_ptr = None if visits is None else visits.data_ptr()
+        kept_ptr = None if kept is None else kept.data_ptr()
         units = -(-block // unit_vertices(block))
         # Room for every (pair, unit, group) scan, and the counters, pair
         # minima and NaN flags of the kernel's three launches.
@@ -418,7 +474,7 @@ def pair_min_cuda(rows: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.rc_clearance_pair_min(
             rows.data_ptr(), ids.data_ptr(), k, blocks.data_ptr(), nb, block, tab.data_ptr(), nt,
-            gbox, always, ng, size, float(slack), out.data_ptr(), visits_ptr, tasks,
+            gbox, always, ng, size, float(slack), out.data_ptr(), visits_ptr, kept_ptr, tasks,
             scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"rc_clearance_pair_min launch failed: "

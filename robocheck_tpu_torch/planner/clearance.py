@@ -26,8 +26,10 @@ block) pair:
     the host, as in the reference. Inside a pair the kernel also skips the
     obstacle groups whose box is farther from a unit of 128 posed vertices
     than the pair's minimum over its nearest group plus 2 x err_bound (the
-    culled instance: the same float32 answer as the full scan); the
-    representatives run the nocull instance.
+    culled instance: the same float32 answer as the full scan; on the CPU
+    its twin, over `cull_plan`'s scans); the representatives run the nocull
+    instance. The (pair, unit, group) scans the cull keeps are counted on
+    the device, beside all of them on the host (``counters``).
   * The reported distance subtracts ``err_bound`` (128 float32 ulp of the
     posed scene's scale), so it is a sound lower bound; the same slack
     guards the cull, so no pair that could hold the true minimum is dropped.
@@ -54,8 +56,8 @@ import numpy as np
 import torch
 
 from ..core.types import Mesh
-from ..kernels.clearance import (make_groups, pair_min_cuda, pair_min_reference, pose_rows,
-                                  tri_table)
+from ..kernels.clearance import (cull_plan, make_groups, pair_min_cuda, pair_min_planned,
+                                  pair_min_reference, pose_rows, tri_table, unit_vertices)
 from ..ops.transform import apply_pose, rotation_matrices
 from ..profiling.timers import span
 from ..runtime.device import resolve as resolve_device
@@ -135,6 +137,12 @@ class ClearanceEngine:
         self.num_groups = self._groups.boxes.shape[0]
         self.num_triangles = nt
 
+        # The exact phase's (pair, unit, group) scans: those the cull kept,
+        # added on the device by the kernel (or `cull_plan`'s on the CPU),
+        # and all of them, on the host; read only by ``counters``.
+        self._kept = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._scans = 0
+
         self._obs_scale = float(np.abs(tri).max())
         # The max vertex 2-norm, not the max coordinate: a rotation can align
         # a vertex's norm with one axis, so the posed coordinate bound is
@@ -154,6 +162,13 @@ class ClearanceEngine:
                       "exact_kernel_s": 0.0, "pairs": 0, "waves": 0, "configs": 0,
                       "calls": 0}
 
+    def counters(self) -> dict:
+        """{"scans_kept": the (pair, vertex unit, obstacle group) scans that
+        the exact phase's culled launches kept (`cull_plan`'s), "scans": all
+        such scans of those launches} since the engine was made. One device
+        read; no call makes it."""
+        return {"scans_kept": int(self._kept.item()), "scans": self._scans}
+
     # -- error model --------------------------------------------------------
     def err_bound(self, confs: np.ndarray) -> float:
         """Conservative absolute float32 error on any distance this engine
@@ -171,15 +186,23 @@ class ClearanceEngine:
               slack: float | None = None) -> torch.Tensor:
         """One launch of the scan over ``table``'s blocks for ``phase``
         ("rep" or "exact"), culled with ``slack`` where one is given (the
-        twin on the CPU, the same distances); on the card it is timed by
-        CUDA events, read by ``_fetch``."""
+        twins on the CPU, the same distances), its kept scans counted; on
+        the card it is timed by CUDA events, read by ``_fetch``."""
+        if slack is not None:
+            block = table.shape[1]
+            self._scans += len(ids) * -(-block // unit_vertices(block)) * self.num_groups
         if self.device.type != "cuda":
-            return pair_min_reference(rows, ids, table, self._tris)
+            if slack is None:
+                return pair_min_reference(rows, ids, table, self._tris)
+            plan = cull_plan(rows, ids, table, self._tris, self._groups, slack)
+            self._kept += plan.sum()
+            return pair_min_planned(rows, ids, table, self._tris, plan, self._groups.size)
         stream = torch.cuda.current_stream(self.device)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record(stream)
         out = pair_min_cuda(rows, ids, table, self._tab,
-                            None if slack is None else self._groups, slack or 0.0)
+                            None if slack is None else self._groups, slack or 0.0,
+                            kept=None if slack is None else self._kept)
         end.record(stream)
         self._events.append((phase, start, end))
         return out
@@ -201,7 +224,9 @@ class ClearanceEngine:
         """(LB, Drep) [b, nb] float64 on the host: the posed-block / group
         box lower bound of every pair and each representative vertex's exact
         distance, in configuration chunks that keep the [cc, nb, max(ng,
-        TRI_CHUNK)] temporaries of the reference's rule near 8 MB."""
+        TRI_CHUNK)] temporaries of the reference's rule near 8 MB. The
+        representatives' launches and their fetch are the span
+        ``rc.clearance.reps``; the bounds' fetch follows it."""
         b, nb = confs.shape[0], self.num_blocks
         cc = max(1, (1 << 21) // max(nb * max(self.num_groups, TRI_CHUNK), 1))
         lbs = []
@@ -217,15 +242,17 @@ class ClearanceEngine:
             d = torch.sqrt((gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1])
                            + gap[..., 2] * gap[..., 2])
             lbs.append(d.amin(dim=-1))
+        lb = torch.cat(lbs)
         # The representatives as 1-vertex blocks, one pair per (configuration,
         # block), up to REP_PAIRS pairs (their pose rows) a launch.
-        block_ids = torch.arange(nb, dtype=torch.int32, device=self.device)
-        cr = max(1, REP_PAIRS // nb)
-        reps = [self._scan("rep", rows[lo : lo + cr].repeat_interleave(nb, dim=0),
-                           block_ids.repeat(min(cr, b - lo)), self._reps)
-                for lo in range(0, b, cr)]
-        return (torch.cat(lbs).cpu().numpy().astype(np.float64),
-                self._fetch(reps).reshape(b, nb))
+        with span("rc.clearance.reps"):
+            block_ids = torch.arange(nb, dtype=torch.int32, device=self.device)
+            cr = max(1, REP_PAIRS // nb)
+            reps = [self._scan("rep", rows[lo : lo + cr].repeat_interleave(nb, dim=0),
+                               block_ids.repeat(min(cr, b - lo)), self._reps)
+                    for lo in range(0, b, cr)]
+            drep = self._fetch(reps).reshape(b, nb)
+        return lb.cpu().numpy().astype(np.float64), drep
 
     def _run_pairs(self, rows: torch.Tensor, cfg_ids: np.ndarray, blk_ids: np.ndarray,
                    best: np.ndarray, err: float) -> None:
@@ -287,9 +314,11 @@ class ClearanceEngine:
         decreases, so no dropped pair can hold the minimum.
 
         Under a profiler the call is the span ``rc.clearance``, holding
-        ``.upload``, ``.bounds`` (the region of ``stats["bounds_s"]``), one
-        ``.exact`` a wave (the region of ``stats["exact_s"]``), ``.fetch``
-        under both, and ``.scatter`` (`profiling.timers.span`)."""
+        ``.upload``, ``.bounds`` (the region of ``stats["bounds_s"]``; its
+        ``.reps``, the representatives' launches and fetch), one ``.exact``
+        a wave (the region of ``stats["exact_s"]``), ``.fetch`` under
+        ``.reps`` and each ``.exact``, and ``.scatter``
+        (`profiling.timers.span`)."""
         with span("rc.clearance"):
             confs = np.asarray(confs, dtype=np.float32).reshape(-1, 6)
             b = len(confs)

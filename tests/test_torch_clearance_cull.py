@@ -102,6 +102,9 @@ def test_planned_min_equals_full_scan(case):
     want = kc.pair_min_reference(rows, ids, blocks, tris)
     got = _planned_min(rows, ids, blocks, tris, plan, groups.size)
     assert _same_bits(got, want), (got, want)
+    # The culled instance's twin (the engine's exact phase on the CPU) takes
+    # only the planned scans and gives the same bits.
+    assert _same_bits(kc.pair_min_planned(rows, ids, blocks, tris, plan, groups.size), want)
     good = (ids >= 0) & (ids < blocks.shape[0])
     if kind == "random":
         # NaN from the b = a triangle is kept, never culled away.
@@ -225,7 +228,8 @@ def test_engine_table_and_flags():
     assert eng.stats["kernel_s"] == eng.stats["rep_kernel_s"] + eng.stats["exact_kernel_s"] == 0
 
 
-@pytest.mark.parametrize("fault", ["cpu", "boxes", "always", "size", "visits"])
+@pytest.mark.parametrize("fault", ["cpu", "boxes", "always", "size", "visits", "kept",
+                                   "kept-dtype"])
 def test_pair_min_cuda_refuses(fault):
     rows, ids = torch.zeros((2, 12)), torch.zeros(2, dtype=torch.int32)
     blocks, tris = torch.zeros((1, 4, 3)), torch.zeros((40, 9))
@@ -239,7 +243,12 @@ def test_pair_min_cuda_refuses(fault):
         kwargs["groups"] = kc.CullGroups(groups.boxes, groups.always, 0)
     elif fault == "visits":
         kwargs = {"visits": torch.zeros(2, dtype=torch.int32)}
+    elif fault == "kept":
+        kwargs = {"kept": torch.zeros((), dtype=torch.int64)}
+    elif fault == "kept-dtype":
+        kwargs["kept"] = torch.zeros((), dtype=torch.int32)
     match = {"cpu": "CUDA tensor", "boxes": "need boxes", "always": "uint8",
-             "size": "need boxes", "visits": "pass groups"}[fault]
+             "size": "need boxes", "visits": "pass groups", "kept": "pass groups",
+             "kept-dtype": "one int64"}[fault]
     with pytest.raises(ValueError, match=match):
         kc.pair_min_cuda(rows, ids, blocks, tab, **kwargs)

@@ -125,7 +125,8 @@ def test_clearance_emits_one_exact_span_a_wave_and_counts_the_waves(monkeypatch)
     assert _names(children) == (["rc.clearance.upload", "rc.clearance.bounds"]
                                 + ["rc.clearance.exact"] * waves)
     bounds = children[1][1]
-    assert _names(bounds) == ["rc.clearance.fetch"]
+    assert _names(bounds) == ["rc.clearance.reps"]
+    assert _names(bounds[0][1]) == ["rc.clearance.fetch"]
     for _, exact in children[2:]:
         assert _names(exact) == ["rc.clearance.fetch", "rc.clearance.scatter"]
     # The counter counts calls that ran pairs only, over calls.
