@@ -38,12 +38,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      rows, columns 0 and 3 on every row; on colliding rows the kernel's
      columns 2 and 4-6 at most the twin's (its any-hit exit stops the
      counts), with nrest >= 1; the JAX fixture's row must carry bit 2 and
-     resolve colliding through `check_valid_resolved` on the card;
+     resolve colliding through `check_valid_resolved` on the card, by one
+     launch of the resolution kernel (`csrc/resolve.cu`), its counters
+     `resolved_rows` and `resolved_colliding` each rising by one;
   4. the main path, `MegaKernelChecker(..., device="cuda").check_valid_resolved`,
      on all 10,000 rows of hard10k and easy10k (0 golden mismatches each) and
      of 10,000samples (7296 valid, the file header's count), with the
-     kernel's launch counter above 0, and the rows each set sends to float64
-     resolution by bit 1 and by bit 2;
+     kernel's launch counter above 0, one resolution launch a call, and the
+     rows each set sends to float64 resolution by bit 1 and by bit 2; then
+     the resolution kernel on K1's bytes, bit-equal to its twin on the card
+     on every row (counters alike) and equal to the native float64 oracle on
+     every flagged row, of the three 10k sets, of the 8 batches of the
+     benchmark's hard100k pool for seed 2718281828 and of planted rows that
+     float64 overturns (the face-on-face row at 10 places in 100,000 far
+     rows, the JAX fixture, the mismatched-scale scene, the band-hidden
+     contacts of 80 x 81,920 triangles (tables in global memory), the
+     near-coplanar and touching-interval pairs of `io.datagen`), and on a
+     2,200-triangle soup (its boxes alone in shared memory); the largest
+     ulp difference of the pose's float64 sin / cos, card against host
+     (numpy); the kernel's device
+     time at hard100k's shape (with its flagged rows, and with none) beside
+     its twin and its bound (`profiling.bounds.resolve_work`), and
+     `check_valid_resolved` against `check_packed` plus the host oracle on
+     one hard100k batch, in turns;
   5. times: end-to-end checks/s (best of 5 after a warm-up, each run ending
      in torch.cuda.synchronize()), and the kernel alone and its twin alone
      at the main path's shape, all 10,000 rows of hard10k and of easy10k in
@@ -268,6 +285,16 @@ PROBE_SOURCE = "robocheck_tpu_torch/csrc/stage_probes.cu"
 CLEARANCE_SOURCE = "robocheck_tpu_torch/csrc/clearance.cu"
 CLEARANCE_REPLACES = "robocheck_tpu/planner/clearance.py:312"
 FRONT_SOURCE = "robocheck_tpu_torch/csrc/front.cu"
+RESOLVE_SOURCE = "robocheck_tpu_torch/csrc/resolve.cu"
+# The resolution replaces no TPU kernel: the JAX package (and the port before
+# it) resolves flagged rows with the float64 oracle on the host.
+RESOLVE_REPLACES = "none (host oracle: robocheck_tpu/oracle/__init__.py:31 resolve_coplanar)"
+# One seed of the benchmark's hard100k pool (`benchmark/gen/alpha_bot.py`).
+BENCH_SEED = 2718281828
+# Rows of a 100,000-row batch of far rows where phase 4 plants the
+# face-on-face fixture's row: both ends, both sides of the kernel's tiles
+# (1,024 rows) and of K1's chunks (16,384), and two rows of one tile.
+RESOLVE_PLANTED = [0, 1, 1023, 1024, 2047, 16383, 16384, 50000, 50001, 99999]
 POSE_REPLACES = "robocheck_tpu/kernels/megakernel.py:1099"
 BOX_REPLACES = "robocheck_tpu/kernels/megakernel.py:1209"
 GRID_REPLACES = "robocheck_tpu/planner/sdf.py:127,148"
@@ -301,6 +328,13 @@ PROBES = {1: ("P1_pose_probe", "mini_level3", "scripts/bisect_stage1.py:142,165"
           2: ("P2_empty_probe", "pose_only", "scripts/bisect_stage2.py:73"),
           3: ("P3_invariant_probe", "auto_invariant_vmem",
               "scripts/bisect_stage3.py:66,86,105")}
+# TestCoplanarResolution's face-on-face pair (tests/test_torch_megakernel.py):
+# two triangles in one tilted plane that float32 flags and float64 finds
+# intersecting at the identity pose.
+FACE_R = [[-172.35173, 118.57849, -337.86478], [-168.62619, 71.0307, -215.03616],
+          [-280.98154, 165.06941, -53.021297]]
+FACE_O = [[-148.91972, 43.489243, -211.57489], [-222.59364, 145.73175, -222.42876],
+          [-204.12267, 60.86192, -48.782146]]
 # tests/test_megakernel.py::TestCoplanarResolution (JAX package), identity pose.
 JAX_COPLANAR_RT = [[-88.58568, -287.5827, -148.07309], [-105.54053, -122.13013, -65.34459],
                    [9.788717, -353.9158, -98.061005]]
@@ -2141,6 +2175,208 @@ def phase6_shapes(pieces, lib, built, card: str) -> None:
                     f"{k1['grid']} (K1's blocks per SM and grid)")
 
 
+def hold_resolve(name: str, checker, confs: np.ndarray, quiet: bool = False,
+                 tables=None) -> dict:
+    """Phase 4: the resolution kernel against its twin on the card (every
+    byte, and the counters) and against the native float64 oracle (every
+    flagged row), on K1's bytes of ``confs`` by ``checker``, over the
+    checker's resolution tables or ``tables``. Returns the flagged rows'
+    configurations and verdicts, and the largest byte difference from the
+    twin."""
+    from robocheck_tpu_torch.kernels import resolve as rs
+    from robocheck_tpu_torch.runtime import native
+
+    dev = checker.device
+    tables = checker.resolve_tables if tables is None else tables
+    dev_confs = torch.from_numpy(confs).to(dev)
+    packed = torch.from_numpy(checker.check_packed(confs)).to(dev)
+    counts, twin_counts = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
+    got = rs.resolve_rows_cuda(packed, dev_confs, tables, counts)
+    want = rs.resolve_rows_reference(packed, dev_confs, tables, twin_counts)
+    err = int((got.int() - want.int()).abs().max()) if len(confs) else 0
+    p, g = packed.cpu().numpy(), got.cpu().numpy()
+    flagged = np.flatnonzero(((p & 1) == 1) & ((p & 6) != 0))
+    oracle = (native.oracle_check(checker.robot.vertices, checker.robot.triangles,
+                                  checker.obstacle.vertices, checker.obstacle.triangles,
+                                  confs[flagged]) if len(flagged) else np.zeros(0, bool))
+    mism = int((g[flagged].astype(bool) != oracle).sum())
+    rest = np.setdiff1d(np.arange(len(confs)), flagged)
+    kept = bool((g[rest] == (p[rest] & 1)).all())
+    overturned = int((~oracle).sum())
+    if not quiet or err or mism or not kept:
+        print(f"  {name}: {len(confs)} rows, {len(flagged)} flagged valid, {overturned} of "
+              f"them colliding in float64; kernel vs twin max abs err {err}, vs the native "
+              f"oracle {mism} mismatches; counters {counts.tolist()}")
+    require(err == 0, f"{name}: the resolution kernel differs from its twin")
+    require(mism == 0, f"{name}: the resolution kernel differs from the native oracle")
+    require(kept, f"{name}: an unflagged row's byte is not K1's bit 0")
+    require(counts.tolist() == twin_counts.tolist() == [len(flagged), overturned],
+            f"{name}: counters {counts.tolist()} / twin {twin_counts.tolist()}, want "
+            f"[{len(flagged)}, {overturned}]")
+    return {"confs": confs[flagged], "overturned": overturned, "err": err,
+            "packed": packed, "dev_confs": dev_confs, "verdicts": g[flagged]}
+
+
+def bench_pool(key: str, seed: int) -> list:
+    """The benchmark's pool of traffic ``key`` for ``seed``, drawn as
+    `benchmark/gen/alpha_bot.py` draws it (the module loaded by its path)."""
+    import importlib.util
+
+    from robocheck_tpu_torch import load_obj
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_alpha_bot", os.path.join(ROOT, "benchmark", "gen", "alpha_bot.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    with open(os.path.join(ROOT, "benchmark", "traffic", f"{key}.json")) as f:
+        params = json.load(f)
+    robot = load_obj(os.path.join(ROOT, "benchmark", "data", "alpha1.0", "robot.obj"))
+    return gen.batches(np.random.default_rng(seed % (1 << 64)), robot.vertices, params)
+
+
+def trig_ulps(confs: np.ndarray, device) -> int:
+    """Largest difference in units in the last place between the card's
+    float64 sin / cos (torch on ``device``, as the kernel and its twin call
+    them) and the host's (numpy) of the angles of ``confs``."""
+    angles = np.asarray(confs, np.float32)[:, 3:6].astype(np.float64).ravel()
+    if not len(angles):
+        return 0
+    on_card = torch.from_numpy(angles).to(device)
+    worst = 0
+    for card_fn, host_fn in ((torch.sin, np.sin), (torch.cos, np.cos)):
+        a = card_fn(on_card).cpu().numpy().view(np.int64)
+        b = host_fn(angles).view(np.int64)
+        worst = max(worst, int(np.abs(a - b).max()))
+    return worst
+
+
+def phase4_resolve(checker, data, card: str, device) -> dict:
+    """Phase 4's resolution kernel (`csrc/resolve.cu`): against its twin and
+    the native oracle on every flagged row of the 10k sets, of the
+    benchmark's hard100k pool of BENCH_SEED and of planted rows that float64
+    overturns; the pose's sin / cos against the host's; its device time and
+    bound at hard100k's shape. Returns its kernel-table entry."""
+    from robocheck_tpu_torch import MegaKernelChecker
+    from robocheck_tpu_torch.core.types import Mesh
+    from robocheck_tpu_torch.io.datagen import near_coplanar_pairs, touching_interval_pairs
+    from robocheck_tpu_torch.kernels import resolve as rs
+    from robocheck_tpu_torch.kernels.chunked import make_checker
+    from robocheck_tpu_torch.models.shapes import box, icosphere, tetrahedron, triangle_soup
+    from robocheck_tpu_torch.profiling import bounds, timers
+    from robocheck_tpu_torch.profiling.timers import benchmark, event_ms
+    from robocheck_tpu_torch.oracle import resolve_coplanar
+
+    print("[4] the resolution kernel against its twin (every byte) and the native oracle "
+          "(flagged rows)")
+    held = {key: hold_resolve(key, checker, ds.confs) for key, ds in data.items()}
+    pool = bench_pool("hard100k", BENCH_SEED)
+    for k, batch in enumerate(pool):
+        held[f"hard100k[{k}]"] = hold_resolve(f"benchmark hard100k pool, seed {BENCH_SEED}, "
+                                              f"batch {k}", checker, batch)
+    one = np.array([[0, 1, 2]], np.int32)
+    face = MegaKernelChecker(Mesh(np.array(FACE_R, np.float32), one),
+                             Mesh(np.array(FACE_O, np.float32), one), device="cuda")
+    planted = np.zeros((100000, 6), np.float32)
+    planted[:, 0] = 1.0e5
+    planted[RESOLVE_PLANTED] = 0.0
+    got = hold_resolve("face on face planted in 100,000 far rows", face, planted)
+    require(got["overturned"] == len(RESOLVE_PLANTED) and len(got["confs"]) == len(RESOLVE_PLANTED),
+            "the planted face-on-face rows did not all resolve colliding")
+    held["planted"] = got
+    jax = MegaKernelChecker(Mesh(np.array(JAX_COPLANAR_RT, np.float32), one),
+                            Mesh(np.array(JAX_COPLANAR_OT, np.float32), one), device="cuda")
+    held["jax fixture"] = hold_resolve("JAX coplanar fixture", jax, np.zeros((4, 6), np.float32))
+    cop_confs = np.zeros((8, 6), np.float32)
+    cop_confs[:, 0:3] = [[6.0e3, 1.8e4, 1.0e4], [6.0e3 + 0.5, 1.8e4, 1.0e4],
+                         [2.0e4 - 10.0, 1.9e4, 1.99e4], [0.0, 1.99e4, 5.0],
+                         [6.0e3, 1.8e4, 1.0e4 - 2.0], [0.0, 5.0e3, 5.0e3],
+                         [1.0, 5.0e3, 5.0e3], [9.0e5, 9.0e5, 9.0e5]]
+    cop_confs[:, 3:6] = np.random.default_rng(3).uniform(-np.pi, np.pi, (8, 3))
+    held["mismatched scale"] = hold_resolve(
+        "unit box on 1e4 tetrahedron", MegaKernelChecker(box(extent=(2.0, 2.0, 2.0)),
+                                                         tetrahedron(scale=1.0e4), device="cuda"),
+        cop_confs)
+    # Obstacles whose tables fit the kernel's shared memory in part (the
+    # 2,200-triangle soup: its boxes only) and not at all (81,920 triangles,
+    # past one K1 block: the chunked checker's bytes of rows whose contacts
+    # hide under K1's +-TOL band).
+    soup = triangle_soup(np.random.default_rng(508), 2200, extent=1.0)
+    soup_confs = np.random.default_rng(5).uniform(-1.5, 1.5, (4096, 6)).astype(np.float32)
+    held["soup"] = hold_resolve("icosphere(3) in a 2200-triangle soup", MegaKernelChecker(
+        icosphere(3, 0.3), soup, device="cuda"), soup_confs)
+    band = np.array([[0.8576694, -0.8420993, 0.14767459, 0.7203785, 3.0436065, 2.2627144],
+                     [0.9153341, 1.5401433, -0.13083363, 1.2929987, 3.1224608, 2.1998174]],
+                    np.float32)
+    sphere_r, sphere_o = icosphere(1, radius=0.3), icosphere(6, radius=1.5)
+    got = hold_resolve("band-hidden contacts, 80 x 81,920 triangles",
+                       make_checker(sphere_r, sphere_o, device="cuda"), band,
+                       tables=rs.ResolveTables.build(sphere_r, sphere_o, device))
+    require(got["overturned"] == 2, "the band-hidden rows did not resolve colliding")
+    held["band-hidden"] = got
+    for name, make, seed in (("near-coplanar", near_coplanar_pairs, 2024),
+                             ("touching-interval", touching_interval_pairs, 2025)):
+        rows = overturned = 0
+        for r, o in make(np.random.default_rng(seed)):
+            got = hold_resolve(name, MegaKernelChecker(Mesh(r, one), Mesh(o, one), device="cuda"),
+                               np.zeros((1, 6), np.float32), quiet=True)
+            rows += len(got["confs"])
+            overturned += got["overturned"]
+        print(f"  {name} pairs (seed {seed}), each at the identity pose: {rows} flagged valid, "
+              f"{overturned} colliding in float64; every byte equal to the twin and the oracle")
+        held[name] = {"confs": np.zeros((0, 6), np.float32), "overturned": overturned}
+    overturned = {k: v["overturned"] for k, v in held.items() if v["overturned"]}
+    print(f"  rows float64 overturned, by source: {overturned}")
+    flagged = np.concatenate([v["confs"] for v in held.values()])
+    ulps = trig_ulps(flagged, device)
+    ulps_10k = trig_ulps(data["hard10k"].confs, device)
+    print(f"  the pose's sin / cos, card (float64) against host (numpy): at most {ulps} ulp on "
+          f"the {len(flagged)} flagged rows, {ulps_10k} ulp on all of hard10k")
+
+    # Times at hard100k's shape: the first pool batch and its flagged rows.
+    first = held["hard100k[0]"]
+    packed, dev_confs, tables = first["packed"], first["dev_confs"], checker.resolve_tables
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    k_ms = timers.kernel_ms(lambda: rs.resolve_rows_cuda(packed, dev_confs, tables, counts), 20)
+    e_ms = event_ms(lambda: rs.resolve_rows_cuda(packed, dev_confs, tables, counts), 20)
+    p_ms = event_ms(lambda: rs.resolve_rows_reference(packed, dev_confs, tables), 2)
+    pairs = []
+    for conf, valid in zip(first["confs"], first["verdicts"]):
+        rob = rs.posed_robot_reference(torch.from_numpy(conf).to(device), tables)
+        n_pairs = (0 if rob is None
+                   else sum(len(ri) for ri, _ in rs.box_pairs_reference(rob, tables)))
+        pairs.append(n_pairs if valid else min(1, n_pairs))
+    b_ms, b_by = bounds.bound_ms(*bounds.resolve_work(
+        len(dev_confs), tables.rob_verts.shape[0], tables.rob_tris.shape[0], pairs),
+        bounds.FP64_OPS_PER_S)
+    none = torch.ones_like(packed)  # no flagged row: the byte pass alone
+    pass_ms = timers.kernel_ms(lambda: rs.resolve_rows_cuda(none, dev_confs, tables, counts), 20)
+    print(f"  [{card}] resolution kernel, hard100k batch 0 [{len(dev_confs)}] with "
+          f"{len(pairs)} flagged rows ({pairs} box-overlapping pairs needed): {k_ms} ms device "
+          f"(trace), {e_ms} ms by events; with no flagged row {pass_ms} ms; twin {p_ms} ms; "
+          f"bound {b_ms} ms ({b_by})")
+    # The call it serves, in turns with the host's oracle it replaces.
+    batch = pool[0]
+
+    def host_resolved(confs):
+        packed_np = checker.check_packed(confs)
+        return resolve_coplanar(checker.robot, checker.obstacle, confs,
+                                (packed_np & 1).astype(bool), (packed_np & 6).astype(bool))
+
+    require(np.array_equal(host_resolved(batch), checker.check_valid_resolved(batch)),
+            "check_valid_resolved differs from the host oracle's resolution on hard100k batch 0")
+    turns = [("host", host_resolved), ("card", checker.check_valid_resolved)] * 2
+    ms = {"host": [], "card": []}
+    for name, fn in turns[:2] + turns[2:][::-1]:
+        ms[name].append(benchmark(fn, batch) * 1e3)
+    print(f"  [{card}] hard100k batch 0, best of 5 in turns (host, card, card, host): "
+          f"check_packed + the host oracle {ms['host']} ms, check_valid_resolved {ms['card']} ms")
+    return {"name": "resolve", "route": "cuda", "source": RESOLVE_SOURCE,
+            "replaces": RESOLVE_REPLACES, "launches": rs.resolve_rows_cuda.launches,
+            "max_abs_err": max(v.get("err", 0) for v in held.values()), "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "event_ms": e_ms, "byte_pass_ms": pass_ms, "trig_ulps": ulps}
+
+
 def main() -> None:
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
@@ -2246,10 +2482,7 @@ def main() -> None:
     require(n_cop > 0, "coplanar fixture flagged no valid row coplanar")
     max_err = max(max_err, err)
     one = np.array([[0, 1, 2]], np.int32)
-    face_r = np.array([[-172.35173, 118.57849, -337.86478], [-168.62619, 71.0307, -215.03616],
-                       [-280.98154, 165.06941, -53.021297]], np.float32)
-    face_o = np.array([[-148.91972, 43.489243, -211.57489], [-222.59364, 145.73175, -222.42876],
-                       [-204.12267, 60.86192, -48.782146]], np.float32)
+    face_r, face_o = np.array(FACE_R, np.float32), np.array(FACE_O, np.float32)
     err, _, n_cop, _ = compare_on_card(mk, "face on face (coplanar)", Mesh(face_r, one),
                                        Mesh(face_o, one), np.zeros((1, 6), np.float32),
                                        device, scenes)
@@ -2277,22 +2510,35 @@ def main() -> None:
           f"ngate, nrest, 0] = {got[0].tolist()}")
     fixture = MegaKernelChecker(jax_rt, jax_ot, device="cuda")
     zero = np.zeros((1, 6), np.float32)
+    from robocheck_tpu_torch.kernels import resolve as rs
+    f_launches, f_before = rs.resolve_rows_cuda.launches, fixture.counters()
     f_packed, f_valid = fixture.check_packed(zero)[0], fixture.check_valid_resolved(zero)[0]
+    f_after = fixture.counters()
     print(f"  JAX coplanar fixture on the card: packed byte {int(f_packed)}, "
-          f"check_valid_resolved {bool(f_valid)} (the float64 oracle says colliding)")
+          f"check_valid_resolved {bool(f_valid)} (the float64 oracle says colliding), "
+          f"through the resolution kernel ({rs.resolve_rows_cuda.launches - f_launches} "
+          f"launch); counters {f_before} -> {f_after}")
     require(f_packed == 0b101 and not f_valid,
             "the JAX coplanar fixture does not resolve colliding on the card")
+    require(rs.resolve_rows_cuda.launches == f_launches + 1
+            and f_after["resolved_rows"] == f_before["resolved_rows"] + 1
+            and f_after["resolved_colliding"] == f_before["resolved_colliding"] + 1,
+            "the JAX coplanar fixture's row did not go through the resolution kernel once")
 
     # ---- 4. The main path. ----
     checker = MegaKernelChecker(robot, obstacle, device="cuda")
-    print(f"[4] main path: MegaKernelChecker(device='cuda').check_valid_resolved; "
-          f"float64 resolution by the {'native' if native.available() else 'numpy'} oracle")
+    print("[4] main path: MegaKernelChecker(device='cuda').check_valid_resolved; "
+          "float64 resolution by the resolution kernel (csrc/resolve.cu)")
     mk.check_poses_cuda.launches = 0
+    rs.resolve_rows_cuda.launches = 0
     zero_front()
     resolved = {key: checker.check_valid_resolved(ds.confs) for key, ds in data.items()}
     torch.cuda.synchronize()
     launches = mk.check_poses_cuda.launches
+    resolve_launches = rs.resolve_rows_cuda.launches
     require(launches > 0, "the main path launched no kernel")
+    require(resolve_launches == len(data), f"the main path launched the resolution kernel "
+            f"{resolve_launches} times, not once a call")
     front4 = read_front("main path (4)")
     for key, ds in data.items():
         packed = checker.check_packed(ds.confs)
@@ -2311,7 +2557,9 @@ def main() -> None:
             mism = int((resolved[key] != ds.valid).sum())
             print(f"{msg}, {mism} golden mismatches")
             require(mism == 0, f"{key}: {mism} golden mismatches")
-    print(f"  kernel launches in the main path: {launches}; K2 {front4['pose_rows']}")
+    print(f"  kernel launches in the main path: {launches}; K2 {front4['pose_rows']}; "
+          f"resolution {resolve_launches}")
+    resolve_entry = phase4_resolve(checker, data, card, device)
 
     # ---- 5. Times. ----
     print(f"[5] times on {card}")
@@ -2506,6 +2754,8 @@ def main() -> None:
           f"{entries[0]['bound_ms']} ms ({entries[0]['bound_by']}); at hard10k [10000,16]: "
           f"{kernel_ms} ms, bound {bound(hard_rows)['bound_ms']} ms")
     entries[1]["launches"] = stats_launches + launches12["megakernel_stats"]
+    resolve_entry["launches"] = rs.resolve_rows_cuda.launches
+    entries.append(resolve_entry)
     entries += phase14(checker, data, scenes, chunked_scenes, card, device)
     entries.append(phase15(obstacle, built["clearance"][1], card, device))
     print(f"  megakernel launches by path: main {launches}, oversized meshes {launches7}, "

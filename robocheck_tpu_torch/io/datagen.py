@@ -10,6 +10,10 @@ standing in for the FCL pass of `generate-tests.cu:4-46`.
 
 The alpha-robot extents are derived from the mesh rather than hard-coded
 (the reference hard-codes them, `Utils_rai.cu:113-118`).
+
+Beyond the copy: ``near_coplanar_pairs`` and ``touching_interval_pairs``,
+single-triangle mesh pairs whose float32 verdict rounding decides, which the
+CPU tests and `chip_smoke.py` hold the check and its float64 resolution to.
 """
 from __future__ import annotations
 
@@ -82,3 +86,48 @@ def adversarial_confs(num: int = 65536, seed: int = 14) -> np.ndarray:
              rng.uniform(-np.pi, np.pi, num), rng.choice(tiny, num)],
             huge).astype(np.float32)
     return confs
+
+
+def near_coplanar_pairs(rng: np.random.Generator, n: int = 96) -> list:
+    """Robot triangles R at ~300-unit coordinates, and obstacle triangles O
+    through R's interior and across R's plane: O's corner c0 lies on R's
+    plane in float64 (then rounded to float32), its other two corners 40
+    units above that plane. Whether O straddles R's plane is decided by c0's
+    signed distance, which is rounding noise in float32."""
+    pairs = []
+    for _ in range(n):
+        r = rng.uniform(-400.0, 400.0, 3) + rng.normal(scale=120.0, size=(3, 3))
+        normal = np.cross(r[1] - r[0], r[2] - r[1])
+        v = normal / np.linalg.norm(normal)
+        u = np.cross(v, rng.normal(size=3))
+        u /= np.linalg.norm(u)
+        w = rng.dirichlet(np.ones(3))
+        c0 = w @ r  # on R's plane, inside R
+        o = np.stack([c0, c0 + 40.0 * u + 40.0 * v, c0 - 40.0 * u + 40.0 * v])
+        pairs.append((r.astype(np.float32), o.astype(np.float32)))
+    return pairs
+
+
+def touching_interval_pairs(rng: np.random.Generator, n: int = 128) -> list:
+    """Robot triangles R at ~300-unit coordinates, and obstacle triangles O
+    whose segment on R's plane starts at a point X of R's edge r0-r1, moved
+    by delta (10^-6 to 10^-2 units, either sign) along R's plane away from
+    R: O's corners are X + delta w, and 40 units along w on either side of
+    R's plane (w the in-plane normal of the edge, pointing out of R). The
+    two triangles' intervals on the line of their planes then touch, overlap
+    or part by |delta|, which float32 rounding decides for the smallest
+    deltas."""
+    pairs = []
+    for _ in range(n):
+        r = rng.uniform(-400.0, 400.0, 3) + rng.normal(scale=120.0, size=(3, 3))
+        v = np.cross(r[1] - r[0], r[2] - r[1])
+        v /= np.linalg.norm(v)
+        w = np.cross(r[1] - r[0], v)
+        w /= np.linalg.norm(w)
+        x = r[0] + rng.uniform(0.2, 0.8) * (r[1] - r[0])
+        if w @ (r[2] - x) > 0:
+            w = -w
+        c0 = x + rng.choice([-1.0, 1.0]) * 10.0 ** rng.uniform(-6.0, -2.0) * w
+        o = np.stack([c0, c0 + 40.0 * (v + w), c0 + 40.0 * (w - v)])
+        pairs.append((r.astype(np.float32), o.astype(np.float32)))
+    return pairs

@@ -2,8 +2,9 @@
 
 Each source (`megakernel.cu`, the fused check; `stage_probes.cu`, its probe
 kernels; `clearance.cu`, the clearance engine's exact scan and the distance
-grid; `front.cu`, the check's pose rows and robot box) is compiled at first
-use into ``build/robocheck_tpu_torch/`` at the repository root,
+grid; `front.cu`, the check's pose rows and robot box; `resolve.cu`, the
+float64 resolution of flagged rows) is compiled at first use into
+``build/robocheck_tpu_torch/`` at the repository root,
 all nvcc processes started together, under names keyed by
 every source and the flags, so an edited source is never served from a stale
 build. Plain ``extern "C"`` interfaces keep each build to seconds (no PyTorch
@@ -24,7 +25,8 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"megakernel": _CSRC / "megakernel.cu",
            "stage_probes": _CSRC / "stage_probes.cu",
            "clearance": _CSRC / "clearance.cu",
-           "front": _CSRC / "front.cu"}
+           "front": _CSRC / "front.cu",
+           "resolve": _CSRC / "resolve.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "robocheck_tpu_torch"
 # -fmad=false: the TOL-band math and the clearance scan round every multiply
 # and add on its own, as their PyTorch twins do.
@@ -108,6 +110,16 @@ def _bind_megakernel(lib: ctypes.CDLL) -> None:
         _bind(lib.rc_smem_optin_bytes, i32, [])
 
 
+def _bind_resolve(lib: ctypes.CDLL) -> None:
+    """Bind the resolution kernel's entry points (`csrc/resolve.cu`)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # packed, confs, n, rob_verts, nrv, rob_tris, nrt, obs_tri, nto, boxes32, ng,
+    # obs_mesh, out, counts, stream
+    _bind(lib.rc_resolve, i32,
+          [ptr, ptr, i64, ptr, i32, ptr, i32, ptr, i32, ptr, i32, ptr, ptr, ptr, ptr])
+    _bind(lib.rc_resolve_error_string, ctypes.c_char_p, [i32])
+
+
 @functools.cache
 def library(name: str = "megakernel") -> ctypes.CDLL:
     """The built library ``name`` (a key of SOURCES), with its entry points'
@@ -155,6 +167,8 @@ def library(name: str = "megakernel") -> ctypes.CDLL:
         _bind(lib.rc_pose_rows, i32, [ptr, i64, ptr, ptr])
         _bind(lib.rc_robot_bounds, i32, [ptr, i64, ptr, i32, i32, ptr, ptr, ptr, ptr])
         _bind(lib.rc_front_error_string, ctypes.c_char_p, [i32])
+    elif name == "resolve":
+        _bind_resolve(lib)
     return lib
 
 

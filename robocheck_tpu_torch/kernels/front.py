@@ -26,11 +26,12 @@ from __future__ import annotations
 import torch
 
 
-def _require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
+def _require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> None:
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if tuple(t.shape) != shape:

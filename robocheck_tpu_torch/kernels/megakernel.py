@@ -12,8 +12,8 @@ but each triangle may straddle the other's plane itself once each signed
 distance moves by its float32 rounding bound; or live, with an interval test
 that moving each interval end by its rounding bound could flip (a tie, which
 is neither a hit nor a miss).
-Valid rows with bit 1 or bit 2 are resolved in float64 by
-`oracle.resolve_coplanar` (``check_valid_resolved``).
+Valid rows with bit 1 or bit 2 are resolved in float64 on the rows' device
+by `kernels.resolve` (``check_valid_resolved``).
 
 Two implementations share the tables and the arithmetic order of the Pallas
 kernel (not `ops.narrow`'s, which rounds the interval endpoint differently):
@@ -64,6 +64,7 @@ from ..profiling.timers import span
 from ..runtime.device import resolve as resolve_device
 from ..utils.morton import morton_argsort
 from .front import _require, poses_from_confs_cuda, robot_bounds_cuda
+from .resolve import ResolveTables, resolve_rows_cuda, resolve_rows_reference
 
 # Obstacle table columns (the JAX obs_t's first 19 columns, same indices).
 _O_C, _O_N, _O_D, _O_LO, _O_HI = 0, 9, 12, 13, 16
@@ -737,6 +738,7 @@ class MegaKernelChecker:
         self._check_poses = check_poses_cuda if on_card else check_poses_reference
         self._check_stats = (check_poses_stats_cuda if on_card
                              else check_poses_stats_reference)
+        self._resolve = resolve_rows_cuda if on_card else resolve_rows_reference
         self.robot = robot
         self.obstacle = obstacle
         self.prep = MegaKernelPrep.build(robot, obstacle, morton=morton)
@@ -749,16 +751,28 @@ class MegaKernelChecker:
                 f"memory per block (limit {SMEM_LIMIT}) and rows below {ROW_LIMIT}; "
                 f"use kernels.chunked.make_checker")
         self.tables = self.prep.to(self.device)
+        # The float64 tables of the resolution (`kernels.resolve`), built
+        # once on the device.
+        self.resolve_tables = ResolveTables.build(robot, obstacle, self.device)
         # Rows with a non-finite pose float, counted by K1 (or its twin) on
         # the device; read only by ``counters``.
         self._nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
+        # Rows the resolution re-checked in float64 and those it found
+        # colliding, counted on the device; read only by ``counters``.
+        self._resolved = torch.zeros((2,), dtype=torch.int64, device=self.device)
 
     def counters(self) -> dict:
-        """{"nonfinite_rows": rows with a non-finite configuration that K1
-        (or its twin) has answered since the checker was made: the byte 0,
-        or ``check_block``'s all-zero counter row}. One device read; no check
-        call makes it."""
-        return {"nonfinite_rows": int(self._nonfinite.item())}
+        """Counts since the checker was made: {"nonfinite_rows": rows with
+        a non-finite configuration that K1 (or its twin) has answered (the
+        byte 0, or ``check_block``'s all-zero counter row),
+        "resolved_rows": valid rows flagged coplanar or uncertain that
+        ``check_valid_resolved`` re-checked in float64, "resolved_colliding":
+        those of them found colliding}. One device read; no check call makes
+        it."""
+        nonfinite, rows, colliding = torch.cat([self._nonfinite.view(1),
+                                                self._resolved]).tolist()
+        return {"nonfinite_rows": nonfinite, "resolved_rows": rows,
+                "resolved_colliding": colliding}
 
     def check_packed(self, confs: np.ndarray, chunk: int | None = None,
                      presort: bool | None = None) -> np.ndarray:
@@ -782,11 +796,22 @@ class MegaKernelChecker:
         ``rc.check.validate`` (the array's dtype and shape), ``.upload``,
         ``.pose`` (K2), ``.kernel`` (K1's chunks, or the presorted path) and
         ``.fetch``."""
+        checked = self._check_on_device(confs, chunk, presort)
+        if checked is None:
+            return np.zeros((0,), dtype=np.uint8)
+        with span("rc.check.fetch"):
+            return checked[1].cpu().numpy()
+
+    def _check_on_device(self, confs: np.ndarray, chunk: int | None,
+                         presort: bool | None):
+        """``check_packed``'s steps up to its fetch: (the batch [N,6] and
+        its verdict bytes [N], both on the device), or None for an empty
+        batch."""
         with span("rc.check.validate"):
             confs = validate_confs(confs)
             n = confs.shape[0]
         if n == 0:
-            return np.zeros((0,), dtype=np.uint8)
+            return None
         chunk = chunk or self.STREAM_CHUNK
         with span("rc.check.upload"):
             dev_confs = torch.from_numpy(confs).to(self.device)
@@ -799,8 +824,7 @@ class MegaKernelChecker:
                 packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables,
                                                       self._nonfinite)
                                     for lo in range(0, n, chunk)])
-        with span("rc.check.fetch"):
-            return packed.cpu().numpy()
+        return dev_confs, packed
 
     def check_valid(self, confs: np.ndarray, chunk: int | None = None,
                     presort: bool | None = None):
@@ -833,17 +857,23 @@ class MegaKernelChecker:
 
     def check_valid_resolved(self, confs: np.ndarray,
                              chunk: int | None = None) -> np.ndarray:
-        """``check_packed`` + exact float64 re-check of the valid rows flagged
-        coplanar (bit 1) or uncertain (bit 2) by `oracle.resolve_coplanar`.
-        Returns valid[N] bool. Under a profiler the call is the span
-        ``rc.check``, holding ``check_packed``'s and ``rc.check.resolve``."""
-        from ..oracle import resolve_coplanar
-
+        """[N,6] configurations -> valid[N] bool: ``check_packed``'s bytes
+        with the valid rows flagged coplanar (bit 1) or uncertain (bit 2)
+        re-checked in float64 on the device (`kernels.resolve`: the kernel
+        of `csrc/resolve.cu` on a CUDA device, after K1 on the same stream
+        and before the one fetch, or its twin on the CPU), counted in
+        ``counters``. Under a profiler the call is the span ``rc.check``,
+        holding ``check_packed``'s steps with ``rc.check.resolve`` (the
+        resolution's issue) before ``rc.check.fetch``."""
         with span("rc.check"):
-            packed = self.check_packed(confs, chunk=chunk)
+            checked = self._check_on_device(confs, chunk, None)
+            if checked is None:
+                return np.zeros((0,), dtype=bool)
             with span("rc.check.resolve"):
-                return resolve_coplanar(self.robot, self.obstacle, confs,
-                                        (packed & 1).astype(bool), (packed & 6).astype(bool))
+                verdicts = self._resolve(checked[1], checked[0], self.resolve_tables,
+                                         self._resolved)
+            with span("rc.check.fetch"):
+                return verdicts.cpu().numpy().view(bool)
 
     def check_block(self, confs) -> torch.Tensor:
         """[B,6] configurations (numpy, or a tensor on the checker's device)

@@ -1,14 +1,16 @@
 """The least time an H100 could take for a kernel's work (its bound): the
 fused check's, the clearance scan's, the check front end's (the pose rows,
-K2, and the robot box, K5, by its vertex bound and its corner bound) and the
-distance grid's (K4, by its culled-work and its full-scan bound).
+K2, and the robot box, K5, by its vertex bound and its corner bound), the
+distance grid's (K4, by its culled-work and its full-scan bound) and the
+float64 resolution's.
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate, and
 the operations it must do over the card's peak rate for them. Rates, from
 NVIDIA's data sheet for the H100 SXM: 3.35 TB/s of HBM3 and 67 TFLOP/s of
-float32 outside the tensor cores. That peak counts a fused multiply-add as
-two operations; every operation counted here (a multiply, an add, a
+float32 outside the tensor cores (34 TFLOP/s of float64, for the
+resolution, which computes in float64). That peak counts a fused
+multiply-add as two operations; every operation counted here (a multiply, an add, a
 compare, a min, a divide) is charged as one of those 67 T a second, so the
 bound holds even where every multiply could fuse with an add. Both rates
 assume the card's full power limit of 700 W.
@@ -25,6 +27,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 # Operations per real robot triangle of a row: 9 posed coordinates at 3
 # multiplies and 3 adds each, the triangle's box (12 min / max) and its
 # share of the mesh box (6).
@@ -86,16 +89,26 @@ TRIG_OPS = 20
 # minimum (1) and, signed, the sign (1).
 RAY_FLAT_OPS = 1
 RAY_STAGE_OPS = (7, 18, 8)
+# The float64 resolution (`csrc/resolve.cu`), per flagged row: six sin / cos
+# (TRIG_OPS each) and the matrix (POSE_ROW_OPS); each robot vertex posed
+# (POSE_VERTEX_OPS) with its share of the mesh box (BOX_VERTEX_OPS); each
+# robot triangle's box (12 min / max); per box-overlapping pair its box test
+# (BOX_OPS) and the exact test up to its separation tests: two planes (21
+# each), six signed distances (6 each) and 12 compares.
+RESOLVE_TRI_OPS = 12
+RESOLVE_PAIR_OPS = BOX_OPS + 2 * 21 + 6 * 6 + 12
 # Stage of the fused check -> whether it includes (gate, box tests, planes).
 STAGE_WORK = {"nosweep": (True, False, False), "maskonly": (True, True, False),
               "planesonly": (True, True, True), "nodiv": (True, True, True),
               "full": (True, True, True)}
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations": whichever bounds it)."""
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations": whichever bounds it), the
+    operations at ``ops_per_s`` (float32's peak unless given)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -126,6 +139,24 @@ def check_work(rob_base: np.ndarray, n_obs: int, n_groups: int, counters: np.nda
     n_ops += gate * broad * n_tiles * n_groups * 6
     n_ops += box * pairs * BOX_OPS + planes * pairs * PLANE_OPS
     return float(n_bytes), float(n_ops)
+
+
+def resolve_work(n: int, nrv: int, nrt: int, pairs) -> tuple[float, float]:
+    """(bytes, float64 operations) of the resolution over ``n`` rows, of
+    which one a row of ``pairs`` is flagged, each entry the box-overlapping
+    pairs that the row needs tested (all of them for a row that resolves
+    collision-free, at least 1 for one that collides), against a robot of
+    ``nrv`` vertices and ``nrt`` triangles. Bytes: K1's byte read and the
+    verdict written a row, and a flagged row's configuration (24 B); the
+    tables (a few hundred KB, read through the caches) are not counted.
+    Operations: per flagged row its pose, its vertices and triangles, and
+    RESOLVE_PAIR_OPS per pair; none for the other rows."""
+    pairs = np.asarray(pairs, dtype=np.int64)
+    f = pairs.shape[0]
+    n_bytes = 2 * n + 24 * f
+    per_row = (6 * TRIG_OPS + POSE_ROW_OPS + nrv * (POSE_VERTEX_OPS + BOX_VERTEX_OPS)
+               + nrt * RESOLVE_TRI_OPS)
+    return float(n_bytes), float(f * per_row + int(pairs.sum()) * RESOLVE_PAIR_OPS)
 
 
 def pose_rows_work(n: int) -> tuple[float, float]:

@@ -22,6 +22,8 @@ from robocheck_tpu.models.shapes import tetrahedron as j_tetrahedron
 from robocheck_tpu.oracle import cpu_oracle as j_oracle
 from robocheck_tpu_torch.core.types import Mesh
 from robocheck_tpu_torch.io import assets
+from robocheck_tpu_torch.io.datagen import near_coplanar_pairs as _near_coplanar_pairs
+from robocheck_tpu_torch.io.datagen import touching_interval_pairs as _touching_interval_pairs
 from robocheck_tpu_torch.io.obj import load_obj
 from robocheck_tpu_torch.kernels import megakernel as mk
 from robocheck_tpu_torch.oracle import check_configs
@@ -324,26 +326,6 @@ def test_full_dataset_golden(key, cpu_checker, request):
         np.testing.assert_array_equal(valid, ds.valid)
 
 
-def _near_coplanar_pairs(rng, n=96):
-    """Robot triangles R at ~300-unit coordinates, and obstacle triangles O
-    through R's interior and across R's plane: O's corner c0 lies on R's
-    plane in float64 (then rounded to float32), its other two corners 40
-    units above that plane. Whether O straddles R's plane is decided by c0's
-    signed distance, which is rounding noise in float32."""
-    pairs = []
-    for _ in range(n):
-        r = rng.uniform(-400.0, 400.0, 3) + rng.normal(scale=120.0, size=(3, 3))
-        normal = np.cross(r[1] - r[0], r[2] - r[1])
-        v = normal / np.linalg.norm(normal)
-        u = np.cross(v, rng.normal(size=3))
-        u /= np.linalg.norm(u)
-        w = rng.dirichlet(np.ones(3))
-        c0 = w @ r  # on R's plane, inside R
-        o = np.stack([c0, c0 + 40.0 * u + 40.0 * v, c0 - 40.0 * u + 40.0 * v])
-        pairs.append((r.astype(np.float32), o.astype(np.float32)))
-    return pairs
-
-
 def _straddles64(d, tol):
     return (d >= tol).any() and (d <= -tol).any()
 
@@ -376,31 +358,6 @@ def test_near_coplanar_contacts_set_bit2():
         if not packed & 1:
             assert port_live  # a hit needs a live pair
     assert n_tie >= 5  # the fixture reaches the rounding-decided case
-
-
-def _touching_interval_pairs(rng, n=128):
-    """Robot triangles R at ~300-unit coordinates, and obstacle triangles O
-    whose segment on R's plane starts at a point X of R's edge r0-r1, moved
-    by delta (10^-6 to 10^-2 units, either sign) along R's plane away from
-    R: O's corners are X + delta w, and 40 units along w on either side of
-    R's plane (w the in-plane normal of the edge, pointing out of R). The
-    two triangles' intervals on the line of their planes then touch, overlap
-    or part by |delta|, which float32 rounding decides for the smallest
-    deltas."""
-    pairs = []
-    for _ in range(n):
-        r = rng.uniform(-400.0, 400.0, 3) + rng.normal(scale=120.0, size=(3, 3))
-        v = np.cross(r[1] - r[0], r[2] - r[1])
-        v /= np.linalg.norm(v)
-        w = np.cross(r[1] - r[0], v)
-        w /= np.linalg.norm(w)
-        x = r[0] + rng.uniform(0.2, 0.8) * (r[1] - r[0])
-        if w @ (r[2] - x) > 0:
-            w = -w
-        c0 = x + rng.choice([-1.0, 1.0]) * 10.0 ** rng.uniform(-6.0, -2.0) * w
-        o = np.stack([c0, c0 + 40.0 * (v + w), c0 + 40.0 * (w - v)])
-        pairs.append((r.astype(np.float32), o.astype(np.float32)))
-    return pairs
 
 
 def _interval64(p, d):
@@ -560,3 +517,203 @@ def test_megakernel_cu_entries_take_what_the_bindings_pass():
                   "rc_megakernel_check_stage"):
         params = declared[entry]
         assert params[params.index("work") + 1] == "nonfinite", entry
+
+
+def test_resolve_cu_entries_take_what_the_bindings_pass():
+    # Each entry bound by `_build._bind_resolve` is declared in
+    # `csrc/resolve.cu` with as many parameters as its argtypes; no name in
+    # the source holds "megakernel", which the benchmark's readers take for
+    # K1's kernels.
+    import re
+    import types
+
+    from robocheck_tpu_torch.kernels import _build
+
+    src = _build.SOURCES["resolve"].read_text()
+    assert "megakernel" not in src.lower()
+    extern = src[src.index('extern "C" {'):]
+    found = re.findall(r"\n(?:int|int64_t|const char\*) (rc_\w+)\(([^)]*)\)", extern)
+    declared = {name: [a.split()[-1].lstrip("*") for a in args.split(",") if a.strip()]
+                for name, args in found}
+    assert set(declared) == {"rc_resolve", "rc_resolve_error_string"}
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in declared})
+    _build._bind_resolve(lib)
+    for name in declared:
+        assert len(getattr(lib, name).argtypes) == len(declared[name]), name
+    assert declared["rc_resolve"][-3:] == ["out", "counts", "stream"]
+
+
+# --------------------------------------------------------------------------
+# The float64 resolution (`kernels.resolve`): the twin against the oracles.
+# --------------------------------------------------------------------------
+
+def _oracles():
+    """(name, check_configs) of the float64 oracles: the NumPy one, and the
+    native one where its library is built."""
+    from robocheck_tpu_torch.runtime import native
+
+    out = [("numpy", lambda r, o, c: check_configs(r, o, c, prefer_native=False))]
+    if native.available():
+        out.append(("native", lambda r, o, c: native.oracle_check(
+            r.vertices, r.triangles, o.vertices, o.triangles, c)))
+    return out
+
+
+def _face_on_face():
+    tris = np.array([[0, 1, 2]], np.int32)
+    return (Mesh(TestCoplanarResolution.RT, tris, "r"), Mesh(TestCoplanarResolution.OT, tris, "o"),
+            np.zeros((1, 6), np.float32))
+
+
+def _assert_resolution_matches_oracles(robot, obstacle, confs):
+    """The resolution's float64 verdict (``resolve_row_reference``) of every
+    row is the oracles'; check_valid_resolved (K1's twin, then the
+    resolution's twin) gives it on the rows K1 calls valid and flags, K1's
+    bit 0 elsewhere (a row K1 calls colliding stays so). Returns (K1's
+    bytes, the resolved verdicts)."""
+    from robocheck_tpu_torch.kernels.resolve import resolve_row_reference
+
+    ck = mk.MegaKernelChecker(robot, obstacle, device="cpu")
+    packed = ck.check_packed(confs)
+    got = ck.check_valid_resolved(confs)
+    assert got.dtype == bool and got.shape == (len(confs),)
+    exact = np.array([resolve_row_reference(c, ck.resolve_tables)
+                      for c in torch.from_numpy(confs)])
+    for name, oracle in _oracles():
+        np.testing.assert_array_equal(exact, oracle(robot, obstacle, confs), name)
+    flagged = ((packed & 1) == 1) & ((packed & 6) != 0)
+    np.testing.assert_array_equal(got, np.where(flagged, exact, (packed & 1) == 1))
+    return packed, got
+
+
+def test_resolution_twin_turns_the_face_on_face_row_colliding():
+    packed, got = _assert_resolution_matches_oracles(*_face_on_face())
+    assert packed[0] & 1 and packed[0] & 6  # valid and flagged in float32
+    assert not got[0]
+
+
+@pytest.mark.parametrize("fixture", ["near-coplanar", "touching-intervals"])
+def test_resolution_twin_matches_oracles_on_single_pairs(fixture):
+    """Each pair of `_near_coplanar_pairs` / `_touching_interval_pairs` at
+    the identity pose: the resolved verdict is the oracles', on flagged rows
+    (some of which float64 overturns) and on the rest alike."""
+    make = {"near-coplanar": _near_coplanar_pairs,
+            "touching-intervals": _touching_interval_pairs}[fixture]
+    seed = {"near-coplanar": 2024, "touching-intervals": 2025}[fixture]
+    one = np.array([[0, 1, 2]], np.int32)
+    zero = np.zeros((1, 6), np.float32)
+    n_flagged = 0
+    for r, o in make(np.random.default_rng(seed)):
+        packed, _ = _assert_resolution_matches_oracles(Mesh(r, one), Mesh(o, one), zero)
+        n_flagged += bool(packed[0] & 1 and packed[0] & 6)
+    assert n_flagged >= 5
+
+
+def test_resolution_twin_matches_oracles_on_the_mismatched_scale_scene():
+    robot, obstacle, confs = _mismatched_scale_scene()
+    packed, _ = _assert_resolution_matches_oracles(_mesh(robot), _mesh(obstacle), confs)
+    assert ((packed & 1) & ((packed & 6) > 0)).any()
+
+
+def test_band_hidden_contacts_resolve_colliding_through_the_twin():
+    """`test_torch_chunked.py::test_band_hidden_contacts_resolve_colliding`'s
+    rows: K1's bytes (valid, bit 2) through the resolution's twin over the
+    whole mesh pair (81,920 obstacle triangles, past one K1 block) resolve
+    colliding, as the oracles say."""
+    from robocheck_tpu_torch.kernels import chunked
+    from robocheck_tpu_torch.kernels.resolve import ResolveTables, resolve_rows_reference
+
+    rows = np.array([[0.8576694, -0.8420993, 0.14767459, 0.7203785, 3.0436065, 2.2627144],
+                     [0.9153341, 1.5401433, -0.13083363, 1.2929987, 3.1224608, 2.1998174]],
+                    np.float32)
+    robot, obstacle = _mesh(j_icosphere(1, radius=0.3)), _mesh(j_icosphere(6, radius=1.5))
+    packed = chunked.make_checker(robot, obstacle, device="cpu").check_packed(rows)
+    np.testing.assert_array_equal(packed, [0b101, 0b101])
+    counts = torch.zeros(2, dtype=torch.int64)
+    got = resolve_rows_reference(torch.from_numpy(packed), torch.from_numpy(rows),
+                                 ResolveTables.build(robot, obstacle, "cpu"), counts)
+    np.testing.assert_array_equal(got.numpy(), [0, 0])
+    assert counts.tolist() == [2, 2]
+    for name, oracle in _oracles():
+        assert not oracle(robot, obstacle, rows).any(), name
+
+
+def test_resolution_counters_count_flagged_and_overturned_rows():
+    robot, obstacle, confs = _mismatched_scale_scene()
+    ck = mk.MegaKernelChecker(_mesh(robot), _mesh(obstacle), device="cpu")
+    face = mk.MegaKernelChecker(*_face_on_face()[:2], device="cpu")
+    batch = np.concatenate([confs, confs])
+    packed = ck.check_packed(batch)
+    flagged = ((packed & 1) == 1) & ((packed & 6) != 0)
+    before = ck.counters()
+    assert before == {"nonfinite_rows": 0, "resolved_rows": 0, "resolved_colliding": 0}
+    valid = ck.check_valid_resolved(batch)
+    after = ck.counters()
+    assert after["resolved_rows"] == int(flagged.sum()) > 0
+    assert after["resolved_colliding"] == int((flagged & ~valid).sum())
+    # check_packed alone resolves nothing.
+    ck.check_packed(batch)
+    assert ck.counters() == after
+    # The face-on-face row: one row re-checked, one overturned, each call.
+    face.check_valid_resolved(np.zeros((3, 6), np.float32))
+    assert face.counters() == {"nonfinite_rows": 0, "resolved_rows": 3,
+                               "resolved_colliding": 3}
+
+
+def test_check_valid_resolved_calls_no_host_oracle(monkeypatch):
+    """The resolution runs on the checker's device: no oracle on the host."""
+    from robocheck_tpu_torch import oracle
+    from robocheck_tpu_torch.oracle import cpu_oracle
+    from robocheck_tpu_torch.runtime import native
+
+    robot, obstacle, confs = _face_on_face()
+    ck = mk.MegaKernelChecker(robot, obstacle, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host oracle was called")
+
+    for module, name in ((oracle, "check_configs"), (oracle, "resolve_coplanar"),
+                         (cpu_oracle, "check_configs"), (native, "oracle_check")):
+        monkeypatch.setattr(module, name, refuse)
+    assert not ck.check_valid_resolved(confs)[0]
+    assert ck.check_valid_resolved(np.zeros((0, 6), np.float32)).shape == (0,)
+
+
+def test_resolve_tables_float32_boxes_hold_the_float64_ones(port_alpha):
+    """The kernel's prefilter boxes (float32, rounded outward) hold each
+    obstacle triangle's float64 box, and each group box its triangles';
+    ``outward_f32`` holds boxes that float32 cannot hold exactly, within one
+    float32 step."""
+    from robocheck_tpu_torch.kernels.resolve import GROUP, ResolveTables, outward_f32
+
+    tables = ResolveTables.build(*port_alpha, "cpu")
+    nto = tables.obs_tri.shape[0]
+    box, b32 = tables.obs_box.numpy(), tables.boxes32.numpy().astype(np.float64)
+    assert b32.shape == (nto + -(-nto // GROUP), 6)
+    assert (b32[:nto, :3] <= box[:, :3]).all() and (b32[:nto, 3:] >= box[:, 3:]).all()
+    for g in range(-(-nto // GROUP)):
+        members = box[g * GROUP:(g + 1) * GROUP]
+        assert (b32[nto + g, :3] <= members[:, :3]).all()
+        assert (b32[nto + g, 3:] >= members[:, 3:]).all()
+    corners = tables.obs_tri.numpy().reshape(nto, 3, 3)
+    np.testing.assert_array_equal(box, np.concatenate([corners.min(1), corners.max(1)], 1))
+    rng = np.random.default_rng(8)
+    boxes = rng.normal(scale=300.0, size=(4096, 6))
+    boxes[:, 3:] = boxes[:, :3] + np.abs(rng.normal(size=(4096, 3)))
+    out = outward_f32(boxes)
+    assert out.dtype == np.float32
+    assert (out[:, :3] <= boxes[:, :3]).all() and (out[:, 3:] >= boxes[:, 3:]).all()
+    assert (np.nextafter(out[:, :3], np.float32(np.inf)) > boxes[:, :3]).all()
+    assert (np.nextafter(out[:, 3:], np.float32(-np.inf)) < boxes[:, 3:]).all()
+
+
+def test_resolve_cuda_wrapper_refuses_cpu_tensors():
+    from robocheck_tpu_torch.kernels import resolve
+
+    robot, obstacle, confs = _face_on_face()
+    tables = resolve.ResolveTables.build(robot, obstacle, "cpu")
+    launches = resolve.resolve_rows_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        resolve.resolve_rows_cuda(torch.tensor([5], dtype=torch.uint8), torch.from_numpy(confs),
+                                  tables, torch.zeros(2, dtype=torch.int64))
+    assert resolve.resolve_rows_cuda.launches == launches

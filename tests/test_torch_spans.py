@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from robocheck_tpu_torch.core.types import Mesh
 from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.datagen import alpha_bot_configurations
 from robocheck_tpu_torch.io.obj import load_obj
@@ -24,8 +25,12 @@ from robocheck_tpu_torch.models.shapes import box, icosphere
 from robocheck_tpu_torch.planner.clearance import BLOCK, ClearanceEngine
 from robocheck_tpu_torch.profiling import timers
 
+# ``check_valid_resolved``'s steps under ``rc.check``: the resolution is
+# issued on the device before the one fetch. ``check_packed`` alone has no
+# resolve step.
 CHECK_STEPS = ["rc.check.validate", "rc.check.upload", "rc.check.pose", "rc.check.kernel",
-               "rc.check.fetch"]
+               "rc.check.resolve", "rc.check.fetch"]
+PACKED_STEPS = [name for name in CHECK_STEPS if name != "rc.check.resolve"]
 
 
 def _tree(prof) -> list:
@@ -69,7 +74,7 @@ def test_check_emits_its_steps_in_order_under_its_root(checker):
     np.testing.assert_array_equal(got, checker.check_valid_resolved(confs))
     [(root, children)] = _tree(prof)
     assert root == "rc.check"
-    assert _names(children) == CHECK_STEPS + ["rc.check.resolve"]
+    assert _names(children) == CHECK_STEPS
     assert all(not grand for _, grand in children)
 
 
@@ -84,12 +89,41 @@ def test_check_with_nonfinite_rows_emits_its_steps_once(checker):
     # The kernel answers the non-finite rows: one pass over the whole batch,
     # no nested second call on the finite rows.
     assert root == "rc.check"
-    assert _names(children) == CHECK_STEPS + ["rc.check.resolve"]
+    assert _names(children) == CHECK_STEPS
     assert all(not grand for _, grand in children)
-    # check_packed alone has no root.
+    # check_packed alone has no root and no resolve step.
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         checker.check_packed(confs)
-    assert _names(_tree(prof)) == CHECK_STEPS
+    assert _names(_tree(prof)) == PACKED_STEPS
+
+
+def test_resolution_runs_under_its_span_before_the_fetch():
+    """A flagged valid row (two triangles in one tilted plane, which float64
+    finds intersecting): the twin's float64 pose (its three cos) lies inside
+    ``rc.check.resolve``, K2's twin's inside ``rc.check.pose``, and the
+    resolution ends before ``rc.check.fetch`` starts."""
+    tris = np.array([[0, 1, 2]], np.int32)
+    robot = Mesh(np.array([[-172.35173, 118.57849, -337.86478], [-168.62619, 71.0307, -215.03616],
+                           [-280.98154, 165.06941, -53.021297]], np.float32), tris, "r")
+    obstacle = Mesh(np.array([[-148.91972, 43.489243, -211.57489],
+                              [-222.59364, 145.73175, -222.42876],
+                              [-204.12267, 60.86192, -48.782146]], np.float32), tris, "o")
+    face = MegaKernelChecker(robot, obstacle, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert not face.check_valid_resolved(np.zeros((1, 6), np.float32))[0]
+    events = prof.profiler.function_events
+
+    def ranges(name):
+        return [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
+
+    [(lo, hi)] = ranges("rc.check.resolve")
+    [(pose_lo, pose_hi)] = ranges("rc.check.pose")
+    [(fetch_lo, _)] = ranges("rc.check.fetch")
+    cos = ranges("aten::cos")
+    inside = [(a, b) for a, b in cos if lo <= a and b <= hi]
+    assert len(inside) == 3
+    assert all(pose_lo <= a and b <= pose_hi for a, b in cos if (a, b) not in inside)
+    assert hi <= fetch_lo
 
 
 def _wave_engine():
@@ -149,7 +183,7 @@ def test_no_span_is_entered_without_a_profiler(checker, monkeypatch):
     assert entered == [] and timers.span("a") is timers.span("b")
     with profile(activities=[ProfilerActivity.CPU]):
         checker.check_valid_resolved(_confs(8))
-    assert entered == ["rc.check"] + CHECK_STEPS + ["rc.check.resolve"]
+    assert entered == ["rc.check"] + CHECK_STEPS
 
 
 @pytest.mark.card
@@ -185,3 +219,40 @@ def test_k1_records_lie_inside_their_calls_kernel_to_fetch_spans(tmp_path):
         [call] = [i for i, (lo, hi) in enumerate(kernel)
                   if lo <= launch[e["args"]["correlation"]] <= hi]
         assert kernel[call][0] <= e["ts"] and e["ts"] + e["dur"] <= fetch[call][1]
+
+
+@pytest.mark.card
+def test_resolve_records_lie_inside_their_calls_resolve_to_fetch_spans(tmp_path):
+    """In a traced 100,000-row hard call, the resolution is one kernel
+    record a call, launched inside ``rc.check.resolve``, after the call's
+    last K1 record and done before its ``rc.check.fetch`` span ends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    robot = load_obj(assets.alpha_robot_path())
+    checker = MegaKernelChecker(robot, load_obj(assets.alpha_obstacle_path()), device="cuda")
+    confs = alpha_bot_configurations(robot, 100_000, hard=True, seed=2718281828)
+    checker.check_valid_resolved(confs)
+    torch.cuda.synchronize()
+    with timers.trace(str(tmp_path)) as path:
+        for _ in range(3):
+            checker.check_valid_resolved(confs)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    host = [e for e in events if e.get("cat") == "user_annotation"]
+
+    def spans(name):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in host if e["name"] == name)
+
+    resolve, fetch = spans("rc.check.resolve"), spans("rc.check.fetch")
+    assert len(resolve) == len(fetch) == 3
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    records = [e for e in kernels if "resolve_kernel" in e.get("name", "")]
+    assert len(records) == 3
+    k1_ends = [e["ts"] + e["dur"] for e in kernels if "megakernel" in e.get("name", "")]
+    for e in records:
+        [call] = [i for i, (lo, hi) in enumerate(resolve)
+                  if lo <= launch[e["args"]["correlation"]] <= hi]
+        before = [t for t in k1_ends if t <= e["ts"] and t >= resolve[call][0] - 1e5]
+        assert before and e["ts"] + e["dur"] <= fetch[call][1]
