@@ -51,10 +51,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      every flagged row, of the three 10k sets, of the 8 batches of the
      benchmark's hard100k pool for seed 2718281828 and of planted rows that
      float64 overturns (the face-on-face row at 10 places in 100,000 far
-     rows, the JAX fixture, the mismatched-scale scene, the band-hidden
-     contacts of 80 x 81,920 triangles (tables in global memory), the
+     rows, also through a world-of-one `ShardedChecker` held against
+     `oracle.resolve_coplanar`, the JAX fixture, the mismatched-scale
+     scene, the band-hidden contacts of 80 x 81,920 triangles through the
+     chunked checker's whole-pair tables (in global memory), the
      near-coplanar and touching-interval pairs of `io.datagen`), and on a
-     2,200-triangle soup (its boxes alone in shared memory); the largest
+     2,200-triangle soup (its boxes alone in shared memory), each checker's
+     own `check_valid_resolved` equal to the kernel's verdicts; the largest
      ulp difference of the pose's float64 sin / cos, card against host
      (numpy); the kernel's device
      time at hard100k's shape (with its flagged rows, and with none) beside
@@ -95,8 +98,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      the card's opt-in shared memory per block against `SMEM_LIMIT`; then
      `make_checker(..., device="cuda")` on `scripts/bench_chunked.py`'s two
      scenes (80 x 81,920 and 20,480 x 20,480 triangles, 8,192 rows, seed 7)
-     must be a `ChunkedMegaKernelChecker` whose `check_valid_resolved` equals
-     the float64 oracle (native, built here with make) on every row, whose
+     must be a `ChunkedMegaKernelChecker` whose `check_valid_resolved` (one
+     launch of the resolution kernel) equals the float64 oracle (native,
+     built here with make) on every row, whose
      bytes are identical with `compact` on and off, and, on the first 512
      rows, equal to one unchunked twin (`check_poses_reference`) on the card
      (valid on every row, bits 1 and 2 on valid rows); chunk pairs, launches
@@ -174,7 +178,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      by phase 3's rule (bit 0 on every row, the byte on valid rows: a
      colliding row's bits 1-2 follow the kernel's run-time order, and two
      world-of-1 runs are counted where they differ), 0 golden mismatches
-     resolved, totals equal to the rows' counts, the
+     resolved (the resolution kernel launched in every rank), totals equal
+     to the rows' counts, the
      counter rows' valid and broad columns equal to the world of 1's, and
      `check_valid_distributed` on 256 rows (each rank reading its shard)
      equal to the goldens; (b) the sharded `ClearanceEngine` on bench.py's
@@ -489,6 +494,7 @@ def phase7(lib, card: str, device) -> tuple[int, int, list]:
     each scene's (name, chunked checker, rows) for phase 14)."""
     from robocheck_tpu_torch.kernels import chunked
     from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.kernels import resolve as rs
     from robocheck_tpu_torch.oracle import check_configs
     from robocheck_tpu_torch.runtime import native
 
@@ -511,12 +517,15 @@ def phase7(lib, card: str, device) -> tuple[int, int, list]:
         t_build = time.perf_counter() - t0
         require(isinstance(ck, chunked.ChunkedMegaKernelChecker), f"{name}: not chunked")
         mk.check_poses_cuda.launches = 0
+        rs.resolve_rows_cuda.launches = 0
         zero_front()
         t0 = time.perf_counter()
         resolved = ck.check_valid_resolved(confs)
         t_main = time.perf_counter() - t0
         n_launch = mk.check_poses_cuda.launches
         require(n_launch > 0, f"{name}: the chunked path launched no kernel")
+        require(rs.resolve_rows_cuda.launches == 1,
+                f"{name}: {rs.resolve_rows_cuda.launches} resolution launches, not 1")
         read_front(f"oversized meshes (7), {name}")
         launches += n_launch
         t0 = time.perf_counter()
@@ -1285,6 +1294,7 @@ def phase12_rank() -> dict:
     from robocheck_tpu_torch.kernels import clearance as kc
     from robocheck_tpu_torch.kernels import front
     from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.kernels import resolve as rs
     from robocheck_tpu_torch.kernels import sdf as ks
     from robocheck_tpu_torch.parallel.sharding import ShardedChecker, make_mesh
     from robocheck_tpu_torch.planner.ccd import subdivide_mesh
@@ -1301,6 +1311,7 @@ def phase12_rank() -> dict:
     # (a) the checker on all of hard10k, and 256 rows read per rank.
     out["packed"] = checker.check_packed(hard)
     out["resolved"] = checker.check_valid_resolved(hard)
+    out["resolve_launches"] = rs.resolve_rows_cuda.launches
     block, totals = checker.check_block(hard)
     out["block"], out["totals"] = block.numpy(), totals.numpy()
     lo, hi = shard_bounds(256)
@@ -1372,6 +1383,8 @@ def phase12(robot, obstacle, data, checker, card: str, sqp_ref: dict) -> dict:
         compare_bits(f"(a) rank {r['rank']} bytes vs the world of 1's",
                      torch.from_numpy(r["packed"]), torch.from_numpy(packed1))
     require(mism == 0, f"(a) {mism} golden mismatches under sharding")
+    require(all(r["resolve_launches"] == 1 for r in ranks),
+            "(a) a rank's check_valid_resolved did not launch the resolution kernel once")
     require(tot[0] == r0["block"][:, 0].sum() and tot[0] + tot[1] == len(hard.confs)
             and tot[2] == r0["block"][:, 1].sum(), "(a) the totals differ from the rows' counts")
     require(np.array_equal(r0["block"][:, [0, 3]], block1[:, [0, 3]]),
@@ -2180,9 +2193,10 @@ def hold_resolve(name: str, checker, confs: np.ndarray, quiet: bool = False,
     """Phase 4: the resolution kernel against its twin on the card (every
     byte, and the counters) and against the native float64 oracle (every
     flagged row), on K1's bytes of ``confs`` by ``checker``, over the
-    checker's resolution tables or ``tables``. Returns the flagged rows'
-    configurations and verdicts, and the largest byte difference from the
-    twin."""
+    checker's resolution tables or ``tables``, and the checker's own
+    ``check_valid_resolved`` against the kernel's verdicts. Returns the
+    flagged rows' configurations and verdicts, and the largest byte
+    difference from the twin."""
     from robocheck_tpu_torch.kernels import resolve as rs
     from robocheck_tpu_torch.runtime import native
 
@@ -2210,6 +2224,8 @@ def hold_resolve(name: str, checker, confs: np.ndarray, quiet: bool = False,
     require(err == 0, f"{name}: the resolution kernel differs from its twin")
     require(mism == 0, f"{name}: the resolution kernel differs from the native oracle")
     require(kept, f"{name}: an unflagged row's byte is not K1's bit 0")
+    require(np.array_equal(checker.check_valid_resolved(confs), g.astype(bool)),
+            f"{name}: the checker's check_valid_resolved differs from the kernel's verdicts")
     require(counts.tolist() == twin_counts.tolist() == [len(flagged), overturned],
             f"{name}: counters {counts.tolist()} / twin {twin_counts.tolist()}, want "
             f"[{len(flagged)}, {overturned}]")
@@ -2262,9 +2278,10 @@ def phase4_resolve(checker, data, card: str, device) -> dict:
     from robocheck_tpu_torch.kernels import resolve as rs
     from robocheck_tpu_torch.kernels.chunked import make_checker
     from robocheck_tpu_torch.models.shapes import box, icosphere, tetrahedron, triangle_soup
+    from robocheck_tpu_torch.oracle import resolve_coplanar
+    from robocheck_tpu_torch.parallel.sharding import ShardedChecker, make_mesh
     from robocheck_tpu_torch.profiling import bounds, timers
     from robocheck_tpu_torch.profiling.timers import benchmark, event_ms
-    from robocheck_tpu_torch.oracle import resolve_coplanar
 
     print("[4] the resolution kernel against its twin (every byte) and the native oracle "
           "(flagged rows)")
@@ -2283,6 +2300,16 @@ def phase4_resolve(checker, data, card: str, device) -> dict:
     require(got["overturned"] == len(RESOLVE_PLANTED) and len(got["confs"]) == len(RESOLVE_PLANTED),
             "the planted face-on-face rows did not all resolve colliding")
     held["planted"] = got
+    sharded = ShardedChecker(face.robot, face.obstacle, make_mesh(1, "cuda"))
+    got = hold_resolve("the same through a world-of-one ShardedChecker", sharded, planted,
+                       tables=face.resolve_tables)
+    p = sharded.check_packed(planted)
+    host = resolve_coplanar(face.robot, face.obstacle, planted, (p & 1).astype(bool),
+                            (p & 6).astype(bool))
+    require(got["overturned"] == len(RESOLVE_PLANTED)
+            and np.array_equal(sharded.check_valid_resolved(planted), host),
+            "the world-of-one ShardedChecker's resolution differs from resolve_coplanar")
+    held["planted, sharded"] = got
     jax = MegaKernelChecker(Mesh(np.array(JAX_COPLANAR_RT, np.float32), one),
                             Mesh(np.array(JAX_COPLANAR_OT, np.float32), one), device="cuda")
     held["jax fixture"] = hold_resolve("JAX coplanar fixture", jax, np.zeros((4, 6), np.float32))
@@ -2309,8 +2336,7 @@ def phase4_resolve(checker, data, card: str, device) -> dict:
                     np.float32)
     sphere_r, sphere_o = icosphere(1, radius=0.3), icosphere(6, radius=1.5)
     got = hold_resolve("band-hidden contacts, 80 x 81,920 triangles",
-                       make_checker(sphere_r, sphere_o, device="cuda"), band,
-                       tables=rs.ResolveTables.build(sphere_r, sphere_o, device))
+                       make_checker(sphere_r, sphere_o, device="cuda"), band)
     require(got["overturned"] == 2, "the band-hidden rows did not resolve colliding")
     held["band-hidden"] = got
     for name, make, seed in (("near-coplanar", near_coplanar_pairs, 2024),

@@ -27,8 +27,9 @@ import torch
 
 from ..core.types import Mesh, validate_confs
 from ..utils.morton import morton_argsort
-from .megakernel import (MegaKernelChecker, SharedMemoryBudgetError, boxes_overlap,
-                         poses_from_confs, robot_bounds)
+from .megakernel import (MegaKernelChecker, SharedMemoryBudgetError, _nonfinite_rows,
+                         boxes_overlap, poses_from_confs, robot_bounds, valid_coplanar)
+from .resolve import ResolveTables, resolve_rows
 
 # Chunk caps: any (robot chunk, obstacle chunk) pair fits one block of the
 # kernel. 1,024 robot rows (the alpha-1.0 robot's own table) and 6,144
@@ -90,6 +91,7 @@ class ChunkedMegaKernelChecker:
         # Robot-major: checker i holds robot chunk i // n_obs_chunks.
         self.checkers = [build(r, o) for r in rob_chunks for o in obs_chunks]
         self.device = self.checkers[0].device
+        self.resolve_tables = ResolveTables.build(robot, obstacle, self.device)
 
     @property
     def num_chunk_pairs(self) -> int:
@@ -104,9 +106,6 @@ class ChunkedMegaKernelChecker:
         any-hit exit, whose order the kernel's warps settle at run time;
         nothing reads them there.) Non-finite rows get the byte 0."""
         confs = validate_confs(confs)
-        finite = np.isfinite(confs).all(axis=1)
-        out = np.zeros((confs.shape[0],), dtype=np.uint8)
-        confs = confs[finite]
         valid = np.ones((confs.shape[0],), dtype=np.uint8)
         flags = np.zeros_like(valid)
         hits = self._broad_multi(confs) if compact else None
@@ -117,42 +116,42 @@ class ChunkedMegaKernelChecker:
             packed = ck.check_packed(confs[idx], chunk=chunk)
             valid[idx] &= packed & 1
             flags[idx] |= packed & 6
-        out[finite] = valid | flags * valid
-        return out
+        return valid | flags * valid
 
     def check_valid(self, confs: np.ndarray, chunk: int | None = None,
                     compact: bool = False):
         """[N,6] configurations -> (valid[N], coplanar[N]) numpy bools: bits 0
         and 1 of ``check_packed``."""
-        packed = self.check_packed(confs, chunk=chunk, compact=compact)
-        return (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
+        return valid_coplanar(self.check_packed(confs, chunk=chunk, compact=compact))
 
     def check_valid_resolved(self, confs: np.ndarray, chunk: int | None = None,
                              compact: bool = False) -> np.ndarray:
-        """``check_packed`` + exact float64 re-check, against the whole
-        (unchunked) mesh pair, of the valid rows that some chunk pair flagged
-        coplanar (bit 1) or uncertain (bit 2). Returns valid[N] bool."""
-        from ..oracle import resolve_coplanar
-
+        """``check_packed`` + the float64 re-check on the device, against the
+        whole (unchunked) mesh pair, of the valid rows that some chunk pair
+        flagged coplanar (bit 1) or uncertain (bit 2). Returns valid[N] bool."""
+        confs = validate_confs(confs)
         packed = self.check_packed(confs, chunk=chunk, compact=compact)
-        return resolve_coplanar(self.robot, self.obstacle, confs,
-                                (packed & 1).astype(bool), (packed & 6).astype(bool))
+        verdicts = resolve_rows(torch.from_numpy(packed).to(self.device),
+                                torch.from_numpy(confs).to(self.device), self.resolve_tables)
+        return verdicts.cpu().numpy().view(bool)
 
     def _broad_multi(self, confs: np.ndarray) -> np.ndarray:
         """[num_chunk_pairs, N] bool: each chunk pair's broad phase, bit for
         bit its kernel's stage 1. The robot box of every row is computed on
         the device once per robot chunk and tested there against each of
         its obstacle chunks' boxes (on the card by K5 over the robot chunk's
-        vertex table, built with its tables); one fetch per robot chunk."""
+        vertex table, built with its tables); one fetch per robot chunk.
+        Non-finite rows are hits, so that K1 answers them with the byte 0."""
         out = np.empty((self.num_chunk_pairs, confs.shape[0]), dtype=bool)
         if not confs.shape[0]:
             return out
         poses = poses_from_confs(torch.from_numpy(confs).to(self.device))
+        bad = _nonfinite_rows(poses, None)
         for lo in range(0, self.num_chunk_pairs, self._n_obs_chunks):
             group = self.checkers[lo : lo + self._n_obs_chunks]
             bounds = robot_bounds(poses, group[0].tables)
             boxes = torch.stack([ck.tables.obs_mesh for ck in group])
-            out[lo : lo + len(group)] = boxes_overlap(bounds, boxes).cpu().numpy()
+            out[lo : lo + len(group)] = (boxes_overlap(bounds, boxes) | bad).cpu().numpy()
         return out
 
     def check(self, confs: np.ndarray, two_phase: bool = True):

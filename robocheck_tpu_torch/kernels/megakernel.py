@@ -28,8 +28,8 @@ The same pair exists for the counter output (``check_poses_stats_cuda`` /
 ``check_poses_stage_cuda`` launches the kernel's stage-isolating variants
 (`STAGES`), whose plain expectation is the byte 1 on every row.
 
-``MegaKernelChecker`` takes the kernels on a CUDA device and the twins on the
-CPU, chosen once from its device.
+``check_poses`` / ``check_poses_stats`` take the kernel for rows on a CUDA
+device and the twin otherwise, as ``poses_from_confs`` does.
 
 Host tables (``MegaKernelPrep``), Morton-ordered like the JAX package's:
   * rob_base   [10, Tr]: rows 0-8 corner coordinates c0x,c0y,c0z,...,c2z,
@@ -64,7 +64,7 @@ from ..profiling.timers import span
 from ..runtime.device import resolve as resolve_device
 from ..utils.morton import morton_argsort
 from .front import _require, poses_from_confs_cuda, robot_bounds_cuda
-from .resolve import ResolveTables, resolve_rows_cuda, resolve_rows_reference
+from .resolve import ResolveTables, resolve_rows
 
 # Obstacle table columns (the JAX obs_t's first 19 columns, same indices).
 _O_C, _O_N, _O_D, _O_LO, _O_HI = 0, 9, 12, 13, 16
@@ -682,6 +682,27 @@ check_poses_stats_cuda.launches = 0
 check_poses_stage_cuda.launches = dict.fromkeys(STAGES, 0)
 
 
+def check_poses(poses: torch.Tensor, prep: MegaKernelPrep,
+                nonfinite: torch.Tensor | None = None) -> torch.Tensor:
+    """``check_poses_cuda`` for rows on a CUDA device, else its twin."""
+    if poses.is_cuda:
+        return check_poses_cuda(poses, prep, nonfinite)
+    return check_poses_reference(poses, prep, nonfinite)
+
+
+def check_poses_stats(poses: torch.Tensor, prep: MegaKernelPrep,
+                      nonfinite: torch.Tensor | None = None) -> torch.Tensor:
+    """``check_poses_stats_cuda`` for rows on a CUDA device, else its twin."""
+    if poses.is_cuda:
+        return check_poses_stats_cuda(poses, prep, nonfinite)
+    return check_poses_stats_reference(poses, prep, nonfinite)
+
+
+def valid_coplanar(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(valid, coplanar) numpy bools: bits 0 and 1 of verdict bytes."""
+    return (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
+
+
 # --------------------------------------------------------------------------
 # The kernel's shared-memory budget (the port's counterpart of the JAX
 # package's VMEM budget, `megakernel.py:81, 999-1028`).
@@ -719,9 +740,9 @@ def smem_bytes(tr: int, n_groups: int) -> int:
 class MegaKernelChecker:
     """Batched collision verdicts for one robot/obstacle mesh pair on one
     device: the CUDA kernels on a CUDA device (the default), their PyTorch
-    twins on the CPU. There is no automatic choice and no fallback between
-    the two. A pair whose tables do not fit the kernel raises
-    SharedMemoryBudgetError (`kernels.chunked.make_checker` splits it).
+    twins on the CPU, chosen by the rows' device; nothing falls back. A pair
+    whose tables do not fit the kernel raises SharedMemoryBudgetError
+    (`kernels.chunked.make_checker` splits it).
 
     ``check_packed`` / ``check_valid`` / ``check_valid_resolved`` are the
     throughput path (one verdict byte per configuration); ``check`` (over ``broad_block`` and
@@ -733,12 +754,6 @@ class MegaKernelChecker:
     def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
                  morton: bool = True):
         self.device = resolve_device(device)
-        # The kernels launch or raise; the twins run only on the CPU.
-        on_card = self.device.type == "cuda"
-        self._check_poses = check_poses_cuda if on_card else check_poses_reference
-        self._check_stats = (check_poses_stats_cuda if on_card
-                             else check_poses_stats_reference)
-        self._resolve = resolve_rows_cuda if on_card else resolve_rows_reference
         self.robot = robot
         self.obstacle = obstacle
         self.prep = MegaKernelPrep.build(robot, obstacle, morton=morton)
@@ -821,8 +836,8 @@ class MegaKernelChecker:
             if presort:
                 packed = self._check_presorted(poses, chunk)
             else:
-                packed = torch.cat([self._check_poses(poses[lo : lo + chunk], self.tables,
-                                                      self._nonfinite)
+                packed = torch.cat([check_poses(poses[lo : lo + chunk], self.tables,
+                                                self._nonfinite)
                                     for lo in range(0, n, chunk)])
         return dev_confs, packed
 
@@ -830,8 +845,7 @@ class MegaKernelChecker:
                     presort: bool | None = None):
         """[N,6] configurations -> (valid[N], coplanar[N]) numpy bools: bits 0
         and 1 of ``check_packed``."""
-        packed = self.check_packed(confs, chunk=chunk, presort=presort)
-        return (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
+        return valid_coplanar(self.check_packed(confs, chunk=chunk, presort=presort))
 
     def _check_presorted(self, poses: torch.Tensor, chunk: int) -> torch.Tensor:
         """Packed bytes of ``poses`` checked hits-first: the JAX package's
@@ -848,7 +862,7 @@ class MegaKernelChecker:
         src[dest] = torch.arange(n, device=poses.device)
         k = int(n_hit[-1].item())  # the one sync: how many rows need the kernel
         ordered = poses[src]
-        outs = [self._check_poses(ordered[lo : lo + chunk], self.tables, self._nonfinite)
+        outs = [check_poses(ordered[lo : lo + chunk], self.tables, self._nonfinite)
                 for lo in range(0, k, chunk)]
         done = min(n, len(outs) * chunk)
         if done < n:
@@ -870,8 +884,8 @@ class MegaKernelChecker:
             if checked is None:
                 return np.zeros((0,), dtype=bool)
             with span("rc.check.resolve"):
-                verdicts = self._resolve(checked[1], checked[0], self.resolve_tables,
-                                         self._resolved)
+                verdicts = resolve_rows(checked[1], checked[0], self.resolve_tables,
+                                        self._resolved)
             with span("rc.check.fetch"):
                 return verdicts.cpu().numpy().view(bool)
 
@@ -880,7 +894,7 @@ class MegaKernelChecker:
         -> [B, OUT_COLS] int32 counter rows on the device
         (`megakernel.py:1286-1295`)."""
         confs = torch.as_tensor(confs, dtype=torch.float32, device=self.device)
-        return self._check_stats(poses_from_confs(confs), self.tables, self._nonfinite)
+        return check_poses_stats(poses_from_confs(confs), self.tables, self._nonfinite)
 
     def broad_block(self, confs) -> torch.Tensor:
         """[B,6] configurations -> [B] bool mesh-box overlap on the device

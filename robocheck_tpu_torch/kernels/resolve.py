@@ -14,7 +14,7 @@ other row keeps bit 0. The result is one byte a row, the resolved verdict
     on a CUDA device only), after K1 on the same stream, with no host sync;
   * ``resolve_rows_reference`` is its plain PyTorch twin (any device): the
     same operations as separate torch ops, so it equals the kernel bit for
-    bit on the card; the CPU checker runs it.
+    bit on the card; ``resolve_rows`` picks one by the rows' device.
 
 Both add to ``counts`` (two int64 on the rows' device): the rows re-checked
 and those found colliding.
@@ -311,3 +311,14 @@ def resolve_rows_cuda(packed: torch.Tensor, confs: torch.Tensor, tables: Resolve
 
 
 resolve_rows_cuda.launches = 0
+
+
+def resolve_rows(packed: torch.Tensor, confs: torch.Tensor, tables: ResolveTables,
+                 counts: torch.Tensor | None = None) -> torch.Tensor:
+    """``resolve_rows_cuda`` for rows on a CUDA device (counting into a
+    scratch ``counts`` if none is given), else its twin."""
+    if not packed.is_cuda:
+        return resolve_rows_reference(packed, confs, tables, counts)
+    if counts is None:  # the kernel always counts
+        counts = torch.zeros((2,), dtype=torch.int64, device=packed.device)
+    return resolve_rows_cuda(packed, confs, tables, counts)

@@ -22,7 +22,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.types import Mesh, validate_confs
-from ..kernels.megakernel import OUT_COLS, MegaKernelChecker, stats_columns
+from ..kernels.megakernel import OUT_COLS, MegaKernelChecker, stats_columns, valid_coplanar
 from ..runtime.device import resolve as resolve_device
 
 
@@ -165,46 +165,41 @@ class ShardedChecker:
 
         return stats_columns(confs, two_phase, self.broad_block, rows)
 
+    def _on_shards(self, check, confs: np.ndarray, chunk: int | None) -> np.ndarray:
+        """[N,6] -> [N] bytes: ``check`` (a `MegaKernelChecker` method, a
+        byte a row) on this rank's shard of the rows, in chunks of ``chunk //
+        world size`` rows (default STREAM_CHUNK_PER_DEVICE); one all-gather
+        returns the bytes in row order."""
+        confs = validate_confs(confs)
+        n = confs.shape[0]
+        if n == 0:  # the same on every rank: nothing to exchange
+            return np.zeros((0,), dtype=np.uint8)
+        per_rank = max(1, (chunk or self.STREAM_CHUNK_PER_DEVICE * self.mesh.size)
+                       // self.mesh.size)
+        padded = self._padded(confs)
+        lo, hi = self.mesh.shard(padded.shape[0])
+        local = check(padded[lo:hi], chunk=per_rank).view(np.uint8)
+        return self.mesh.all_gather(torch.from_numpy(local)).numpy()[:n]
+
     def check_packed(self, confs: np.ndarray, chunk: int | None = None) -> np.ndarray:
         """[N,6] -> [N] uint8 verdict bytes (bit 0 valid, bit 1 coplanar,
         bit 2 uncertain), the single checker's: bit 0 on every row, the whole
         byte on valid rows. (On a colliding row the CUDA kernel's bits 1-2
         depend on the pairs it reached before its any-hit exit, an order its
         warps settle at run time, so two calls of one checker may differ
-        there too.) Non-finite rows are split off first and get the byte 0. Each rank launches the kernel
-        on its shard in chunks of ``chunk // world size`` rows (default
-        STREAM_CHUNK_PER_DEVICE); one all-gather returns the bytes in row
-        order."""
-        confs = validate_confs(confs)
-        n = confs.shape[0]
-        finite = np.isfinite(confs).all(axis=1)
-        out = np.zeros((n,), dtype=np.uint8)
-        rows = confs[finite]
-        if rows.shape[0] == 0:
-            return out
-        per_rank = max(1, (chunk or self.STREAM_CHUNK_PER_DEVICE * self.mesh.size)
-                       // self.mesh.size)
-        padded = self._padded(rows)
-        lo, hi = self.mesh.shard(padded.shape[0])
-        local = torch.from_numpy(self._checker.check_packed(padded[lo:hi], chunk=per_rank))
-        out[finite] = self.mesh.all_gather(local).numpy()[: rows.shape[0]]
-        return out
+        there too.) Non-finite rows get the byte 0 (from K1)."""
+        return self._on_shards(self._checker.check_packed, confs, chunk)
 
     def check_valid(self, confs: np.ndarray, chunk: int | None = None):
         """[N,6] -> (valid[N], coplanar[N]) numpy bools: bits 0 and 1 of
         ``check_packed``."""
-        packed = self.check_packed(confs, chunk=chunk)
-        return (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
+        return valid_coplanar(self.check_packed(confs, chunk=chunk))
 
     def check_valid_resolved(self, confs: np.ndarray, chunk: int | None = None) -> np.ndarray:
         """``check_packed`` + the float64 re-check of valid rows flagged
-        coplanar (bit 1) or uncertain (bit 2), `oracle.resolve_coplanar`
-        (on every rank alike). Returns valid[N] bool."""
-        from ..oracle import resolve_coplanar
-
-        packed = self.check_packed(confs, chunk=chunk)
-        return resolve_coplanar(self.robot, self.obstacle, confs,
-                                (packed & 1).astype(bool), (packed & 6).astype(bool))
+        coplanar (bit 1) or uncertain (bit 2), each rank its own shard's on
+        its device. Returns valid[N] bool."""
+        return self._on_shards(self._checker.check_valid_resolved, confs, chunk).view(bool)
 
     def check_valid_distributed(self, local_confs: np.ndarray, global_n: int):
         """Multi-host throughput path: each rank passes only its own rows of
@@ -220,5 +215,4 @@ class ShardedChecker:
         if local_confs.shape[0] != hi - lo:
             raise ValueError(f"rank {self.mesh.rank} owns rows [{lo}, {hi}) of {global_n}, "
                              f"got {local_confs.shape[0]} rows")
-        packed = self._checker.check_packed(local_confs)
-        return (packed & 1).astype(bool), ((packed >> 1) & 1).astype(bool)
+        return valid_coplanar(self._checker.check_packed(local_confs))

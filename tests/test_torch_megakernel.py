@@ -660,14 +660,22 @@ def test_resolution_counters_count_flagged_and_overturned_rows():
                                "resolved_colliding": 3}
 
 
-def test_check_valid_resolved_calls_no_host_oracle(monkeypatch):
-    """The resolution runs on the checker's device: no oracle on the host."""
+@pytest.mark.parametrize("kind", ["plain", "chunked", "sharded"])
+def test_check_valid_resolved_calls_no_host_oracle(monkeypatch, kind):
+    """Every checker resolves on its device, with no oracle on the host,
+    and leaves a non-finite row to K1 (the byte 0)."""
     from robocheck_tpu_torch import oracle
+    from robocheck_tpu_torch.kernels.chunked import ChunkedMegaKernelChecker
     from robocheck_tpu_torch.oracle import cpu_oracle
+    from robocheck_tpu_torch.parallel.sharding import ShardedChecker, make_mesh
     from robocheck_tpu_torch.runtime import native
 
     robot, obstacle, confs = _face_on_face()
-    ck = mk.MegaKernelChecker(robot, obstacle, device="cpu")
+    ck = {"plain": lambda: mk.MegaKernelChecker(robot, obstacle, device="cpu"),
+          "chunked": lambda: ChunkedMegaKernelChecker(robot, obstacle, device="cpu",
+                                                      max_obs_tris=1),
+          "sharded": lambda: ShardedChecker(robot, obstacle, make_mesh(device="cpu"),
+                                            device="cpu")}[kind]()
 
     def refuse(*args, **kwargs):
         raise AssertionError("a host oracle was called")
@@ -676,6 +684,9 @@ def test_check_valid_resolved_calls_no_host_oracle(monkeypatch):
                          (cpu_oracle, "check_configs"), (native, "oracle_check")):
         monkeypatch.setattr(module, name, refuse)
     assert not ck.check_valid_resolved(confs)[0]
+    with_nan = np.concatenate([confs, np.full((1, 6), np.nan, np.float32)])
+    assert ck.check_packed(with_nan)[1] == 0
+    assert ck.check_valid_resolved(with_nan).tolist() == [False, False]
     assert ck.check_valid_resolved(np.zeros((0, 6), np.float32)).shape == (0,)
 
 

@@ -106,6 +106,7 @@ def test_check_valid_nonfinite(sphere_world, confs, mesh):
     bad[7, 5] = np.inf
     packed = sharded.check_packed(bad)
     assert packed[3] == 0 and packed[7] == 0
+    assert sharded._checker.counters()["nonfinite_rows"] == 2  # K1 answered them
     good = np.delete(np.arange(16), [3, 7])
     np.testing.assert_array_equal(packed[good], sharded.check_packed(confs[:16][good]))
     v, c, p, b = sharded.check(bad)
