@@ -199,9 +199,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      mismatches, 0 on easy100k, presort verdicts identical, and both kernels
      launched; their launches and (a)'s join the kernel table's counts;
      (c) K1 against its twin (max abs err 0, phase 3's rule) at the shapes
-     the bench launches it: hard100k's first chunk of `STREAM_CHUNK` rows
-     [16384,16], its tail [1696,16] and the latency leg's [2048,16]; the
-     kernel table's K1 times and bound are those of the [16384,16] chunk.
+     the bench launches it: all of hard100k in one launch [100000,16] (the
+     main path's launch) and the latency leg's [2048,16]; the kernel
+     table's K1 times, bound and share are those of the [100000,16]
+     launch; then `check_packed`'s one K1 launch against `chunk=CHUNK` on
+     hard100k, easy100k and a mixed pool (their rows interleaved 50/50, as
+     the benchmark's mixed100k): 1 launch against 7, bit 0 equal on every
+     row and the byte on valid rows (phase 3's rule), and K1 alone both
+     ways by CUDA events.
 Every check path above poses its rows through K2 (`csrc/front.cu`, the pose
 rows), and presort, the stats path's broad phase and the chunked `compact=`
 pre-filter go through K5 (the robot box); phases 4, 4b, 7, 8, 9 (d), 10,
@@ -298,7 +303,7 @@ RESOLVE_REPLACES = "none (host oracle: robocheck_tpu/oracle/__init__.py:31 resol
 BENCH_SEED = 2718281828
 # Rows of a 100,000-row batch of far rows where phase 4 plants the
 # face-on-face fixture's row: both ends, both sides of the kernel's tiles
-# (1,024 rows) and of K1's chunks (16,384), and two rows of one tile.
+# (1,024 rows) and of CHUNK, and two rows of one tile.
 RESOLVE_PLANTED = [0, 1, 1023, 1024, 2047, 16383, 16384, 50000, 50001, 99999]
 POSE_REPLACES = "robocheck_tpu/kernels/megakernel.py:1099"
 BOX_REPLACES = "robocheck_tpu/kernels/megakernel.py:1209"
@@ -309,6 +314,9 @@ GRID_LAUNCHES = {}
 FRONT_LAUNCHES = {}
 # The rows of `scripts/torch_bench.py`'s latency batch.
 LATENCY_BATCH = 2048
+# Phase 13 (c)'s rows per K1 launch of the split side: `check_packed`'s
+# launch size before one launch a call.
+CHUNK = 16384
 # Phase 9's alpha legs (`scripts/torch_certify_alpha.py`) and the checks
 # each must take: the port's counts since its certifier was ported (the raw
 # leg's is the JAX package's too; the stored smoothed file has no JAX count:
@@ -1438,21 +1446,20 @@ def phase12(robot, obstacle, data, checker, card: str, sqp_ref: dict) -> dict:
 
 
 def phase13_shapes(checker, card: str) -> dict:
-    """Phase 13 (c): K1 against its twin on hard100k at the shapes the bench
-    launches it (`check_packed`'s chunks of STREAM_CHUNK rows, and the
-    latency leg's batch posed on its own). Times the first chunk (kernel: CUDA
-    events, mean of 20; twin: one call) and returns them with the max abs
-    error and the chunk's counter rows (for its bound)."""
+    """Phase 13 (c): K1 against its twin on all of hard100k in one launch
+    (the main path's) and on the latency leg's batch posed on its own.
+    Times the one launch (kernel: CUDA events, mean of 20; twin: one call)
+    and returns them with the max abs error and the launch's counter rows
+    (for its bound)."""
     from robocheck_tpu_torch import read_conf_file
     from robocheck_tpu_torch.io import assets
     from robocheck_tpu_torch.kernels import megakernel as mk
     from robocheck_tpu_torch.profiling.timers import event_ms
 
     confs = read_conf_file(assets.dataset_path("hard100k")).confs
-    tables, chunk, n = checker.tables, checker.STREAM_CHUNK, len(confs)
+    tables = checker.tables
     poses = mk.poses_from_confs(torch.from_numpy(confs).to(checker.device))
-    tail = (n - 1) // chunk * chunk
-    shapes = {"first chunk": poses[:chunk], "tail": poses[tail:],
+    shapes = {"one launch": poses,
               "latency batch": mk.poses_from_confs(
                   torch.from_numpy(confs[:LATENCY_BATCH]).to(checker.device))}
     out = {"max_abs_err": 0}
@@ -1466,13 +1473,54 @@ def phase13_shapes(checker, card: str) -> dict:
         err, *_ = compare_bits(f"(c) hard100k {name} {list(rows.shape)}, kernel vs twin",
                                got, want)
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        if name == "first chunk":
+        if name == "one launch":
             out["plain_ms"] = start.elapsed_time(end)
             out["ms"] = event_ms(lambda: mk.check_poses_cuda(rows, tables), 20)
             out["counter_rows"] = mk.check_poses_stats_cuda(rows, tables).cpu().numpy()
             print(f"  (c) [{card}] kernel alone, hard100k {list(rows.shape)}: {out['ms']} ms; "
                   f"twin: {out['plain_ms']} ms")
     return out
+
+
+def phase13_one_launch(checker, card: str) -> None:
+    """Phase 13 (c): `check_packed`'s one K1 launch against launches of
+    CHUNK rows on hard100k, easy100k and a mixed pool (their rows
+    interleaved 50/50): one launch against ceil(n / CHUNK), bit 0 equal on
+    every row and the byte on valid rows (a colliding row's bits 1-2 follow
+    the kernel's run-time order), and K1 alone both ways (CUDA events, mean
+    of 20)."""
+    from robocheck_tpu_torch import read_conf_file
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.profiling.timers import event_ms
+
+    hard, easy = (read_conf_file(assets.dataset_path(k)).confs for k in ("hard100k", "easy100k"))
+    mixed = np.empty_like(hard)
+    mixed[0::2], mixed[1::2] = hard[: (len(hard) + 1) // 2], easy[: len(hard) // 2]
+    for key, confs in (("hard100k", hard), ("easy100k", easy), ("mixed", mixed)):
+        n, k0 = len(confs), mk.check_poses_cuda.launches
+        one = checker.check_packed(confs)
+        k1 = mk.check_poses_cuda.launches
+        split = checker.check_packed(confs, chunk=CHUNK)
+        launches = (k1 - k0, mk.check_poses_cuda.launches - k1)
+        valid = (split & 1) == 1
+        bit0 = int(((one ^ split) & 1).sum())
+        byte = int((one[valid] != split[valid]).sum())
+        poses = mk.poses_from_confs(torch.from_numpy(confs).to(checker.device))
+
+        def chunked(poses=poses):
+            for lo in range(0, len(poses), CHUNK):
+                mk.check_poses_cuda(poses[lo : lo + CHUNK], checker.tables)
+
+        t_one = event_ms(lambda: mk.check_poses_cuda(poses, checker.tables), 20)
+        t_split = event_ms(chunked, 20)
+        print(f"  (c) [{card}] {key} [{n},16]: K1 launches {launches[0]} / {launches[1]} "
+              f"(one launch / chunk={CHUNK}); {int(valid.sum())} valid; bit 0 differs on {bit0} "
+              f"rows, the byte on {byte} valid rows; K1 alone {t_one} ms in one launch, "
+              f"{t_split} ms in {-(-n // CHUNK)}")
+        require(launches == (1, -(-n // CHUNK)), f"(c) {key}: K1 launches {launches}")
+        require(bit0 == 0 and byte == 0,
+                f"(c) {key}: one launch and chunks of {CHUNK} differ ({bit0}, {byte})")
 
 
 def phase13(checker, card: str) -> tuple[int, int, dict]:
@@ -1533,6 +1581,7 @@ def phase13(checker, card: str) -> tuple[int, int, dict]:
     require(all(launches.values()), f"(b) the bench did not launch every kernel: {launches}")
     FRONT_LAUNCHES["bench (13 (b))"] = {k: launches[k] for k in ("pose_rows", "robot_bounds")}
     shapes = phase13_shapes(checker, card)
+    phase13_one_launch(checker, card)
     print(f"  [{card}] phase 13: {time.perf_counter() - t_start} s; launches: K1 {k1} in (a), "
           f"{launches['megakernel']} in the bench; scan kernel {launches['clearance']}")
     return k1 + launches["megakernel"], launches["clearance"], shapes
@@ -2776,8 +2825,9 @@ def main() -> None:
     # K1's times and bound at the shape the headline bench launches it.
     entries[0].update(ms=shapes13["ms"], plain_ms=shapes13["plain_ms"],
                       **bound(shapes13["counter_rows"]))
-    print(f"  [{card}] K1 at hard100k [16384,16]: {entries[0]['ms']} ms, bound "
-          f"{entries[0]['bound_ms']} ms ({entries[0]['bound_by']}); at hard10k [10000,16]: "
+    print(f"  [{card}] K1 at hard100k [100000,16] in one launch: {entries[0]['ms']} ms, bound "
+          f"{entries[0]['bound_ms']} ms ({entries[0]['bound_by']}), "
+          f"{100 * entries[0]['bound_ms'] / entries[0]['ms']}% of it; at hard10k [10000,16]: "
           f"{kernel_ms} ms, bound {bound(hard_rows)['bound_ms']} ms")
     entries[1]["launches"] = stats_launches + launches12["megakernel_stats"]
     resolve_entry["launches"] = rs.resolve_rows_cuda.launches

@@ -101,6 +101,9 @@ _ERR = 4.7684e-07
 _ERR_I = 1.9073486e-06
 # Pair elements the twin materialises per step (bounds its memory).
 _PAIR_BUDGET = 1 << 24
+# Rows a twin poses and tests at once: `_posed_robot` keeps about 25
+# [B, Tr] float32 arrays, ~100 KB a row for a 1,024-triangle robot.
+TWIN_ROWS = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,6 +484,20 @@ def _nonfinite_rows(poses: torch.Tensor, nonfinite: torch.Tensor | None) -> torc
     return bad
 
 
+def _in_blocks(twin):
+    """``twin`` over its rows TWIN_ROWS at a time, joined: a twin's
+    temporaries grow with the rows it poses at once (the kernel's do not)."""
+    @functools.wraps(twin)
+    def blocked(poses: torch.Tensor, prep: MegaKernelPrep,
+                nonfinite: torch.Tensor | None = None) -> torch.Tensor:
+        if poses.shape[0] <= TWIN_ROWS:
+            return twin(poses, prep, nonfinite)
+        return torch.cat([twin(poses[lo : lo + TWIN_ROWS], prep, nonfinite)
+                          for lo in range(0, poses.shape[0], TWIN_ROWS)])
+    return blocked
+
+
+@_in_blocks
 def check_poses_reference(poses: torch.Tensor, prep: MegaKernelPrep,
                           nonfinite: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch twin of the CUDA kernel: [B,16] pose rows -> [B] uint8
@@ -521,6 +538,7 @@ def check_poses_reference(poses: torch.Tensor, prep: MegaKernelPrep,
     return out
 
 
+@_in_blocks
 def check_poses_stats_reference(poses: torch.Tensor, prep: MegaKernelPrep,
                                 nonfinite: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch twin of the counter kernel: [B,16] pose rows -> [B,
@@ -748,9 +766,6 @@ class MegaKernelChecker:
     throughput path (one verdict byte per configuration); ``check`` (over ``broad_block`` and
     ``check_block``) is the stats path with the kernel's counter columns."""
 
-    # Configurations per kernel launch in ``check_valid``.
-    STREAM_CHUNK = 16384
-
     def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
                  morton: bool = True):
         self.device = resolve_device(device)
@@ -795,21 +810,22 @@ class MegaKernelChecker:
         bit 1 coplanar, bit 2 uncertain; see ``check_poses_reference``).
 
         Uploads the batch once, as it stands, poses it on the device, checks
-        it in chunks of ``chunk`` rows (the last may be short) and fetches the
-        verdict bytes once. Non-finite rows get the byte 0: invalid, nothing
-        flagged (`megakernel.py:1341-1352`); the kernel answers them itself
-        and counts them (``counters``), so no host pass tests the rows.
+        it in one K1 launch (in launches of ``chunk`` rows, the last maybe
+        short, when ``chunk`` is given) and fetches the verdict bytes once. Non-finite rows get the
+        byte 0: invalid, nothing flagged (`megakernel.py:1341-1352`); the
+        kernel answers them itself and counts them (``counters``), so no host
+        pass tests the rows.
 
         ``presort`` (default off, as in the JAX package, so the main path is
-        one kernel launch per chunk) first runs ``broad_block`` (the kernel's
-        own stage 1, bit for bit) and orders broad-phase hits first; chunks
-        past the hits are never launched and get the byte 1 (a broad miss is
-        valid and flags nothing). It costs one scalar ``.item()`` sync.
+        one kernel launch) first runs ``broad_block`` (the kernel's own stage
+        1, bit for bit), orders broad-phase hits first and launches K1 on the
+        hits alone; the rest get the byte 1 (a broad miss is valid and flags
+        nothing). It costs one scalar ``.item()`` sync.
         Verdicts are identical either way (`megakernel.py:1361-1408`).
 
         Under a profiler each step is a span (`profiling.timers.span`):
         ``rc.check.validate`` (the array's dtype and shape), ``.upload``,
-        ``.pose`` (K2), ``.kernel`` (K1's chunks, or the presorted path) and
+        ``.pose`` (K2), ``.kernel`` (K1, or the presorted path) and
         ``.fetch``."""
         checked = self._check_on_device(confs, chunk, presort)
         if checked is None:
@@ -827,7 +843,6 @@ class MegaKernelChecker:
             n = confs.shape[0]
         if n == 0:
             return None
-        chunk = chunk or self.STREAM_CHUNK
         with span("rc.check.upload"):
             dev_confs = torch.from_numpy(confs).to(self.device)
         with span("rc.check.pose"):
@@ -836,10 +851,16 @@ class MegaKernelChecker:
             if presort:
                 packed = self._check_presorted(poses, chunk)
             else:
-                packed = torch.cat([check_poses(poses[lo : lo + chunk], self.tables,
-                                                self._nonfinite)
-                                    for lo in range(0, n, chunk)])
+                packed = self._launches(poses, chunk)
         return dev_confs, packed
+
+    def _launches(self, poses: torch.Tensor, chunk: int | None) -> torch.Tensor:
+        """K1 (or its twin) over ``poses``: one launch, or launches of
+        ``chunk`` rows when given."""
+        step = chunk or poses.shape[0]
+        outs = [check_poses(poses[lo : lo + step], self.tables, self._nonfinite)
+                for lo in range(0, poses.shape[0], step)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def check_valid(self, confs: np.ndarray, chunk: int | None = None,
                     presort: bool | None = None):
@@ -847,12 +868,13 @@ class MegaKernelChecker:
         and 1 of ``check_packed``."""
         return valid_coplanar(self.check_packed(confs, chunk=chunk, presort=presort))
 
-    def _check_presorted(self, poses: torch.Tensor, chunk: int) -> torch.Tensor:
+    def _check_presorted(self, poses: torch.Tensor, chunk: int | None) -> torch.Tensor:
         """Packed bytes of ``poses`` checked hits-first: the JAX package's
         `_broad_sort` (a stable partition by cumsums and one scatter) and
-        `_unpermute` (`megakernel.py:1176-1206`) as torch ops. Non-finite rows
-        count as hits (the broad phase reads a NaN box as a miss), so that
-        the kernel answers them with the byte 0."""
+        `_unpermute` (`megakernel.py:1176-1206`) as torch ops, K1 launched
+        on the hits alone (``_launches``). Non-finite rows count as hits (the
+        broad phase reads a NaN box as a miss), so that the kernel answers
+        them with the byte 0."""
         n = poses.shape[0]
         hits = mesh_broad(poses, self.tables) | _nonfinite_rows(poses, None)
         n_hit = torch.cumsum(hits, 0)
@@ -861,13 +883,10 @@ class MegaKernelChecker:
         src = torch.empty_like(dest)
         src[dest] = torch.arange(n, device=poses.device)
         k = int(n_hit[-1].item())  # the one sync: how many rows need the kernel
-        ordered = poses[src]
-        outs = [check_poses(ordered[lo : lo + chunk], self.tables, self._nonfinite)
-                for lo in range(0, k, chunk)]
-        done = min(n, len(outs) * chunk)
-        if done < n:
-            outs.append(torch.ones((n - done,), dtype=torch.uint8, device=poses.device))
-        return torch.cat(outs)[dest]
+        packed = torch.ones((n,), dtype=torch.uint8, device=poses.device)
+        if k:
+            packed[:k] = self._launches(poses[src[:k]], chunk)
+        return packed[dest]
 
     def check_valid_resolved(self, confs: np.ndarray,
                              chunk: int | None = None) -> np.ndarray:

@@ -111,7 +111,7 @@ class ShardedChecker:
     ``check_valid_distributed`` lets each rank pass only its own rows."""
 
     # Configurations per kernel launch on each rank in ``check_valid``.
-    STREAM_CHUNK_PER_DEVICE = MegaKernelChecker.STREAM_CHUNK
+    STREAM_CHUNK_PER_DEVICE = 16384
 
     def __init__(self, robot: Mesh, obstacle: Mesh, mesh: ProcessMesh | None = None,
                  morton: bool = True, device: torch.device | str = "cuda"):

@@ -24,8 +24,9 @@ Legs, in bench.py's order and with its protocol (`bench.py:81-233`):
     may exceed the BVH's;
   * easy: easy100k in a fresh process (``--leg easy``), warm-up and best of
     5, only when that file exists; the presort leg below on its rows too;
-  * device: K1 alone over the dataset's pose rows in chunks of
-    `STREAM_CHUNK`, by CUDA events;
+  * device: K1 alone over the dataset's pose rows in one launch, as
+    `check_valid` launches it, and in launches of CHUNK (16,384) rows, the
+    launch size before one launch a call, by CUDA events;
   * presort: `check_valid` with presort off and on, best of 5 each; the
     verdicts must be identical (bit 0 on every row and the byte on valid
     rows; a colliding row's bits 1-2 follow the kernel's run-time order).
@@ -63,6 +64,7 @@ LATENCY_BUDGET_MS = 50.0
 LATENCY_BATCH = 2048
 LATENCY_CALLS = 101
 RUNS = 5  # timed runs of each throughput leg; the best counts
+CHUNK = 16384  # rows per launch of the device leg's chunked side
 BASELINE_CACHE = REPO / "build" / "torch_bench_baseline.json"
 
 
@@ -193,23 +195,24 @@ def native_clearance_leg(robot_verts, obstacle, confs: np.ndarray,
 
 
 def device_leg(checker, confs: np.ndarray, reps: int = 20) -> dict:
-    """K1 alone over the pose rows of ``confs``, in chunks of STREAM_CHUNK as
-    `check_valid` launches them: device ms by CUDA events, mean of ``reps``
+    """K1 alone over the pose rows of ``confs``, in one launch as
+    `check_valid` launches it, and in launches of CHUNK rows
+    (``device_chunked_ms``): device ms by CUDA events, mean of ``reps``
     passes. Needs a CUDA device."""
     from robocheck_tpu_torch.profiling.timers import event_ms
 
     if checker.device.type != "cuda":
         raise RuntimeError("the device leg needs a CUDA device")
     poses = mk.poses_from_confs(torch.from_numpy(confs).to(checker.device))
-    chunk, n = checker.STREAM_CHUNK, len(confs)
+    n = len(confs)
 
-    def run():
-        for lo in range(0, n, chunk):
-            mk.check_poses_cuda(poses[lo : lo + chunk], checker.tables)
+    def chunked():
+        for lo in range(0, n, CHUNK):
+            mk.check_poses_cuda(poses[lo : lo + CHUNK], checker.tables)
 
-    ms = event_ms(run, reps)
+    ms = event_ms(lambda: mk.check_poses_cuda(poses, checker.tables), reps)
     return {"device_ms": ms, "device_us_per_config": ms * 1e3 / n,
-            "device_checks_per_s": n / (ms * 1e-3)}
+            "device_checks_per_s": n / (ms * 1e-3), "device_chunked_ms": event_ms(chunked, reps)}
 
 
 def presort_leg(checker, confs: np.ndarray, runs: int = RUNS) -> dict:

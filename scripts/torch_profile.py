@@ -10,8 +10,8 @@ The port's counterpart of `scripts/profile_kernel.py` (its `--dataset`,
 key of `io.assets.DATASET_FILES`; hard100k and easy100k are written by
 `scripts/torch_make_datasets.py`) it prints:
   * layers: the self time of each of the program's spans (`rc.check` and
-    its steps: validate, upload, pose: K2's one launch, kernel: K1 a chunk
-    of `STREAM_CHUNK` rows, fetch, resolve; `profiling.timers.span`) in each
+    its steps: validate, upload, pose: K2's one launch, kernel: K1's one
+    launch, fetch, resolve; `profiling.timers.span`) in each
     of `--runs` unfenced `check_valid_resolved` calls under
     `torch.profiler`, after a warm-up: a span's time less its child spans';
     median, min and max over the calls;
@@ -23,8 +23,8 @@ key of `io.assets.DATASET_FILES`; hard100k and easy100k are written by
   * batch: the kernel's CUDA-event time on the first dataset's first n rows
     for growing n;
   * chunk: the kernel's CUDA-event time on all of each dataset's rows in one
-    launch, and in launches of `STREAM_CHUNK` rows as `check_packed` makes
-    them;
+    launch, as `check_packed` makes it, and in launches of CHUNK (16,384)
+    rows, the launch size `check_packed` used before one launch a call;
   * fma: the kernel built with -fmad=true against the shipped -fmad=false
     build on the same poses: verdict bytes that differ, and the time of each
     (means of `--runs` launches, in the order false, true, true, false).
@@ -55,7 +55,8 @@ from robocheck_tpu_torch.kernels import megakernel as mk  # noqa: E402
 from robocheck_tpu_torch.profiling import timers  # noqa: E402
 from robocheck_tpu_torch.profiling.timers import card_line, event_ms  # noqa: E402
 
-
+# Rows per launch of the `[chunk]` line's chunked side.
+CHUNK = 16384
 
 def spread(xs) -> str:
     return f"median {statistics.median(xs)} (min {min(xs)}, max {max(xs)})"
@@ -162,17 +163,16 @@ def main() -> None:
     report["chunked_ms"] = {}
     for key in keys:
         poses = mk.poses_from_confs(torch.from_numpy(data[key]).to(device))
-        chunk = checker.STREAM_CHUNK
 
         def chunked():
-            for lo in range(0, len(poses), chunk):
-                mk.check_poses_cuda(poses[lo : lo + chunk], checker.tables)
+            for lo in range(0, len(poses), CHUNK):
+                mk.check_poses_cuda(poses[lo : lo + CHUNK], checker.tables)
 
         one = event_ms(lambda: mk.check_poses_cuda(poses, checker.tables), args.runs)
         many = event_ms(chunked, args.runs)
         report["chunked_ms"][key] = {"one_launch": one, "chunks": many}
         print(f"[chunk] [{card}] kernel on all of {key} {list(poses.shape)}: one launch {one} "
-              f"ms, {-(-len(poses) // chunk)} launches of {chunk} rows {many} ms")
+              f"ms, {-(-len(poses) // CHUNK)} launches of {CHUNK} rows {many} ms")
 
     fma = [f.replace("-fmad=false", "-fmad=true") for f in _build.NVCC_FLAGS]
     with nvcc_flags(fma):

@@ -439,6 +439,94 @@ def test_check_packed_bits_and_nonfinite_rows(sphere_checker):
     assert not (packed >> 3).any()
 
 
+def _recorded_launches(monkeypatch) -> list:
+    """Stub ``megakernel.check_poses`` with a recorder that answers every
+    row with the byte 1; returns the list of each call's row count."""
+    calls = []
+
+    def record(poses, prep, nonfinite=None):
+        calls.append(poses.shape[0])
+        return torch.ones((poses.shape[0],), dtype=torch.uint8, device=poses.device)
+
+    monkeypatch.setattr(mk, "check_poses", record)
+    return calls
+
+
+def _launch_rows(n: int, step: int) -> list:
+    return [min(step, n - lo) for lo in range(0, n, step)]
+
+
+def _sphere_rows(n: int) -> np.ndarray:
+    """``n`` sphere-scene rows from overlap to far away (seed 24)."""
+    rng = np.random.default_rng(24)
+    confs = np.zeros((n, 6), np.float32)
+    confs[:, 0] = rng.uniform(0.0, 6.0, n)
+    confs[:, 3:6] = rng.uniform(-np.pi, np.pi, (n, 3))
+    return confs
+
+
+@pytest.mark.parametrize("chunk", [None, 16384, 7000, 40000, 1 << 20])
+def test_check_packed_launches_k1_once_unless_a_chunk_is_given(monkeypatch, sphere_checker,
+                                                               chunk):
+    """40,000 rows are one K1 call over all of them; ``chunk=k`` makes
+    ceil(N / k) calls of k rows, the last one short."""
+    confs = _sphere_rows(40_000)
+    calls = _recorded_launches(monkeypatch)
+    assert (sphere_checker.check_packed(confs, chunk=chunk) == 1).all()
+    assert calls == _launch_rows(len(confs), chunk or len(confs))
+
+
+@pytest.mark.parametrize("chunk", [None, 1000])
+def test_presort_launches_k1_on_the_hits_alone(monkeypatch, sphere_checker, chunk):
+    """``presort=True`` makes one K1 call over the broad-phase hits (or
+    ceil(hits / k) with ``chunk=k``) and answers the misses with the byte 1."""
+    confs = _sphere_rows(40_000)
+    confs[5, 2] = np.nan  # a non-finite row counts as a hit
+    hits = int(sphere_checker.broad_block(confs).sum()) + 1
+    assert 1000 < hits < len(confs) - 1000
+    calls = _recorded_launches(monkeypatch)
+    assert (sphere_checker.check_packed(confs, chunk=chunk, presort=True) == 1).all()
+    assert calls == _launch_rows(hits, chunk or hits)
+
+
+def test_one_launch_and_chunks_give_equal_bytes(cpu_checker, hard10k):
+    """On the twin, 320 alpha rows (one non-finite, at a boundary of the
+    chunks) give the same bytes in one launch as in launches of 64 rows,
+    and count the non-finite row once each."""
+    confs = hard10k.confs[:320].copy()
+    confs[64, 4] = np.inf
+    before = cpu_checker.counters()["nonfinite_rows"]
+    one = cpu_checker.check_packed(confs)
+    split = cpu_checker.check_packed(confs, chunk=64)
+    np.testing.assert_array_equal(one, split)
+    assert one[64] == 0 and 0 < (one & 1).sum() < len(confs) - 1
+    assert cpu_checker.counters()["nonfinite_rows"] == before + 2
+
+
+@pytest.mark.parametrize("twin", ["check_poses_reference", "check_poses_stats_reference"])
+def test_twins_pose_their_rows_in_blocks(monkeypatch, cpu_checker, hard10k, twin):
+    """A twin poses and tests ``TWIN_ROWS`` rows at a time, so that its
+    memory does not grow with the batch: 100 alpha rows (one non-finite, in
+    the second block) posed in blocks of 40 give the rows of one block,
+    count the non-finite row once each, and ``check_packed`` of the batch
+    gives the bytes of ``chunk=40``."""
+    confs = hard10k.confs[:100].copy()
+    confs[60, 2] = np.nan
+    poses = mk.poses_from_confs(torch.from_numpy(confs))
+    fn, count = getattr(mk, twin), torch.zeros((), dtype=torch.int64)
+    whole = fn(poses, cpu_checker.tables, count)
+    posed, seen = mk._posed_robot, []
+    monkeypatch.setattr(mk, "_posed_robot", lambda p, base: seen.append(len(p)) or posed(p, base))
+    monkeypatch.setattr(mk, "TWIN_ROWS", 40)
+    blocks = fn(poses, cpu_checker.tables, count)
+    assert seen == [40, 40, 20]
+    assert torch.equal(whole, blocks) and int(count) == 2
+    if twin == "check_poses_reference":
+        assert 0 < (whole & 1).sum() < len(confs) - 1
+        np.testing.assert_array_equal(cpu_checker.check_packed(confs), whole.numpy())
+        np.testing.assert_array_equal(cpu_checker.check_packed(confs, chunk=40), whole.numpy())
+
+
 # Rows of a 19-row batch checked in chunks of 8 that get a non-finite value:
 # the first and last rows of chunks, and both sides of each chunk boundary.
 _PLANTED = [0, 7, 8, 15, 16, 18]
