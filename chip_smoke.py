@@ -104,7 +104,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      bytes are identical with `compact` on and off, and, on the first 512
      rows, equal to one unchunked twin (`check_poses_reference`) on the card
      (valid on every row, bits 1 and 2 on valid rows); chunk pairs, launches
-     and host-clock times printed;
+     and host-clock times printed; then the alpha 1.0 robot against
+     `subdivide_mesh(obstacle, 3)` (64,512 triangles) through
+     `make_checker(..., device="cuda")`: 11 chunk pairs, one K1 launch a pair,
+     the first 512 of 8,192 hard rows equal to one unchunked twin by the same
+     rule, `compact` on equal to off, and `counters()` moved by the phase's
+     own count of chunk pairs, rows and flagged rows;
   8. the planners on the card, alpha-1.0 pair, `alpha.query`: RRT-Connect
      (the demo's config: 16 iterations of 256 samples, step 0.35 x the
      robot's smallest extent, 48 checks per edge, surface bias 0.6, seed 0)
@@ -568,7 +573,62 @@ def phase7(lib, card: str, device) -> tuple[int, int, list]:
                                mk.check_poses_reference(poses, prep))
         max_err = max(max_err, err)
         made.append((name, ck, confs))
-    return launches, max_err, made
+    n_launch, err = phase7_alpha_sub3(device)
+    return launches + n_launch, max(max_err, err), made
+
+
+def phase7_alpha_sub3(device) -> tuple[int, int]:
+    """The benchmark's sub3 check configuration on the card: the alpha 1.0
+    robot against `subdivide_mesh(obstacle, 3)` (64,512 triangles) through
+    `make_checker`'s 11 chunk pairs; the bytes of the first 512 of 8,192
+    hard rows held to one unchunked twin and ``counters()`` to the phase's
+    own count of chunk pairs and rows; ``compact`` on must keep every byte.
+    Returns (K1 launches of the resolved call, max abs err against the
+    twin)."""
+    from robocheck_tpu_torch import load_obj
+    from robocheck_tpu_torch.io import assets
+    from robocheck_tpu_torch.io.datagen import alpha_bot_configurations
+    from robocheck_tpu_torch.kernels import chunked
+    from robocheck_tpu_torch.kernels import megakernel as mk
+    from robocheck_tpu_torch.planner.ccd import subdivide_mesh
+
+    robot = load_obj(assets.alpha_robot_path())
+    obstacle = subdivide_mesh(load_obj(assets.alpha_obstacle_path()), 3)
+    name = f"alpha {robot.num_triangles} x subdivide_mesh(obstacle, 3) {obstacle.num_triangles}"
+    ck = chunked.make_checker(robot, obstacle, device="cuda")
+    require(isinstance(ck, chunked.ChunkedMegaKernelChecker) and ck.num_chunk_pairs == 11,
+            f"{name}: make_checker gave {type(ck).__name__}, not 11 chunk pairs")
+    confs = alpha_bot_configurations(robot, 8192, hard=True, seed=2718281828)
+    before = ck.counters()
+    mk.check_poses_cuda.launches = 0
+    t0 = time.perf_counter()
+    resolved = ck.check_valid_resolved(confs)
+    t_main = time.perf_counter() - t0
+    n_launch = mk.check_poses_cuda.launches
+    packed = ck.check_packed(confs)
+    after = ck.counters()
+    delta = {k: after[k] - before[k] for k in after}
+    flagged = ((packed & 1) == 1) & ((packed & 6) != 0)
+    print(f"  {name}: {ck.num_chunk_pairs} chunk pairs, {int(resolved.sum())}/{len(confs)} "
+          f"valid, check_valid_resolved {t_main} s with {n_launch} K1 launches; counters "
+          f"moved by {delta}; {int(flagged.sum())} rows to float64 resolution")
+    require(n_launch == ck.num_chunk_pairs, f"{name}: {n_launch} K1 launches, not one a pair")
+    want = {"pair_launches": 2 * ck.num_chunk_pairs,
+            "pair_rows": 2 * ck.num_chunk_pairs * len(confs), "nonfinite_rows": 0,
+            "resolved_rows": int(flagged.sum())}
+    require(all(delta[k] == v for k, v in want.items()),
+            f"{name}: counters moved by {delta}, the phase counts {want}")
+    require(not (resolved & ~(packed & 1).astype(bool)).any(),
+            f"{name}: a row K1 found colliding resolved valid")
+    compact = ck.check_packed(confs, compact=True)
+    print(f"  {name}: compact=True bytes identical to compact=False: "
+          f"{bool(np.array_equal(compact, packed))}")
+    require(np.array_equal(compact, packed), f"{name}: compact changes a byte")
+    prep = mk.MegaKernelPrep.build(robot, obstacle).to(device)
+    poses = mk.poses_from_confs(torch.from_numpy(confs[:512]).to(device))
+    err, *_ = compare_bits(f"{name}[:512], chunked kernel vs one unchunked twin",
+                           torch.from_numpy(packed[:512]), mk.check_poses_reference(poses, prep))
+    return n_launch, err
 
 
 class RecordingChecker:

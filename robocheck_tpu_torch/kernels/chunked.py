@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.types import Mesh, validate_confs
+from ..profiling.timers import span
 from ..utils.morton import morton_argsort
 from .megakernel import (MegaKernelChecker, SharedMemoryBudgetError, _nonfinite_rows,
                          boxes_overlap, poses_from_confs, robot_bounds, valid_coplanar)
@@ -70,7 +71,15 @@ class ChunkedMegaKernelChecker:
     chunk pair's kernel would have ended at its broad phase.
 
     With ``mesh`` each chunk pair runs through a `ShardedChecker` over its
-    ranks."""
+    ranks.
+
+    Under a profiler ``check_valid_resolved`` is the span ``rc.chunked``,
+    holding ``rc.chunked.broad`` (``_broad_multi``, with ``compact`` only),
+    ``rc.chunked.pairs`` (the chunk pairs' calls, each with its own
+    ``rc.check.*`` steps, and the host combine), ``rc.chunked.resolve`` (the
+    upload of the bytes and the batch, and the resolution's issue) and
+    ``rc.chunked.fetch``; ``check_packed`` alone emits its two steps without
+    the root."""
 
     def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
                  morton: bool = True, max_rob_tris: int = MAX_ROB_TRIS,
@@ -92,10 +101,31 @@ class ChunkedMegaKernelChecker:
         self.checkers = [build(r, o) for r in rob_chunks for o in obs_chunks]
         self.device = self.checkers[0].device
         self.resolve_tables = ResolveTables.build(robot, obstacle, self.device)
+        # Chunk pairs run and the rows handed to them, on the host; rows the
+        # resolution re-checked in float64 and those it found colliding,
+        # counted on the device. Read only by ``counters``.
+        self._pair_launches = 0
+        self._pair_rows = 0
+        self._resolved = torch.zeros((2,), dtype=torch.int64, device=self.device)
 
     @property
     def num_chunk_pairs(self) -> int:
         return len(self.checkers)
+
+    def counters(self) -> dict:
+        """Counts since the checker was made: {"pair_launches": chunk pairs
+        run (one call of a chunk pair's checker each), "pair_rows": the rows
+        handed to them, summed over the chunk pairs, "nonfinite_rows": the
+        chunk pairs' K1 counts of non-finite rows, summed,
+        "resolved_rows" / "resolved_colliding": valid rows flagged coplanar
+        or uncertain that ``check_valid_resolved`` re-checked in float64,
+        and those of them found colliding}. One device read; no check call
+        makes it."""
+        nonfinite = [getattr(ck, "_checker", ck)._nonfinite.view(1) for ck in self.checkers]
+        *each, rows, colliding = torch.cat(nonfinite + [self._resolved]).tolist()
+        return {"pair_launches": self._pair_launches, "pair_rows": self._pair_rows,
+                "nonfinite_rows": sum(each), "resolved_rows": rows,
+                "resolved_colliding": colliding}
 
     def check_packed(self, confs: np.ndarray, chunk: int | None = None,
                      compact: bool = False) -> np.ndarray:
@@ -106,17 +136,25 @@ class ChunkedMegaKernelChecker:
         any-hit exit, whose order the kernel's warps settle at run time;
         nothing reads them there.) Non-finite rows get the byte 0."""
         confs = validate_confs(confs)
-        valid = np.ones((confs.shape[0],), dtype=np.uint8)
+        n = confs.shape[0]
+        valid = np.ones((n,), dtype=np.uint8)
         flags = np.zeros_like(valid)
-        hits = self._broad_multi(confs) if compact else None
-        for k, ck in enumerate(self.checkers):
-            idx = np.flatnonzero(hits[k]) if compact else slice(None)
-            if compact and not idx.size:
-                continue
-            packed = ck.check_packed(confs[idx], chunk=chunk)
-            valid[idx] &= packed & 1
-            flags[idx] |= packed & 6
-        return valid | flags * valid
+        hits = None
+        if compact:
+            with span("rc.chunked.broad"):
+                hits = self._broad_multi(confs)
+        with span("rc.chunked.pairs"):
+            for k, ck in enumerate(self.checkers):
+                idx = np.flatnonzero(hits[k]) if compact else slice(None)
+                rows = idx.size if compact else n
+                if not rows:
+                    continue
+                packed = ck.check_packed(confs[idx], chunk=chunk)
+                self._pair_launches += 1
+                self._pair_rows += rows
+                valid[idx] &= packed & 1
+                flags[idx] |= packed & 6
+            return valid | flags * valid
 
     def check_valid(self, confs: np.ndarray, chunk: int | None = None,
                     compact: bool = False):
@@ -128,12 +166,17 @@ class ChunkedMegaKernelChecker:
                              compact: bool = False) -> np.ndarray:
         """``check_packed`` + the float64 re-check on the device, against the
         whole (unchunked) mesh pair, of the valid rows that some chunk pair
-        flagged coplanar (bit 1) or uncertain (bit 2). Returns valid[N] bool."""
-        confs = validate_confs(confs)
-        packed = self.check_packed(confs, chunk=chunk, compact=compact)
-        verdicts = resolve_rows(torch.from_numpy(packed).to(self.device),
-                                torch.from_numpy(confs).to(self.device), self.resolve_tables)
-        return verdicts.cpu().numpy().view(bool)
+        flagged coplanar (bit 1) or uncertain (bit 2), counted in
+        ``counters``. Returns valid[N] bool."""
+        with span("rc.chunked"):
+            confs = validate_confs(confs)
+            packed = self.check_packed(confs, chunk=chunk, compact=compact)
+            with span("rc.chunked.resolve"):
+                verdicts = resolve_rows(torch.from_numpy(packed).to(self.device),
+                                        torch.from_numpy(confs).to(self.device),
+                                        self.resolve_tables, self._resolved)
+            with span("rc.chunked.fetch"):
+                return verdicts.cpu().numpy().view(bool)
 
     def _broad_multi(self, confs: np.ndarray) -> np.ndarray:
         """[num_chunk_pairs, N] bool: each chunk pair's broad phase, bit for

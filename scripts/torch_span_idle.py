@@ -33,7 +33,8 @@ sys.path[:0] = [str(REPO / "benchmark"), str(REPO)]
 from harness import cli, spans, spec, trace  # noqa: E402
 
 GROUPS = {"io": spans.CHECK_IO, "resolve": spans.CHECK_RESOLVE, "launch": spans.CHECK_LAUNCH,
-          "bounds": spans.CLEARANCE_BOUNDS, "exact": spans.CLEARANCE_EXACT}
+          "bounds": spans.CLEARANCE_BOUNDS, "exact": spans.CLEARANCE_EXACT,
+          "pairs": ("rc.chunked.pairs",), "chunked_resolve": ("rc.chunked.resolve",)}
 
 
 def off_cost_us(n: int = 200_000) -> dict:
@@ -63,14 +64,14 @@ def off_cost_us(n: int = 200_000) -> dict:
 
 def set_spans(on: bool) -> None:
     """Spans as the program has them, or the no-op in their place."""
-    from robocheck_tpu_torch.kernels import megakernel
+    from robocheck_tpu_torch.kernels import chunked, megakernel
     from robocheck_tpu_torch.planner import clearance
     from robocheck_tpu_torch.profiling import timers
 
     def off(name):
         return timers._OFF
 
-    megakernel.span = clearance.span = timers.span if on else off
+    megakernel.span = clearance.span = chunked.span = timers.span if on else off
 
 
 def one_slice(session, seconds: float, on: bool) -> dict:

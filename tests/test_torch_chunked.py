@@ -23,9 +23,12 @@ from robocheck_tpu.models.shapes import triangle_soup as j_triangle_soup
 from robocheck_tpu.oracle import cpu_oracle as j_oracle
 from robocheck_tpu_torch.core.types import Mesh
 from robocheck_tpu_torch.io import assets
+from robocheck_tpu_torch.io.datagen import alpha_bot_configurations
 from robocheck_tpu_torch.io.obj import load_obj
 from robocheck_tpu_torch.kernels import chunked
 from robocheck_tpu_torch.kernels import megakernel as mk
+from robocheck_tpu_torch.kernels import resolve as rs
+from robocheck_tpu_torch.planner.ccd import subdivide_mesh
 
 # Pose entries (tests/test_torch_transform.py): torch and XLA round sin/cos
 # to within an ulp of each other.
@@ -218,6 +221,51 @@ def test_make_checker_dispatch():
     rows[0, :3] = 10.0  # outside the obstacle's box
     packed = ck.check_packed(rows, compact=True)
     assert packed[0] == 1
+
+
+def test_make_checker_routes_the_alpha_obstacle_at_three_rounds_to_eleven_chunk_pairs():
+    """The benchmark's sub3 check configuration: the alpha robot against
+    the obstacle cut to 64,512 triangles goes through 1 robot chunk x 11
+    obstacle chunks, each within one block's shared memory (built only)."""
+    robot = load_obj(assets.alpha_robot_path())
+    obstacle = subdivide_mesh(load_obj(assets.alpha_obstacle_path()), 3)
+    assert obstacle.num_triangles == 64512
+    ck = chunked.make_checker(robot, obstacle, device="cpu")
+    assert isinstance(ck, chunked.ChunkedMegaKernelChecker)
+    assert ck.num_chunk_pairs == 11 and ck._n_obs_chunks == 11
+    assert sum(c.obstacle.num_triangles for c in ck.checkers) == 64512
+    for c in ck.checkers:
+        assert c.robot.num_triangles == robot.num_triangles
+        tr, to = c.prep.rob_base.shape[1], c.prep.obs.shape[0]
+        assert mk.smem_bytes(tr, to // mk.GROUP) <= mk.SMEM_LIMIT
+
+
+def test_chunked_alpha_pair_equals_the_unchunked_twin_and_counts_its_pairs():
+    """The alpha robot against the obstacle at one round (4,032 triangles)
+    in 4 obstacle chunks of 1,008: the resolved verdicts of 64 hard rows
+    equal the unchunked twin's row for row (K1's twin over the whole pair,
+    then the float64 resolution against it), and ``counters`` advances by 4
+    chunk pairs, 4 x 64 rows and the resolved rows."""
+    robot = load_obj(assets.alpha_robot_path())
+    obstacle = subdivide_mesh(load_obj(assets.alpha_obstacle_path()), 1)
+    ck = chunked.ChunkedMegaKernelChecker(robot, obstacle, device="cpu", max_obs_tris=1024)
+    assert ck.num_chunk_pairs == 4
+    confs = alpha_bot_configurations(robot, 64, hard=True, seed=2718281828)
+    before = ck.counters()
+    got = ck.check_valid_resolved(confs)
+    after = ck.counters()
+    prep = mk.MegaKernelPrep.build(robot, obstacle).to("cpu")
+    packed = mk.check_poses_reference(mk.poses_from_confs(torch.from_numpy(confs)), prep)
+    counts = torch.zeros((2,), dtype=torch.int64)
+    want = rs.resolve_rows_reference(packed, torch.from_numpy(confs),
+                                     rs.ResolveTables.build(robot, obstacle, "cpu"), counts)
+    np.testing.assert_array_equal(got, want.numpy().view(bool))
+    assert got.any() and not got.all()
+    # Valid rows keep the whole pair's flags, so the same rows resolve.
+    np.testing.assert_array_equal(ck.check_packed(confs)[got], packed.numpy()[got])
+    delta = {k: after[k] - before[k] for k in after}
+    assert delta == {"pair_launches": 4, "pair_rows": 4 * 64, "nonfinite_rows": 0,
+                     "resolved_rows": int(counts[0]), "resolved_colliding": int(counts[1])}
 
 
 def test_smem_bytes_pinned():

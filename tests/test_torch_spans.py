@@ -20,6 +20,7 @@ from robocheck_tpu_torch.core.types import Mesh
 from robocheck_tpu_torch.io import assets
 from robocheck_tpu_torch.io.datagen import alpha_bot_configurations
 from robocheck_tpu_torch.io.obj import load_obj
+from robocheck_tpu_torch.kernels.chunked import ChunkedMegaKernelChecker
 from robocheck_tpu_torch.kernels.megakernel import MegaKernelChecker
 from robocheck_tpu_torch.models.shapes import box, icosphere
 from robocheck_tpu_torch.planner.clearance import BLOCK, ClearanceEngine
@@ -124,6 +125,35 @@ def test_resolution_runs_under_its_span_before_the_fetch():
     assert len(inside) == 3
     assert all(pose_lo <= a and b <= pose_hi for a, b in cos if (a, b) not in inside)
     assert hi <= fetch_lo
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_chunked_check_emits_its_steps_in_order_with_each_pairs_steps_inside(compact):
+    """A chunked ``check_valid_resolved`` is the root ``rc.chunked``:
+    ``rc.chunked.broad`` (with ``compact`` only), ``rc.chunked.pairs``
+    holding each chunk pair's ``check_packed`` steps, ``rc.chunked.resolve``
+    and ``rc.chunked.fetch``; ``check_packed`` alone has no root."""
+    ck = ChunkedMegaKernelChecker(icosphere(1, radius=0.3, name="r"), box(name="o"),
+                                  device="cpu", max_obs_tris=4)
+    assert ck.num_chunk_pairs == 3
+    confs = _confs(40)
+    confs[::4, 0] += 5.0  # rows that miss every chunk's box
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = ck.check_valid_resolved(confs, compact=compact)
+    pairs_run = ck.counters()["pair_launches"]
+    assert pairs_run == ck.num_chunk_pairs or (compact and 0 < pairs_run)
+    np.testing.assert_array_equal(got, ck.check_valid_resolved(confs))
+    [(root, children)] = _tree(prof)
+    assert root == "rc.chunked"
+    steps = ["rc.chunked.pairs", "rc.chunked.resolve", "rc.chunked.fetch"]
+    assert _names(children) == (["rc.chunked.broad"] if compact else []) + steps
+    pairs = children[-3][1]
+    assert _names(pairs) == PACKED_STEPS * pairs_run
+    assert all(not grand for _, grand in pairs)
+    assert all(not grand for name, grand in children if name != "rc.chunked.pairs")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ck.check_packed(confs)
+    assert _names(_tree(prof)) == ["rc.chunked.pairs"]
 
 
 def _wave_engine():
