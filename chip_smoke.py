@@ -108,8 +108,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
      `subdivide_mesh(obstacle, 3)` (64,512 triangles) through
      `make_checker(..., device="cuda")`: 11 chunk pairs, one K1 launch a pair,
      the first 512 of 8,192 hard rows equal to one unchunked twin by the same
-     rule, `compact` on equal to off, and `counters()` moved by the phase's
-     own count of chunk pairs, rows and flagged rows;
+     rule, `compact` on equal to off byte for byte, and `counters()` moved by
+     the phase's own count of chunk pairs, rows, uploads (one a call by
+     default) and flagged rows; `check_valid_resolved`'s host-clock time and
+     uploads a call with `compact` off and on, in turns;
   8. the planners on the card, alpha-1.0 pair, `alpha.query`: RRT-Connect
      (the demo's config: 16 iterations of 256 samples, step 0.35 x the
      robot's smallest extent, 48 checks per edge, surface bias 0.6, seed 0)
@@ -582,9 +584,11 @@ def phase7_alpha_sub3(device) -> tuple[int, int]:
     robot against `subdivide_mesh(obstacle, 3)` (64,512 triangles) through
     `make_checker`'s 11 chunk pairs; the bytes of the first 512 of 8,192
     hard rows held to one unchunked twin and ``counters()`` to the phase's
-    own count of chunk pairs and rows; ``compact`` on must keep every byte.
-    Returns (K1 launches of the resolved call, max abs err against the
-    twin)."""
+    own count of chunk pairs, rows and uploads; ``compact`` on must keep
+    every byte. By default a call uploads the batch once and runs every
+    chunk pair's K1 on its pose rows; the call's time and uploads with
+    ``compact`` off and on are printed, in turns. Returns (K1 launches of
+    the resolved call, max abs err against the twin)."""
     from robocheck_tpu_torch import load_obj
     from robocheck_tpu_torch.io import assets
     from robocheck_tpu_torch.io.datagen import alpha_bot_configurations
@@ -614,8 +618,8 @@ def phase7_alpha_sub3(device) -> tuple[int, int]:
           f"moved by {delta}; {int(flagged.sum())} rows to float64 resolution")
     require(n_launch == ck.num_chunk_pairs, f"{name}: {n_launch} K1 launches, not one a pair")
     want = {"pair_launches": 2 * ck.num_chunk_pairs,
-            "pair_rows": 2 * ck.num_chunk_pairs * len(confs), "nonfinite_rows": 0,
-            "resolved_rows": int(flagged.sum())}
+            "pair_rows": 2 * ck.num_chunk_pairs * len(confs), "batch_uploads": 2,
+            "nonfinite_rows": 0, "resolved_rows": int(flagged.sum())}
     require(all(delta[k] == v for k, v in want.items()),
             f"{name}: counters moved by {delta}, the phase counts {want}")
     require(not (resolved & ~(packed & 1).astype(bool)).any(),
@@ -624,6 +628,19 @@ def phase7_alpha_sub3(device) -> tuple[int, int]:
     print(f"  {name}: compact=True bytes identical to compact=False: "
           f"{bool(np.array_equal(compact, packed))}")
     require(np.array_equal(compact, packed), f"{name}: compact changes a byte")
+    times, uploads = {False: [], True: []}, {}
+    for on in (False, True, True, False, False, True):
+        c0 = ck.counters()["batch_uploads"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ck.check_valid_resolved(confs, compact=on)
+        times[on].append(time.perf_counter() - t0)
+        uploads[on] = ck.counters()["batch_uploads"] - c0
+        require(np.array_equal(got, resolved), f"{name}: compact={on} changes a verdict")
+    print(f"  {name}: check_valid_resolved of {len(confs)} rows in turns, compact off "
+          f"{times[False]} s ({uploads[False]} batch uploads a call), on {times[True]} s "
+          f"({uploads[True]} batch uploads a call)")
+    require(uploads[False] == 1, f"{name}: {uploads[False]} uploads a call, not 1")
     prep = mk.MegaKernelPrep.build(robot, obstacle).to(device)
     poses = mk.poses_from_confs(torch.from_numpy(confs[:512]).to(device))
     err, *_ = compare_bits(f"{name}[:512], chunked kernel vs one unchunked twin",

@@ -70,22 +70,29 @@ class ChunkedMegaKernelChecker:
     only. Verdicts are identical either way: a row it skips is one that
     chunk pair's kernel would have ended at its broad phase.
 
-    With ``mesh`` each chunk pair runs through a `ShardedChecker` over its
-    ranks.
+    By default (``compact`` off, no ``mesh``) a call stays on the device
+    until its one fetch: one upload of the batch, one K2 for the pose rows
+    every chunk pair shares, each chunk pair's K1 launch on them back to
+    back, and the bytes combined by a few device ops. With ``compact`` or
+    ``mesh`` (each chunk pair then a `ShardedChecker` over its ranks) each
+    chunk pair runs its own checker's ``check_packed`` on its rows, and the
+    bytes combine on the host.
 
     Under a profiler ``check_valid_resolved`` is the span ``rc.chunked``,
     holding ``rc.chunked.broad`` (``_broad_multi``, with ``compact`` only),
-    ``rc.chunked.pairs`` (the chunk pairs' calls, each with its own
-    ``rc.check.*`` steps, and the host combine), ``rc.chunked.resolve`` (the
-    upload of the bytes and the batch, and the resolution's issue) and
-    ``rc.chunked.fetch``; ``check_packed`` alone emits its two steps without
-    the root."""
+    ``rc.chunked.pairs`` (by default the upload, K2, the chunk pairs' K1
+    issue and the device combine; per chunk pair, each pair's
+    ``rc.check.*`` steps and the host combine), ``rc.chunked.resolve`` (the
+    resolution's issue, after the upload of the bytes and the batch per
+    chunk pair) and ``rc.chunked.fetch``; ``check_packed`` alone emits its
+    steps without the root."""
 
     def __init__(self, robot: Mesh, obstacle: Mesh, device: torch.device | str = "cuda",
                  morton: bool = True, max_rob_tris: int = MAX_ROB_TRIS,
                  max_obs_tris: int = MAX_OBS_TRIS, mesh=None):
         self.robot = robot
         self.obstacle = obstacle
+        self._sharded = mesh is not None
         if mesh is not None:
             from ..parallel.sharding import ShardedChecker
 
@@ -101,11 +108,13 @@ class ChunkedMegaKernelChecker:
         self.checkers = [build(r, o) for r in rob_chunks for o in obs_chunks]
         self.device = self.checkers[0].device
         self.resolve_tables = ResolveTables.build(robot, obstacle, self.device)
-        # Chunk pairs run and the rows handed to them, on the host; rows the
-        # resolution re-checked in float64 and those it found colliding,
-        # counted on the device. Read only by ``counters``.
+        # Chunk pairs run, the rows handed to them and the batch's copies to
+        # the device, on the host; rows the resolution re-checked in float64
+        # and those it found colliding, counted on the device. Read only by
+        # ``counters``.
         self._pair_launches = 0
         self._pair_rows = 0
+        self._uploads = 0
         self._resolved = torch.zeros((2,), dtype=torch.int64, device=self.device)
 
     @property
@@ -114,18 +123,21 @@ class ChunkedMegaKernelChecker:
 
     def counters(self) -> dict:
         """Counts since the checker was made: {"pair_launches": chunk pairs
-        run (one call of a chunk pair's checker each), "pair_rows": the rows
-        handed to them, summed over the chunk pairs, "nonfinite_rows": the
-        chunk pairs' K1 counts of non-finite rows, summed,
-        "resolved_rows" / "resolved_colliding": valid rows flagged coplanar
-        or uncertain that ``check_valid_resolved`` re-checked in float64,
-        and those of them found colliding}. One device read; no check call
-        makes it."""
+        run (a K1 launch on the shared pose rows, or one call of a chunk
+        pair's checker, each), "pair_rows": the rows handed to them, summed
+        over the chunk pairs, "batch_uploads": copies of a batch from the
+        host to the device (one a call by default; per chunk pair, one a
+        pair run, plus ``_broad_multi``'s and the resolution's),
+        "nonfinite_rows": the chunk pairs' K1 counts of non-finite rows,
+        summed, "resolved_rows" / "resolved_colliding": valid rows flagged
+        coplanar or uncertain that ``check_valid_resolved`` re-checked in
+        float64, and those of them found colliding}. One device read; no
+        check call makes it."""
         nonfinite = [getattr(ck, "_checker", ck)._nonfinite.view(1) for ck in self.checkers]
         *each, rows, colliding = torch.cat(nonfinite + [self._resolved]).tolist()
         return {"pair_launches": self._pair_launches, "pair_rows": self._pair_rows,
-                "nonfinite_rows": sum(each), "resolved_rows": rows,
-                "resolved_colliding": colliding}
+                "batch_uploads": self._uploads, "nonfinite_rows": sum(each),
+                "resolved_rows": rows, "resolved_colliding": colliding}
 
     def check_packed(self, confs: np.ndarray, chunk: int | None = None,
                      compact: bool = False) -> np.ndarray:
@@ -134,8 +146,43 @@ class ChunkedMegaKernelChecker:
         and 2 (uncertain) ORed and kept on valid rows only. (On a colliding
         row they depend on which pairs each launch reached before its
         any-hit exit, whose order the kernel's warps settle at run time;
-        nothing reads them there.) Non-finite rows get the byte 0."""
+        nothing reads them there.) Non-finite rows get the byte 0. Each
+        chunk pair's K1 runs in one launch, or in launches of ``chunk``
+        rows when given."""
+        if compact or self._sharded:
+            return self._check_pairs(validate_confs(confs), chunk, compact)
+        with span("rc.chunked.pairs"):
+            checked = self._check_on_device(confs, chunk)
+        if checked is None:
+            return np.zeros((0,), dtype=np.uint8)
+        with span("rc.chunked.fetch"):
+            return checked[1].cpu().numpy()
+
+    def _check_on_device(self, confs: np.ndarray, chunk: int | None):
+        """The default route up to its fetch: (the batch [N,6] and the
+        combined verdict bytes [N], both on the device), or None for an
+        empty batch. One upload and one K2; every chunk pair's K1 is issued
+        on the shared pose rows with its own tables and non-finite counter,
+        with no sync between launches; the bytes combine as
+        ``_check_pairs``'s do, on the device."""
         confs = validate_confs(confs)
+        n = confs.shape[0]
+        if n == 0:
+            return None
+        dev_confs = torch.from_numpy(confs).to(self.device)
+        self._uploads += 1
+        poses = poses_from_confs(dev_confs)
+        parts = torch.stack([ck._launches(poses, chunk) for ck in self.checkers])
+        self._pair_launches += self.num_chunk_pairs
+        self._pair_rows += self.num_chunk_pairs * n
+        valid = (parts & 1).amin(0)
+        flags = (parts & 2).amax(0) | (parts & 4).amax(0)
+        return dev_confs, valid | flags * valid
+
+    def _check_pairs(self, confs: np.ndarray, chunk: int | None, compact: bool) -> np.ndarray:
+        """``check_packed`` per chunk pair on validated ``confs``: each chunk
+        pair's checker on every row, or with ``compact`` on its broad-phase
+        hits alone, the bytes combined on the host."""
         n = confs.shape[0]
         valid = np.ones((n,), dtype=np.uint8)
         flags = np.zeros_like(valid)
@@ -152,6 +199,7 @@ class ChunkedMegaKernelChecker:
                 packed = ck.check_packed(confs[idx], chunk=chunk)
                 self._pair_launches += 1
                 self._pair_rows += rows
+                self._uploads += 1
                 valid[idx] &= packed & 1
                 flags[idx] |= packed & 6
             return valid | flags * valid
@@ -167,14 +215,26 @@ class ChunkedMegaKernelChecker:
         """``check_packed`` + the float64 re-check on the device, against the
         whole (unchunked) mesh pair, of the valid rows that some chunk pair
         flagged coplanar (bit 1) or uncertain (bit 2), counted in
-        ``counters``. Returns valid[N] bool."""
+        ``counters``; by default on the bytes and the batch the chunk pairs
+        left on the device, with one fetch of the verdicts. Returns valid[N]
+        bool."""
         with span("rc.chunked"):
-            confs = validate_confs(confs)
-            packed = self.check_packed(confs, chunk=chunk, compact=compact)
-            with span("rc.chunked.resolve"):
-                verdicts = resolve_rows(torch.from_numpy(packed).to(self.device),
-                                        torch.from_numpy(confs).to(self.device),
-                                        self.resolve_tables, self._resolved)
+            if compact or self._sharded:
+                confs = validate_confs(confs)
+                packed = self._check_pairs(confs, chunk, compact)
+                with span("rc.chunked.resolve"):
+                    self._uploads += 1
+                    verdicts = resolve_rows(torch.from_numpy(packed).to(self.device),
+                                            torch.from_numpy(confs).to(self.device),
+                                            self.resolve_tables, self._resolved)
+            else:
+                with span("rc.chunked.pairs"):
+                    checked = self._check_on_device(confs, chunk)
+                if checked is None:
+                    return np.zeros((0,), dtype=bool)
+                with span("rc.chunked.resolve"):
+                    verdicts = resolve_rows(checked[1], checked[0], self.resolve_tables,
+                                            self._resolved)
             with span("rc.chunked.fetch"):
                 return verdicts.cpu().numpy().view(bool)
 
@@ -189,6 +249,7 @@ class ChunkedMegaKernelChecker:
         if not confs.shape[0]:
             return out
         poses = poses_from_confs(torch.from_numpy(confs).to(self.device))
+        self._uploads += 1
         bad = _nonfinite_rows(poses, None)
         for lo in range(0, self.num_chunk_pairs, self._n_obs_chunks):
             group = self.checkers[lo : lo + self._n_obs_chunks]

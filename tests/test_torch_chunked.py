@@ -130,21 +130,52 @@ def test_chunked_matches_jax_and_unchunked(scene):
     assert (c_pairs[c_valid] >= 0).all()
 
 
+def _moved(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_compact_on_and_off_identical(scene):
+    """The default route (the chunk pairs' K1 on shared pose rows, the bytes
+    combined on the device) and ``compact=True`` (each chunk pair's checker
+    on its broad-phase hits, combined on the host) give the same bytes, and
+    both give the unchunked twin's with its flags kept on valid rows; the
+    counters count each route's chunk pairs, rows and uploads."""
     robot, obstacle, confs, caps = SCENES[scene]()
     ck = chunked.ChunkedMegaKernelChecker(_mesh(robot), _mesh(obstacle), device="cpu", **caps)
     far = confs.copy()
     far[::3, 0] += 50.0  # every third row misses every chunk
     far[5, 2] = np.nan  # a non-finite row is invalid either way
-    off, on = ck.check_packed(far, chunk=8), ck.check_packed(far, chunk=8, compact=True)
+    c0 = ck.counters()
+    off = ck.check_packed(far, chunk=8)
+    c1 = ck.counters()
+    on = ck.check_packed(far, chunk=8, compact=True)
+    c2 = ck.counters()
     np.testing.assert_array_equal(off, on)
+    twin = mk.MegaKernelChecker(_mesh(robot), _mesh(obstacle), device="cpu").check_packed(far)
+    np.testing.assert_array_equal(off, (twin & 1) | (twin & 6) * (twin & 1))
     assert on[5] == 0 and (on[::3][on[::3] > 0] == 1).all()
     hits = ck._broad_multi(far)
     assert hits.shape == (ck.num_chunk_pairs, len(far)) and hits.any() and not hits.all()
     assert hits[:, 5].all()  # the non-finite row reaches K1 in every chunk pair
-    np.testing.assert_array_equal(ck.check_valid_resolved(far, compact=True),
-                                  ck.check_valid_resolved(far))
+    pairs, run = ck.num_chunk_pairs, int(hits.any(axis=1).sum())
+    # One upload a call by default; with compact one a chunk pair run and
+    # the broad phase's. The non-finite row is counted once a chunk pair.
+    assert _moved(c0, c1) == {"pair_launches": pairs, "pair_rows": pairs * len(far),
+                              "batch_uploads": 1, "nonfinite_rows": pairs,
+                              "resolved_rows": 0, "resolved_colliding": 0}
+    assert _moved(c1, c2) == {"pair_launches": run, "pair_rows": int(hits.sum()),
+                              "batch_uploads": run + 1, "nonfinite_rows": pairs,
+                              "resolved_rows": 0, "resolved_colliding": 0}
+    c3 = ck.counters()
+    on = ck.check_valid_resolved(far, compact=True)
+    c4 = ck.counters()
+    off = ck.check_valid_resolved(far)
+    c5 = ck.counters()
+    np.testing.assert_array_equal(on, off)
+    # Plus the resolution's upload with compact; none on the default route.
+    assert _moved(c3, c4)["batch_uploads"] == run + 2 > 1
+    assert _moved(c4, c5)["batch_uploads"] == 1
 
 
 def test_bit2_in_one_chunk_pair_resolves_against_the_full_pair():
@@ -169,6 +200,31 @@ def test_bit2_in_one_chunk_pair_resolves_against_the_full_pair():
     assert ck.check_packed(zero)[0] == 0b101
     assert ck.check_valid(zero)[0][0]  # valid as computed ...
     assert not ck.check_valid_resolved(zero)[0]  # ... colliding once resolved
+    assert not j_oracle.check_configs(robot, obstacle, zero)[0]
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_flags_of_a_row_that_another_chunk_pair_finds_colliding_are_dropped(compact):
+    """The previous test's pair at the identity pose, whose one chunk pair
+    flags the row (0b101), with a triangle in a chunk of its own that
+    pierces the robot triangle: that chunk pair finds the row colliding, so
+    the combined byte is 0 on either route, not the flags alone."""
+    rt = np.array([[-88.58568, -287.5827, -148.07309], [-105.54053, -122.13013, -65.34459],
+                   [9.788717, -353.9158, -98.061005]], np.float32)
+    ot = np.array([[-163.90807, -449.27316, -312.38596], [55.186058, -181.60817, 45.36783],
+                   [-9.889383, -480.09338, -190.76962]], np.float32)
+    c = rt.mean(0)
+    n = np.cross(rt[1] - rt[0], rt[2] - rt[0])
+    n /= np.linalg.norm(n)
+    u = (rt[1] - rt[0]) / np.linalg.norm(rt[1] - rt[0])
+    pierce = np.stack([c - 10 * n + 5 * u, c - 10 * n - 5 * u, c + 10 * n]).astype(np.float32)
+    robot = Mesh(rt, np.array([[0, 1, 2]], np.int32), "r")
+    obstacle = Mesh(np.concatenate([ot, pierce]), np.arange(6, dtype=np.int32).reshape(2, 3), "o")
+    ck = chunked.ChunkedMegaKernelChecker(robot, obstacle, device="cpu", max_obs_tris=1)
+    zero = np.zeros((1, 6), np.float32)
+    assert sorted(int(c.check_packed(zero)[0]) for c in ck.checkers) == [0, 0b101]
+    assert ck.check_packed(zero, compact=compact)[0] == 0
+    assert not ck.check_valid_resolved(zero, compact=compact)[0]
     assert not j_oracle.check_configs(robot, obstacle, zero)[0]
 
 
@@ -240,20 +296,39 @@ def test_make_checker_routes_the_alpha_obstacle_at_three_rounds_to_eleven_chunk_
         assert mk.smem_bytes(tr, to // mk.GROUP) <= mk.SMEM_LIMIT
 
 
-def test_chunked_alpha_pair_equals_the_unchunked_twin_and_counts_its_pairs():
+def test_chunked_alpha_pair_equals_the_unchunked_twin_and_counts_its_pairs(monkeypatch):
     """The alpha robot against the obstacle at one round (4,032 triangles)
     in 4 obstacle chunks of 1,008: the resolved verdicts of 64 hard rows
     equal the unchunked twin's row for row (K1's twin over the whole pair,
     then the float64 resolution against it), and ``counters`` advances by 4
-    chunk pairs, 4 x 64 rows and the resolved rows."""
+    chunk pairs, 4 x 64 rows, one upload and the resolved rows. The call
+    poses the batch once and runs K1 once a chunk pair on those pose rows,
+    calling no chunk pair's ``check_packed``."""
     robot = load_obj(assets.alpha_robot_path())
     obstacle = subdivide_mesh(load_obj(assets.alpha_obstacle_path()), 1)
     ck = chunked.ChunkedMegaKernelChecker(robot, obstacle, device="cpu", max_obs_tris=1024)
     assert ck.num_chunk_pairs == 4
     confs = alpha_bot_configurations(robot, 64, hard=True, seed=2718281828)
+    calls = {"pose": [], "k1": []}
+
+    def counted(name, fn):
+        def wrapped(x, *rest):
+            calls[name].append(x.data_ptr())
+            return fn(x, *rest)
+        return wrapped
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a chunk pair's check_packed was called")
+
+    monkeypatch.setattr(chunked, "poses_from_confs", counted("pose", chunked.poses_from_confs))
+    monkeypatch.setattr(mk, "check_poses", counted("k1", mk.check_poses))
+    monkeypatch.setattr(mk.MegaKernelChecker, "check_packed", refuse)
     before = ck.counters()
     got = ck.check_valid_resolved(confs)
     after = ck.counters()
+    monkeypatch.undo()
+    assert len(calls["pose"]) == 1 and len(calls["k1"]) == 4
+    assert len(set(calls["k1"])) == 1  # the same pose rows for every chunk pair
     prep = mk.MegaKernelPrep.build(robot, obstacle).to("cpu")
     packed = mk.check_poses_reference(mk.poses_from_confs(torch.from_numpy(confs)), prep)
     counts = torch.zeros((2,), dtype=torch.int64)
@@ -264,8 +339,9 @@ def test_chunked_alpha_pair_equals_the_unchunked_twin_and_counts_its_pairs():
     # Valid rows keep the whole pair's flags, so the same rows resolve.
     np.testing.assert_array_equal(ck.check_packed(confs)[got], packed.numpy()[got])
     delta = {k: after[k] - before[k] for k in after}
-    assert delta == {"pair_launches": 4, "pair_rows": 4 * 64, "nonfinite_rows": 0,
-                     "resolved_rows": int(counts[0]), "resolved_colliding": int(counts[1])}
+    assert delta == {"pair_launches": 4, "pair_rows": 4 * 64, "batch_uploads": 1,
+                     "nonfinite_rows": 0, "resolved_rows": int(counts[0]),
+                     "resolved_colliding": int(counts[1])}
 
 
 def test_smem_bytes_pinned():

@@ -131,8 +131,10 @@ def test_resolution_runs_under_its_span_before_the_fetch():
 def test_chunked_check_emits_its_steps_in_order_with_each_pairs_steps_inside(compact):
     """A chunked ``check_valid_resolved`` is the root ``rc.chunked``:
     ``rc.chunked.broad`` (with ``compact`` only), ``rc.chunked.pairs``
-    holding each chunk pair's ``check_packed`` steps, ``rc.chunked.resolve``
-    and ``rc.chunked.fetch``; ``check_packed`` alone has no root."""
+    (holding each chunk pair's ``check_packed`` steps with ``compact``; by
+    default the chunk pairs run on the device inside it, with no step of
+    their own), ``rc.chunked.resolve`` and ``rc.chunked.fetch``;
+    ``check_packed`` alone has no root."""
     ck = ChunkedMegaKernelChecker(icosphere(1, radius=0.3, name="r"), box(name="o"),
                                   device="cpu", max_obs_tris=4)
     assert ck.num_chunk_pairs == 3
@@ -148,12 +150,13 @@ def test_chunked_check_emits_its_steps_in_order_with_each_pairs_steps_inside(com
     steps = ["rc.chunked.pairs", "rc.chunked.resolve", "rc.chunked.fetch"]
     assert _names(children) == (["rc.chunked.broad"] if compact else []) + steps
     pairs = children[-3][1]
-    assert _names(pairs) == PACKED_STEPS * pairs_run
+    assert _names(pairs) == (PACKED_STEPS * pairs_run if compact else [])
     assert all(not grand for _, grand in pairs)
     assert all(not grand for name, grand in children if name != "rc.chunked.pairs")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        ck.check_packed(confs)
-    assert _names(_tree(prof)) == ["rc.chunked.pairs"]
+        ck.check_packed(confs, compact=compact)
+    assert _names(_tree(prof)) == (["rc.chunked.broad", "rc.chunked.pairs"] if compact
+                                   else ["rc.chunked.pairs", "rc.chunked.fetch"])
 
 
 def _wave_engine():
